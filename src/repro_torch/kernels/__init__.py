@@ -1,0 +1,9 @@
+"""Kernels: plain versions (``ref``), Hopper CUDA kernels and their wrappers.
+
+``csrc/`` holds the CUDA sources; :mod:`._cuda` builds them with ``nvcc``
+at first use and counts launches (:func:`launch_counts`).
+"""
+
+from ._cuda import launch_counts, reset_launch_counts
+
+__all__ = ["launch_counts", "reset_launch_counts"]

@@ -1,0 +1,156 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the repository root
+(``.gitignore`` lists ``build/``), then loaded with ``ctypes``.  The
+hash covers the source and the flags, so an edit rebuilds and a rerun
+reuses.  Nothing is built when a module is imported: :func:`library`
+builds on the first launch, :func:`build` builds several sources at
+once (one ``nvcc`` per source, all started together).
+
+Every launch function returns ``cudaGetLastError()``; :func:`check`
+raises when it is not ``cudaSuccess``, because a refused launch (too
+much shared memory, too many threads) never runs and a later
+``synchronize`` does not report it.
+
+``LAUNCHES`` counts launches per kernel wrapper: each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that
+the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+import torch
+
+__all__ = ["SOURCES", "LAUNCHES", "launch_counts", "reset_launch_counts",
+           "build", "library", "check", "stream_of", "BUILD_LOG"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"qmatmul": CSRC / "qmatmul.cu",
+           "paged_attention": CSRC / "paged_attention.cu"}
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
+
+#: kernel wrapper name -> launches since the last reset
+LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
+                            "paged_attention_split": 0}
+#: source name -> {"seconds", "ptxas"} of the builds made by this process
+BUILD_LOG: Dict[str, dict] = {}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C signatures: every pointer and the stream as c_void_p (never a bare
+#: int, which ctypes would pass as 32 bits and cut the pointer)
+SIGNATURES = {
+    "qmatmul": {
+        "qmatmul_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                           _F, _I, _I, _I, _I, _P, _P, _P],
+    },
+    "paged_attention": {
+        "paged_attention_unsplit_launch": [_P, _P, _P, _P, _P, _P, _I, _I,
+                                           _I, _I, _I, _I, _I, _I, _F, _I,
+                                           _P],
+        "paged_attention_split_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                         _F, _I, _P],
+        "combine_splits_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME, "
+                           "/usr/local/cuda and PATH); the CUDA kernels "
+                           "are built on the machine with the card")
+    return found
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile the named sources in parallel (skipping up-to-date ones)."""
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo: List[tuple] = []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        todo.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in todo:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                           "ptxas": [ln for ln in log.splitlines()
+                                     if "ptxas info" in ln]}
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{SOURCES[name].name}:\n{log}")
+        else:
+            os.replace(tmp, out)     # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {name: _target(name) for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a launch function returned an error code."""
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
+                           f"({msg})")
+
+
+def stream_of(tensor) -> int:
+    """PyTorch's current stream on ``tensor``'s device, as an address."""
+    return torch.cuda.current_stream(tensor.device).cuda_stream

@@ -1,0 +1,71 @@
+"""Public kernel API with backend dispatch (port of ``repro.kernels.ops``).
+
+Same signatures as the reference.  ``backend=None`` takes the ambient or
+default backend, which is ``cuda``: the kernel wrappers, which run the
+plain version for CPU tensors and the Hopper kernel for CUDA tensors.
+``backend="ref"`` asks for the plain version explicitly, on any device
+(``chip_smoke.py`` uses it to hold the kernels against it on the card).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.registry import get_impl, register_op
+from ..core.tables import TableSpec
+from . import ref as _ref
+from .flash_attention import paged_attention as _paged_attention_cuda
+from .qmatmul import qmatmul as _qmatmul_cuda
+
+__all__ = ["qmatmul", "paged_attention", "sample_tokens"]
+
+register_op("qmatmul", "ref")(_ref.qmatmul_ref)
+register_op("qmatmul", "cuda")(_qmatmul_cuda)
+register_op("paged_attention", "ref")(_ref.paged_attention_ref)
+register_op("paged_attention", "cuda")(_paged_attention_cuda)
+# greedy choice is one argmax over (B, V): a library reduction on either
+# backend, as the reference leaves it to an XLA fusion (no Pallas kernel)
+register_op("sample_tokens", "ref")(_ref.sample_tokens_ref)
+register_op("sample_tokens", "cuda")(_ref.sample_tokens_ref)
+
+
+def qmatmul(a_data, b_data, a_scale, b_scale, *, bias=None,
+            act_spec: Optional[TableSpec] = None, act_gated: bool = False,
+            out_dtype=torch.float32, backend: Optional[str] = None,
+            **kw) -> torch.Tensor:
+    """Quantized matmul with optional fused epilogue (bias + LUT act)."""
+    kw = dict(kw)
+    if bias is not None:
+        kw["bias"] = bias
+    if act_spec is not None:
+        kw.update(act_spec=act_spec, act_gated=act_gated)
+    return get_impl("qmatmul", backend)(a_data, b_data, a_scale, b_scale,
+                                        out_dtype=out_dtype, **kw)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, qpos, *,
+                    softmax_scale=None, kv_split: Optional[int] = None,
+                    pages_per_step: Optional[int] = None,
+                    backend: Optional[str] = None, **kw) -> torch.Tensor:
+    """Attention over a block-table-indexed KV page pool (see
+    :func:`repro_torch.kernels.ref.paged_attention_ref` for the contract).
+
+    ``kv_split``/``pages_per_step``: the split-KV knob (None = the cost
+    model's choice).  ``(1, 1)`` is the unsplit kernel.
+    """
+    if kv_split is not None:
+        kw["kv_split"] = kv_split
+    if pages_per_step is not None:
+        kw["pages_per_step"] = pages_per_step
+    return get_impl("paged_attention", backend)(
+        q, k_pages, v_pages, block_tables, qpos,
+        softmax_scale=softmax_scale, **kw)
+
+
+def sample_tokens(logits, temperature=None, top_k=None, generator=None, *,
+                  backend: Optional[str] = None) -> torch.Tensor:
+    """Per-slot next token: (B, V) logits -> (B,) int32 (greedy only)."""
+    return get_impl("sample_tokens", backend)(logits, temperature, top_k,
+                                              generator)

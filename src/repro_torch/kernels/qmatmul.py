@@ -1,0 +1,127 @@
+"""int8 x int8 -> int32 quantized matmul with the fused epilogue.
+
+Port of ``repro.kernels.qmatmul`` (TPU: ``qmatmul_pallas``).  The Hopper
+kernel is ``csrc/qmatmul.cu``; its plain version is
+:func:`repro_torch.kernels.ref.qmatmul_ref`, re-exported here as
+:func:`qmatmul_plain`.
+
+:func:`qmatmul` is the kernel's wrapper: for CPU tensors it runs the
+plain version (that is how the CPU tests reach it), for CUDA tensors it
+launches the kernel or raises -- it never falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.tables import INDEXING, TableSpec, get_table
+from . import _cuda
+from .ref import qmatmul_ref as qmatmul_plain
+
+__all__ = ["qmatmul", "qmatmul_plain", "MAX_TABLE"]
+
+#: longest activation table the kernel keeps in shared memory
+MAX_TABLE = 8192
+#: the kernel's output tile (columns) and K tile (bytes)
+_BN, _BK = 64, 64
+
+#: per device: (SM count, int32 split-K workspace, tile tickets).  The
+#: kernel leaves both buffers zeroed after every launch, so they are
+#: allocated (zeroed) once and grown when a larger output needs them.
+_SPLITK: dict = {}
+
+
+def _splitk_plan(m: int, n: int, k: int, sms: int) -> int:
+    """How many blocks share one output tile's K range: enough to put ~2
+    blocks on every SM when the tile grid alone cannot (decode's N=2048
+    projections give 32 tiles), keeping >= 2 K tiles per block."""
+    bm = 16 if m <= 16 else 64
+    tiles = -(-n // _BN) * -(-m // bm)
+    if tiles >= sms:
+        return 1
+    return max(1, min(-(-2 * sms // tiles), -(-k // _BK) // 2))
+
+
+def _workspace(dev, m: int, n: int):
+    sms, ws, tickets = _SPLITK.get(dev, (None, None, None))
+    if sms is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-n // _BN) * -(-m // 16)
+    if ws is None or ws.numel() < m * n:
+        ws = torch.zeros(m * n, dtype=torch.int32, device=dev)
+    if tickets is None or tickets.numel() < tiles:
+        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    _SPLITK[dev] = (sms, ws, tickets)
+    return sms, ws, tickets
+
+
+def _vector(s, n: int, what: str, device) -> torch.Tensor:
+    """A scale given as scalar, (n,), (n, 1) or (1, n) -> contiguous (n,) f32."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device)
+    if s.numel() == 1:
+        return s.reshape(1).expand(n).contiguous()
+    if s.numel() != n:
+        raise ValueError(f"{what} has {s.numel()} values, expected 1 or {n}")
+    return s.reshape(n).contiguous()
+
+
+def qmatmul(a_data: torch.Tensor, b_data: torch.Tensor, a_scale, b_scale,
+            bias: Optional[torch.Tensor] = None, out_dtype=torch.float32, *,
+            act_spec: Optional[TableSpec] = None,
+            act_gated: bool = False) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 with row/column scales -> (M, N) float.
+
+    ``a_scale`` as (M, 1) or scalar, ``b_scale`` as (1, N) or scalar;
+    ``bias`` (N,); ``act_spec`` applies a LUT activation in the epilogue
+    (``act_gated``: ``y * table(y)``).  ``out_dtype`` f32 or bf16.
+    """
+    if a_data.device.type == "cpu":
+        return qmatmul_plain(a_data, b_data, a_scale, b_scale, bias,
+                             out_dtype, act_spec=act_spec, act_gated=act_gated)
+    if a_data.device.type != "cuda":
+        raise ValueError(f"qmatmul: unsupported device {a_data.device}")
+    dev = a_data.device
+    if a_data.dtype != torch.int8 or b_data.dtype != torch.int8:
+        raise TypeError(f"qmatmul takes int8 operands, got {a_data.dtype} "
+                        f"and {b_data.dtype}")
+    if a_data.ndim != 2 or b_data.ndim != 2 \
+            or a_data.shape[1] != b_data.shape[0]:
+        raise ValueError(f"qmatmul shapes {tuple(a_data.shape)} x "
+                         f"{tuple(b_data.shape)} do not chain")
+    if b_data.device != dev:
+        raise ValueError("qmatmul operands live on different devices")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qmatmul writes f32 or bf16, not {out_dtype}")
+    m, k = a_data.shape
+    n = b_data.shape[1]
+    a = a_data.contiguous()
+    b = b_data.contiguous()
+    sa = _vector(a_scale, m, "a_scale", dev)
+    sb = _vector(b_scale, n, "b_scale", dev)
+    bias_t = None if bias is None else _vector(bias, n, "bias", dev)
+    table, table_n, lo, step_inv, indexing = None, 0, 0.0, 0.0, 0
+    if act_spec is not None:
+        if act_spec.n > MAX_TABLE:
+            raise ValueError(f"activation table of {act_spec.n} entries "
+                             f"exceeds the kernel's {MAX_TABLE}")
+        table = get_table(act_spec).values(dev)
+        table_n, lo = act_spec.n, act_spec.lo
+        step_inv = 1.0 / act_spec.step          # once, on the host
+        indexing = INDEXING.index(act_spec.indexing)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib = _cuda.library("qmatmul")
+    sms, ws, tickets = _workspace(dev, m, n)
+    err = lib.qmatmul_launch(
+        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+        None if bias_t is None else bias_t.data_ptr(),
+        None if table is None else table.data_ptr(), out.data_ptr(),
+        m, n, k, table_n, lo, step_inv, indexing, int(bool(act_gated)),
+        int(out_dtype == torch.bfloat16), _splitk_plan(m, n, k, sms),
+        ws.data_ptr(), tickets.data_ptr(), _cuda.stream_of(out))
+    _cuda.check(lib, err, "qmatmul")
+    _cuda.LAUNCHES["qmatmul"] += 1
+    return out

@@ -1,0 +1,209 @@
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
+
+Each function mirrors its ``repro.kernels.ref`` counterpart op for op and
+runs on any device.  They are the ``ref`` backend of the registry, what
+a kernel wrapper runs when it is handed CPU tensors, and what
+``chip_smoke.py`` holds every CUDA kernel against on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.tables import TableSpec, get_table, table_lookup
+
+__all__ = ["lut_activation_ref", "qmatmul_ref", "paged_attention_ref",
+           "paged_attention_split_ref", "combine_splits",
+           "sample_tokens_ref"]
+
+_NEG = -1e30
+
+
+def lut_activation_ref(x: torch.Tensor, spec: TableSpec) -> torch.Tensor:
+    """Table-lookup activation: gather from a build-time constant table."""
+    return table_lookup(x, get_table(spec).values(x.device), spec.lo,
+                        spec.hi, spec.indexing)
+
+
+def int8_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x (K, N) int8 -> (M, N) int32, exactly.
+
+    Neither CPU nor CUDA PyTorch offers a general int32 matmul, so the
+    product runs in float64: every partial sum is an integer below
+    2**53 (|a*b| <= 2**14, K << 2**39), hence exact, and the cast back
+    recovers the int32 accumulator bit for bit.
+    """
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+
+
+def qmatmul_ref(a_data: torch.Tensor, b_data: torch.Tensor,
+                a_scale, b_scale, bias: Optional[torch.Tensor] = None,
+                out_dtype=torch.float32, *,
+                act_spec: Optional[TableSpec] = None,
+                act_gated: bool = False) -> torch.Tensor:
+    """int8 x int8 -> int32 -> ``acc.f32 * sa * sb`` (+ bias) (-> LUT).
+
+    ``a_scale`` broadcasts as (M, 1) or scalar, ``b_scale`` as (1, N) or
+    scalar; ``act_gated`` gives ``y * table(y)``.
+    """
+    dev = a_data.device
+    acc = int8_matmul_exact(a_data, b_data)
+    sa = torch.as_tensor(a_scale, dtype=torch.float32, device=dev)
+    sb = torch.as_tensor(b_scale, dtype=torch.float32, device=dev)
+    y = acc.to(torch.float32) * sa * sb
+    if bias is not None:
+        y = y + torch.as_tensor(bias, dtype=torch.float32,
+                                device=dev).reshape(1, -1)
+    if act_spec is not None:
+        z = lut_activation_ref(y, act_spec)
+        y = y * z if act_gated else z
+    return y.to(out_dtype)
+
+
+def combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """Log-sum-exp merge of per-partition online-softmax partials.
+
+    ``acc`` (split, ..., rows, d), ``m``/``l`` (split, ..., rows, 1).
+    Dead partitions (``m = -1e30, l = 0``) weigh exactly 0.  The same
+    formula as ``repro.kernels.flash_attention.combine_splits``.
+    """
+    m_star = torch.amax(m, dim=0)
+    alpha = torch.exp(m - m_star[None])
+    l_star = torch.sum(alpha * l, dim=0)
+    acc_star = torch.sum(alpha * acc, dim=0)
+    return acc_star, m_star, l_star
+
+
+def _fold(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, Hq, S, D) -> (B, Hkv, group*S, D), query heads group-major."""
+    b, hq, s, d = q.shape
+    return q.reshape(b, hkv, hq // hkv, s, d).reshape(b, hkv, hq // hkv * s, d)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, qpos, *,
+                              softmax_scale: Optional[float] = None,
+                              kv_split: int = 1,
+                              pages_per_step: int = 1) -> torch.Tensor:
+    """Split-KV flash decoding, op for op (the split kernel's oracle).
+
+    The table is padded to ``split * nt * t`` entries pointing at page 0
+    (always masked), cut into ``split`` partitions of ``nt`` tiles of
+    ``t`` pages; each partition runs the online ``(m, l, acc)`` update
+    per tile under the ``-1e30`` mask, and :func:`combine_splits` merges
+    them.  Vectorised over batch, KV heads and partitions (the reference
+    loops over them in Python); the per-element arithmetic is the same.
+    """
+    b, hq, s, d = q.shape
+    _, hkv, ps, _ = k_pages.shape
+    np_ = block_tables.shape[1]
+    assert hq % hkv == 0
+    rows = hq // hkv * s
+    scale = (softmax_scale if softmax_scale is not None
+             else float(1.0 / np.sqrt(d)))
+    dev = q.device
+
+    t = max(1, min(int(pages_per_step), np_))
+    tiles = -(-np_ // t)
+    split = max(1, min(int(kv_split), tiles))
+    nt = -(-tiles // split)
+    np_pad = split * nt * t
+    bt = block_tables.to(torch.int64)
+    if np_pad > np_:
+        bt = torch.nn.functional.pad(bt, (0, np_pad - np_))
+    bt = bt.reshape(b, split, nt, t)
+    qf = _fold(q, hkv).to(torch.float32) * scale            # (B, H, R, D)
+    qp = (qpos.to(torch.int64)[:, None]
+          + torch.arange(rows, device=dev) % s)             # (B, R)
+    heads = torch.arange(hkv, device=dev)
+
+    m = torch.full((b, split, hkv, rows, 1), _NEG, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, split, hkv, rows, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, split, hkv, rows, d), dtype=torch.float32,
+                      device=dev)
+    for it in range(nt):
+        idx = bt[:, :, it]                                   # (B, S, t)
+        # (B, S, t, H, ps, D) -> (B, S, H, t*ps, D)
+        k = k_pages[idx[..., None], heads].permute(0, 1, 3, 2, 4, 5) \
+            .reshape(b, split, hkv, t * ps, d).to(torch.float32)
+        v = v_pages[idx[..., None], heads].permute(0, 1, 3, 2, 4, 5) \
+            .reshape(b, split, hkv, t * ps, d).to(torch.float32)
+        logits = torch.einsum("bhrd,bshkd->bshrk", qf, k)
+        base = (torch.arange(split, device=dev) * nt + it) * t * ps
+        kvpos = base[:, None] + torch.arange(t * ps, device=dev)[None, :]
+        mask = kvpos[None, :, None, None, :] <= qp[:, None, None, :, None]
+        logits = torch.where(mask, logits, _NEG)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bshrk,bshkd->bshrd", p, v)
+        m = m_new
+    acc_star, _, l_star = combine_splits(acc.transpose(0, 1),
+                                         m.transpose(0, 1),
+                                         l.transpose(0, 1))
+    out = acc_star / torch.clamp_min(l_star, 1e-30)
+    return out.to(q.dtype).reshape(b, hkv, hq // hkv, s, d).reshape(b, hq, s, d)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, qpos, *,
+                        softmax_scale: Optional[float] = None,
+                        kv_split: Optional[int] = None,
+                        pages_per_step: Optional[int] = None) -> torch.Tensor:
+    """Block-table-indexed attention (decode S == 1, chunked prefill S > 1).
+
+    q (B, Hq, S, D); pages (P, Hkv, page_size, D); block_tables (B, NP);
+    qpos (B,) -- query row ``i`` of batch ``b`` sits at ``qpos[b] + i``
+    and sees kv positions ``<= qpos[b] + i`` (write-before-attend).
+    Masked positions use a finite ``-1e30``.  Knobs > 1 route through
+    :func:`paged_attention_split_ref`, as in the reference.
+    """
+    if (kv_split or 1) > 1 or (pages_per_step or 1) > 1:
+        return paged_attention_split_ref(
+            q, k_pages, v_pages, block_tables, qpos,
+            softmax_scale=softmax_scale, kv_split=kv_split or 1,
+            pages_per_step=pages_per_step or 1)
+    b, hq, s, d = q.shape
+    _, hkv, ps, _ = k_pages.shape
+    np_ = block_tables.shape[1]
+    group = hq // hkv
+    assert hq % hkv == 0
+    scale = (softmax_scale if softmax_scale is not None
+             else 1.0 / np.sqrt(d))
+    dev = q.device
+    bt = block_tables.to(torch.int64)
+
+    def gather(pages):                       # (P, Hkv, ps, D) -> contiguous
+        g = pages[bt]                        # (B, NP, Hkv, ps, D)
+        return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, np_ * ps,
+                                                pages.shape[-1])
+
+    k = gather(k_pages).to(torch.float32)
+    v = gather(v_pages).to(torch.float32)
+    qg = q.reshape(b, hkv, group, s, d).to(torch.float32)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k) * scale
+    kvpos = torch.arange(np_ * ps, device=dev)[None, None, :]
+    visible = kvpos <= (qpos.to(torch.int64)[:, None]
+                        + torch.arange(s, device=dev)[None, :])[:, :, None]
+    logits = torch.where(visible[:, None, None], logits, _NEG)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", w, v)
+    return out.reshape(b, hq, s, v.shape[-1]).to(q.dtype)
+
+
+def sample_tokens_ref(logits: torch.Tensor, temperature=None, top_k=None,
+                      generator=None) -> torch.Tensor:
+    """Greedy token choice: (B, V) logits -> (B,) int32 first-argmax ids.
+
+    Sampled streams (temperature > 0) need the reference's threefry
+    noise and are not ported yet (ROADMAP.md queue 1).
+    """
+    if generator is not None:
+        raise NotImplementedError(
+            "sampled decoding is not ported yet (ROADMAP.md queue 1, item "
+            "6: threefry fold_in/gumbel parity); only greedy is supported")
+    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)

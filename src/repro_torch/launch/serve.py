@@ -1,0 +1,581 @@
+"""Serving engine: batched chunked prefill, the fused greedy decode block
+and continuous batching over a paged KV cache (port of the core of
+``repro.launch.serve``).
+
+* **Weights are quantized once** (``--quant int8``): :func:`quantize_for_serving`
+  runs ``ptq_params`` before serving; every projection then runs the
+  ``qmatmul`` kernel on int8 payloads.
+* **Batched chunked prefill**: admitted prompts advance together, one
+  full-batch model call per ``prefill_chunk`` tokens.  Lanes that are
+  still generating keep their position; their chunk writes land at or
+  past it (never attended before decode overwrites them) or on the trash
+  page.
+* **Device-resident decode**: ``step_many(n)`` runs ``n`` greedy steps
+  whose tokens, positions, live mask and fault lane stay on the card,
+  with one host sync per block.
+* **Continuous batching**: ``submit`` queues requests; each block
+  boundary retires finished lanes and admits the queue head (FIFO) as
+  soon as a lane and enough free pages exist.
+* **Paged KV cache** with the split-KV knob resolved once per geometry,
+  exactly as the reference resolves it; ``stats()`` reports the knob
+  and the kernel launch counts.
+
+Out of this slice (ROADMAP.md): the dense cache, sampled decoding,
+speculative decoding, prefix caching, preemption, priorities, the
+durable journal, the fleet, the autotuner and non-``lm`` families.  The
+CLI refuses their flags by name.
+
+Usage::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+        --quant int8 --paged --batch 8 --prompt-len 128 --gen-len 32 \\
+        --requests 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..core.precision import PrecisionPolicy
+from ..core.qtypes import FixedPointType
+from ..core.quantize import ptq_params
+from ..data.pipeline import SyntheticLM
+from ..kernels import launch_counts
+from ..kernels.flash_attention import _resolve_knobs
+from ..models.api import get_family, init_paged_cache_fn, set_block_table
+from ..nn.context import QuantContext
+from ..train.step import build_decode_loop, build_prefill_step
+from .lifecycle import RequestStatus, request_row, validate_request
+from .lifecycle import now as _now
+from .paging import PageAllocator
+
+__all__ = ["Engine", "resolve_device", "quantize_for_serving",
+           "prepare_params", "build_ctx", "main"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; never a silent CPU run."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port serves on the GPU; pass "
+                "device='cpu' (CLI: --device cpu) to run the plain kernel "
+                "versions on the CPU")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           f"available")
+    return device
+
+
+def _to(tree, device):
+    from ..core.qtypes import QTensor
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.data.to(device), tree.scale.to(device), tree.qtype)
+    return tree.to(device)
+
+
+def prepare_params(params, ctx: QuantContext, device):
+    """Params on ``device``, with the (tied) embedding table cast once to
+    the compute dtype.  Both ``embed`` and ``unembed`` cast the table
+    elementwise before use, so casting it ahead changes no value -- it
+    only stops every step from converting 256000 x 2048 floats."""
+    params = _to(params, device)
+    emb = dict(params["embed"])
+    emb["table"] = emb["table"].to(ctx.compute_dtype)
+    return dict(params, embed=emb)
+
+
+def quantize_for_serving(params, ctx: QuantContext):
+    """PTQ the parameter tree once, before serving."""
+    return ptq_params(params, ctx.policy)
+
+
+class Engine:
+    """Slot-based continuous batching over chunked prefill and fused greedy
+    decode blocks, on a paged KV cache.
+
+    ``kv_split`` / ``pages_per_step``: ``"auto"`` (the cost model, as the
+    reference), or explicit integers; ``kv_split=1, pages_per_step=1`` is
+    the unsplit kernel.  ``device``: None means ``cuda`` (raises without
+    a GPU); pass ``"cpu"`` to run the plain versions on the CPU.
+    """
+
+    def __init__(self, cfg, ctx: QuantContext, params, *, batch: int,
+                 max_len: int, prefill_chunk: int = 16, eos_id: int = -1,
+                 seed: int = 0, paged: bool = True, page_size: int = 16,
+                 num_pages: Optional[int] = None, kv_split="auto",
+                 pages_per_step="auto", autotune: str = "off", device=None):
+        if not paged:
+            raise NotImplementedError(
+                "the dense (non-paged) KV cache is not ported yet "
+                "(ROADMAP.md queue 1, item 4); pass paged=True")
+        if autotune != "off":
+            raise NotImplementedError(
+                f"autotune={autotune!r}: the autotuner is not ported yet "
+                f"(ROADMAP.md queue 1, item 9); use 'off'")
+        get_family(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.batch, self.max_len = batch, max_len
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.seed = seed
+        self.params = prepare_params(params, ctx, self.device)
+        margin = self.prefill_chunk
+        ps = max(1, int(page_size))
+        if num_pages is None:
+            num_pages = -(-(batch * max_len) // ps)
+        self.allocator = PageAllocator(num_pages, ps)
+        self._trash = num_pages              # reserved garbage page id
+        # the table covers every reachable write position: decode holds a
+        # dead lane at pos <= max_len; prefill margin writes reach
+        # max_len + margin - 1
+        width = -(-(max_len + max(margin, 1)) // ps)
+        self.block_tables = np.full((batch, width), self._trash, np.int32)
+        self._slot_pages: Dict[int, List[int]] = {}
+        self._bt_dirty = False
+        self.cache = init_paged_cache_fn(cfg, batch, num_pages, ps, width,
+                                         torch.float32, self.device)
+        # split-KV knob: explicit engine kwarg > ctx > cost model
+        req_t = (int(pages_per_step) if pages_per_step not in (None, "auto")
+                 else ctx.pages_per_step)
+        req_s = (int(kv_split) if kv_split not in (None, "auto")
+                 else ctx.kv_split)
+        hkv = cfg.n_kv_heads or cfg.n_heads or 1
+        t, split = _resolve_knobs(width, ps, max(1, hkv), batch, req_s, req_t)
+        self.kv_split, self.pages_per_step = split, t
+        self.ctx = dataclasses.replace(ctx, kv_split=split, pages_per_step=t)
+        self.prefill = build_prefill_step(cfg, self.ctx)
+        self._loops: Dict[int, callable] = {}
+        self.pos = np.zeros((batch,), np.int32)
+        self.live = np.zeros((batch,), bool)
+        self.tokens = np.zeros((batch, 1), np.int32)
+        self.stop_pos = np.full((batch,), max_len, np.int32)
+        self.eos_id = int(eos_id)
+        self.outputs: List[Optional[list]] = [None] * batch
+        self.done: List[list] = []
+        self.waiting: deque = deque()
+        self.counters = {"peak_live": 0, "admitted": 0, "gen_tokens": 0,
+                         "decode_s": 0.0, "failures": 0}
+        self.request_log: List[dict] = []
+        self._req_meta: Dict[int, dict] = {}
+        self.results: Dict[int, dict] = {}
+        self._next_id = 0
+        self.clock = _now
+
+    # -- admission ------------------------------------------------------------
+    def add_requests(self, requests: Dict[int, np.ndarray], *,
+                     gen_len=None, temperature=None, _t_submit=None,
+                     _ids=None):
+        """Prefill several fresh slots together (batched chunked prefill).
+
+        ``gen_len`` (scalar or ``{slot: v}``) bounds generation
+        (``stop_pos = min(prompt_len + gen_len, max_len)``).  The whole
+        token budget's pages are allocated here (MemoryError when the
+        pool is short; queue through :meth:`submit` to wait instead).
+        An empty prompt is a single pad token (id 0).
+        """
+        t_call = self.clock()
+        reqs = {int(s): validate_request(p, vocab=self.cfg.vocab,
+                                         temperature=temperature)
+                for s, p in requests.items()}
+        self._greedy_only(temperature)
+        for s, p in reqs.items():
+            if p.shape[0] > self.max_len:
+                raise ValueError(
+                    f"prompt of {p.shape[0]} tokens does not fit the cache "
+                    f"(max_len={self.max_len}); refusing to clamp-write "
+                    f"the tail")
+            if p.size == 0:
+                reqs[s] = np.zeros((1,), np.int32)
+        if not reqs:
+            return
+
+        def per_slot(v, s, default):
+            if v is None:
+                return default
+            return v.get(s, default) if isinstance(v, dict) else v
+
+        def stop_of(s, plen):
+            return self._token_budget(plen, per_slot(gen_len, s, None))
+
+        needs = {s: self.allocator.pages_for(stop_of(s, p.shape[0]))
+                 for s, p in reqs.items()}
+        recyclable = sum(len(self._slot_pages.get(s, ())) for s in reqs)
+        if sum(needs.values()) - self.allocator.free_pages - recyclable > 0:
+            raise MemoryError(
+                f"page pool exhausted: admission needs "
+                f"{sum(needs.values())} pages, free "
+                f"{self.allocator.free_pages} of {self.allocator.num_pages} "
+                f"(queue through submit() to wait for pages)")
+        for s in reqs:
+            if s in self._slot_pages:
+                self.allocator.free(self._slot_pages.pop(s))
+        for s in reqs:
+            pages = self.allocator.alloc(needs[s], owner=s)
+            self._slot_pages[s] = pages
+            self.block_tables[s, :] = self._trash
+            self.block_tables[s, :len(pages)] = pages
+        self._flush_block_tables()
+
+        first = self._prefill_chunked(reqs)
+        t_first = self.clock()
+        for s, p in reqs.items():
+            self.pos[s] = p.shape[0]
+            self.live[s] = True
+            self.outputs[s] = []
+            self.tokens[s, 0] = first[s]
+            self.stop_pos[s] = stop_of(s, p.shape[0])
+            t_sub = (_t_submit or {}).get(s, t_call)
+            rid = (_ids or {}).get(s)
+            if rid is None:
+                rid = self._mint_id()
+            self._req_meta[s] = {"id": rid, "ttft_s": t_first - t_sub,
+                                 "t_admit": t_first}
+        self.counters["admitted"] += len(reqs)
+        self.counters["peak_live"] = max(self.counters["peak_live"],
+                                         int(self.live.sum()))
+
+    @staticmethod
+    def _greedy_only(temperature) -> None:
+        vals = (temperature.values() if isinstance(temperature, dict)
+                else [temperature])
+        if any(v is not None and float(v) > 0 for v in vals):
+            raise NotImplementedError(
+                "sampled decoding (temperature > 0) is not ported yet "
+                "(ROADMAP.md queue 1, item 6); only greedy is served")
+
+    def _flush_block_tables(self):
+        """Upload the host block table into every layer's table (one copy
+        covering every edit since the last flush)."""
+        set_block_table(self.cache, torch.from_numpy(
+            self.block_tables.copy()).to(self.device))
+        self._bt_dirty = False
+
+    def _mint_id(self) -> int:
+        rid = self._next_id
+        self._next_id += 1
+        return rid
+
+    def submit(self, prompt: np.ndarray, *, gen_len: Optional[int] = None,
+               temperature: float = 0.0) -> int:
+        """Queue a request; returns its id (the key of ``results``)."""
+        prompt = validate_request(prompt, vocab=self.cfg.vocab,
+                                  temperature=temperature)
+        self._greedy_only(temperature)
+        if prompt.shape[0] > self.max_len:
+            raise ValueError(
+                f"prompt of {prompt.shape[0]} tokens does not fit the "
+                f"cache (max_len={self.max_len})")
+        req = {"id": self._mint_id(), "prompt": prompt, "gen_len": gen_len,
+               "t_submit": self.clock()}
+        need = self.allocator.pages_for(self._budget(req))
+        if need > self.allocator.num_pages:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.allocator.num_pages}; raise num_pages or lower "
+                f"gen_len")
+        self.waiting.append(req)
+        return req["id"]
+
+    def _token_budget(self, plen: int, gen_len: Optional[int]) -> int:
+        """A request's cache-row budget, i.e. its final ``stop_pos``."""
+        plen = max(1, int(plen))
+        return min(plen + gen_len, self.max_len) if gen_len is not None \
+            else self.max_len
+
+    def _budget(self, req) -> int:
+        return self._token_budget(len(req["prompt"]), req["gen_len"])
+
+    def retire_finished(self) -> int:
+        """finish() every lane whose generation ended."""
+        n = 0
+        for s in range(self.batch):
+            if self.outputs[s] is not None and not self.live[s]:
+                self.finish(s)
+                n += 1
+        return n
+
+    def try_admit(self) -> int:
+        """Admit queued requests into free lanes while pages last: FIFO, no
+        head-of-line skipping; one batched prefill for all of them."""
+        free = [s for s in range(self.batch)
+                if self.outputs[s] is None and not self.live[s]]
+        admit: Dict[int, np.ndarray] = {}
+        kw = {"gen_len": {}, "_t_submit": {}, "_ids": {}}
+        planned = 0
+        while self.waiting and free:
+            req = self.waiting[0]
+            need = self.allocator.pages_for(self._budget(req))
+            if not self.allocator.can_alloc(planned + need):
+                break
+            self.waiting.popleft()
+            s = free.pop(0)
+            planned += need
+            admit[s] = req["prompt"]
+            kw["gen_len"][s] = req["gen_len"]
+            kw["_t_submit"][s] = req["t_submit"]
+            kw["_ids"][s] = req["id"]
+        if admit:
+            self.add_requests(admit, **kw)
+        return len(admit)
+
+    def _prefill_chunked(self, reqs) -> Dict[int, int]:
+        """Batched chunked prefill; returns each slot's first token.
+
+        Everything a chunk needs is uploaded once and the per-chunk
+        argmaxes stay on the device, so the whole prefill costs one host
+        sync (the reference reads every chunk's logits back).
+        """
+        chunk = self.prefill_chunk
+        plen = max(p.shape[0] for p in reqs.values())
+        padded = -(-plen // chunk) * chunk
+        toks = np.zeros((self.batch, padded), np.int32)
+        fresh = np.zeros((self.batch,), bool)
+        for s, p in reqs.items():
+            toks[s, :p.shape[0]] = p
+            fresh[s] = True
+        toks_d = torch.from_numpy(toks).to(self.device)
+        fresh_d = torch.from_numpy(fresh).to(self.device)
+        # lanes mid-generation keep their own position
+        pos_d = torch.from_numpy(self.pos.copy()).to(self.device)
+        picks = []
+        for c0 in range(0, padded, chunk):
+            if c0 >= plen:
+                break
+            cur = torch.where(fresh_d, c0, pos_d).to(torch.int32)
+            logits, self.cache = self.prefill(
+                self.params, {"tokens": toks_d[:, c0:c0 + chunk]},
+                self.cache, cur)
+            picks.append(torch.argmax(logits.to(torch.float32), dim=-1))
+        ids = torch.cat(picks, dim=1).cpu().numpy()
+        return {s: int(ids[s, p.shape[0] - 1]) for s, p in reqs.items()}
+
+    # -- decode / retire --------------------------------------------------------
+    def step_many(self, n: int):
+        """Run ``n`` fused greedy decode steps, sync once.
+
+        Returns ``(block, block_live)``, (n, B) emitted tokens and their
+        validity.  Lanes whose logits went non-finite are finished with
+        status FAILED and their valid prefix.  With requests waiting,
+        finished lanes are retired and the queue admitted at the end.
+        """
+        if self._bt_dirty:
+            self._flush_block_tables()
+        t0 = self.clock()
+        block, block_live, fault = self._block_decode(n)
+        t1 = self.clock()
+        self.counters["decode_s"] += t1 - t0
+        self.counters["gen_tokens"] += int(block_live.sum())
+        for s in range(self.batch):
+            if not self.live[s] and s in self._req_meta:
+                self._req_meta[s].setdefault("t_done", t1)
+        for s in range(self.batch):
+            if self.outputs[s] is not None:
+                self.outputs[s].extend(
+                    int(t) for t in block[block_live[:, s], s])
+        for s in np.where(fault)[0]:
+            if self.outputs[s] is not None:
+                self.live[s] = False
+                self.finish(int(s), status=RequestStatus.FAILED)
+        if self.waiting:
+            self.retire_finished()
+            self.try_admit()
+        return block, block_live
+
+    def _block_decode(self, n: int):
+        """One fused decode block: one upload, ``n`` steps, one download."""
+        loop = self._loops.get(n)
+        if loop is None:
+            loop = build_decode_loop(self.cfg, self.ctx, n)
+            self._loops[n] = loop
+        b = self.batch
+        state = torch.from_numpy(np.concatenate([
+            self.tokens[:, 0], self.pos, self.live.astype(np.int32),
+            self.stop_pos]).astype(np.int32)).to(self.device)
+        tokens, pos, live, stop_pos = state.split(b)
+        self.cache, tokens, pos, live, block, block_live, fault = loop(
+            self.params, self.cache, tokens[:, None].contiguous(), pos,
+            live.bool(), stop_pos, self.eos_id)
+        out = torch.cat([block.reshape(-1), block_live.reshape(-1).int(),
+                         tokens.reshape(-1), pos, live.int(),
+                         fault.int()]).cpu().numpy()      # the one host sync
+        block = out[:n * b].reshape(n, b)
+        block_live = out[n * b:2 * n * b].reshape(n, b).astype(bool)
+        rest = out[2 * n * b:].reshape(4, b)
+        self.tokens = rest[0][:, None].astype(np.int32).copy()
+        self.pos = rest[1].astype(np.int32).copy()
+        self.live = rest[2].astype(bool).copy()
+        return block, block_live, rest[3].astype(bool)
+
+    def step(self):
+        """Per-token decode: the n=1 block."""
+        return self.step_many(1)
+
+    def finish(self, slot: int,
+               status: RequestStatus = RequestStatus.COMPLETED):
+        """Retire ``slot``: its tokens land in ``results[req_id]``, its pages
+        return to the free list and its table row points at the trash
+        page (the device table is rewritten lazily, once per sweep)."""
+        meta = self._req_meta.pop(slot, None)
+        if meta is not None:
+            done = meta.get("t_done", self.clock())
+            self.request_log.append(request_row(
+                ttft_s=meta["ttft_s"],
+                gen_tokens=len(self.outputs[slot] or []),
+                decode_s=done - meta["t_admit"], status=status))
+            self.results[meta["id"]] = {
+                "status": status, "tokens": list(self.outputs[slot] or [])}
+            if status is RequestStatus.FAILED:
+                self.counters["failures"] += 1
+        self.done.append(self.outputs[slot])
+        self.outputs[slot] = None
+        self.live[slot] = False
+        self.pos[slot] = 0
+        self.stop_pos[slot] = self.max_len
+        self.allocator.free(self._slot_pages.pop(slot, []))
+        self.block_tables[slot, :] = self._trash
+        self._bt_dirty = True
+
+    # -- telemetry ----------------------------------------------------------------
+    def stats(self) -> dict:
+        """Serving telemetry: TTFT (submit -> first token), decode tokens
+        per second of block wall time (syncs included), the resolved
+        split-KV knob and the kernel launch counts since the last reset."""
+        c = self.counters
+        out = {"requests": len(self.done), "admitted": c["admitted"],
+               "peak_live": c["peak_live"], "gen_tokens": c["gen_tokens"],
+               "decode_s": c["decode_s"],
+               "decode_tok_per_s": (c["gen_tokens"] / c["decode_s"]
+                                    if c["decode_s"] > 0 else None),
+               "kv_split": self.kv_split,
+               "pages_per_step": self.pages_per_step,
+               "queued": len(self.waiting), "failures": c["failures"],
+               "device": str(self.device),
+               "kernel_launches": launch_counts()}
+        if self.request_log:
+            out["ttft_mean_s"] = float(np.mean(
+                [r["ttft_s"] for r in self.request_log]))
+            rates = [r["tok_per_s"] for r in self.request_log
+                     if r["tok_per_s"] is not None]
+            out["req_tok_per_s_mean"] = (float(np.mean(rates))
+                                         if rates else None)
+        return out
+
+
+def build_ctx(args) -> QuantContext:
+    """QuantContext from CLI flags (the reference's ``launch.train.build_ctx``)."""
+    policy = PrecisionPolicy()
+    if args.quant != "none":
+        qt = FixedPointType(args.qbits, max(args.qbits // 2, 2))
+        policy = PrecisionPolicy.uniform(qt)
+    return QuantContext(mode=args.quant, policy=policy,
+                        compute_dtype=(torch.float32 if args.f32
+                                       else torch.bfloat16))
+
+
+#: reference CLI flags outside this slice -> the ROADMAP.md item porting them
+_REFUSED = {"--spec": "queue 1, item 8", "--prefix-cache": "queue 1, item 11",
+            "--preempt": "queue 1, item 10",
+            "--durable-dir": "queue 1, item 12", "--lut": "queue 2, item 4",
+            "--kv-bits": "queue 1, item 4", "--replicas": "queue 1, item 13"}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve a model with the PyTorch/CUDA port (greedy, paged).")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--quant", default="none", choices=["none", "int8"])
+    ap.add_argument("--qbits", type=int, default=8)
+    ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--decode-block", type=int, default=8)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache (required: the dense cache is not "
+                         "ported yet)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--kv-split", default="auto")
+    ap.add_argument("--pages-per-step", default="auto")
+    ap.add_argument("--autotune", default="off")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (plain versions)")
+    for flag in _REFUSED:
+        ap.add_argument(flag, nargs="?", const=True, default=None,
+                        help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag, item in _REFUSED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
+    if not args.paged:
+        ap.error("the dense KV cache is not ported yet: pass --paged "
+                 "(ROADMAP.md queue 1, item 4)")
+    if args.autotune != "off":
+        ap.error("--autotune other than 'off' is not ported yet "
+                 "(ROADMAP.md queue 1, item 9)")
+    if args.temperature > 0:
+        ap.error("temperature > 0 is not ported yet: greedy only "
+                 "(ROADMAP.md queue 1, item 6)")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    ctx = build_ctx(args)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = get_family(cfg).init(gen, cfg, device=device)
+    if args.quant == "int8":
+        params = quantize_for_serving(params, ctx)
+
+    def knob(v):
+        return "auto" if v == "auto" else int(v)
+
+    eng = Engine(cfg, ctx, params, batch=args.batch,
+                 max_len=args.prompt_len + args.gen_len + 1,
+                 prefill_chunk=args.prefill_chunk, seed=args.seed,
+                 paged=True, page_size=args.page_size,
+                 num_pages=args.num_pages, kv_split=knob(args.kv_split),
+                 pages_per_step=knob(args.pages_per_step), device=device)
+    src = SyntheticLM(cfg.vocab, seed=args.seed)
+    prompts = [src.tokens(i, 1, args.prompt_len)[0, :-1]
+               for i in range(args.requests)]
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, gen_len=args.gen_len)
+    eng.try_admit()
+    gen_tokens = 0
+    while eng.live.any() or eng.waiting:
+        _, block_live = eng.step_many(max(1, args.decode_block))
+        gen_tokens += int(block_live.sum())
+    eng.retire_finished()
+    dt = time.perf_counter() - t0
+    print(f"served {len(eng.done)} requests, {gen_tokens} tokens in "
+          f"{dt:.2f}s ({gen_tokens / dt:.1f} tok/s), quant={args.quant} "
+          f"device={device} paged(ps={eng.allocator.page_size},"
+          f"pages={eng.allocator.num_pages},kv_split={eng.kv_split},"
+          f"pages_per_step={eng.pages_per_step})")
+    print(json.dumps(eng.stats(), default=str))
+    return eng.done
+
+
+if __name__ == "__main__":
+    main()

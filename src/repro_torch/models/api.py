@@ -1,0 +1,54 @@
+"""Family registry (port of ``repro.models.api``; the ``lm`` family only)."""
+
+from __future__ import annotations
+
+from types import ModuleType
+
+import torch
+
+from . import lm
+
+__all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
+           "init_paged_cache_fn", "set_block_table"]
+
+FAMILIES = {"lm": lm}
+
+
+def get_family(cfg) -> ModuleType:
+    try:
+        return FAMILIES[cfg.family]
+    except KeyError:
+        raise KeyError(f"family {cfg.family!r} is not ported yet (have "
+                       f"{sorted(FAMILIES)}; ROADMAP.md queue 1)") from None
+
+
+def prefill_fn(params, batch, cache, cfg, ctx, *, pos=None,
+               full_logits: bool = False):
+    """Family-dispatched (chunked) prefill; ``batch`` = {"tokens": (B, S)}."""
+    return get_family(cfg).prefill(params, batch["tokens"], cache, cfg, ctx,
+                                   pos=pos, full_logits=full_logits)
+
+
+def decode_fn(params, tokens, cache, pos, cfg, ctx):
+    """Family-dispatched single decode step."""
+    return get_family(cfg).decode_step(params, tokens, cache, pos, cfg, ctx)
+
+
+def init_paged_cache_fn(cfg, batch: int, num_pages: int, page_size: int,
+                        table_width: int, dtype=torch.float32, device="cpu"):
+    return get_family(cfg).init_paged_cache(cfg, batch, num_pages, page_size,
+                                            table_width, dtype, device)
+
+
+def set_block_table(cache, bt: torch.Tensor):
+    """Write the engine's (B, NP) block table into every layer's table,
+    in place (page *assignment* is a host decision; this is its one
+    channel to the device)."""
+    def walk(node):
+        for key, val in node.items():
+            if key == "block_table":
+                val.copy_(bt.to(val.dtype).expand_as(val))
+            elif isinstance(val, dict):
+                walk(val)
+    walk(cache)
+    return cache

@@ -1,0 +1,23 @@
+"""RMSNorm with f32 statistics (port of ``repro.nn.norms``)."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["rmsnorm_init", "rmsnorm"]
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6,
+            plus_one: bool = False) -> torch.Tensor:
+    """RMS normalization; ``plus_one`` is gemma's (1 + scale) form."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    scale = p["scale"].to(torch.float32)
+    if plus_one:
+        scale = 1.0 + scale
+    return (y * scale).to(x.dtype)
