@@ -2,9 +2,10 @@
 
 The int8 subset of the reference: :class:`FixedPointType` (the
 ``ac_fixed`` analogue) with its integer range and storage dtype, its
-NumPy twin ``np_quantize`` (used at table-build time), and
-:class:`QTensor` (integer payload + per-channel scale).  Minifloat
-formats are not ported yet (ROADMAP.md).
+NumPy twin ``np_quantize`` (used at table-build time), the canonical
+``AC_FIXED_16_6`` / ``AC_FIXED_18_8`` instances, and :class:`QTensor`
+(integer payload + per-channel scale).  Minifloat formats are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["FixedPointType", "QTensor", "storage_dtype"]
+__all__ = ["FixedPointType", "QTensor", "storage_dtype", "AC_FIXED_16_6",
+           "AC_FIXED_18_8"]
 
 _ROUNDING_MODES = ("rnd_even", "rnd", "trn")
 _OVERFLOW_MODES = ("sat", "wrap")
@@ -112,3 +114,9 @@ class QTensor:
 
     def __repr__(self):
         return f"QTensor({tuple(self.data.shape)}, {self.qtype.short_name()})"
+
+
+#: hls4ml's classic default model type.
+AC_FIXED_16_6 = FixedPointType(16, 6)
+#: The paper's softmax-table type (sized for a Xilinx 18k BRAM).
+AC_FIXED_18_8 = FixedPointType(18, 8)

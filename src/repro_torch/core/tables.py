@@ -4,7 +4,13 @@ Tables are computed eagerly in NumPy -- the paper's ``constexpr`` table
 generation -- with the same compute functions and the same float64 knot
 grid as the reference, so ``get_table(spec).np_values`` is bitwise
 equal to the JAX package's.  Only then are they handed to torch (the
-qmatmul kernel keeps the table in shared memory).
+qmatmul and lut_activation kernels keep the table in shared memory).
+
+Also here, as in the reference: the functional :func:`lut_activation`
+and the paper's table softmax (:class:`SoftmaxTablePolicy`,
+:func:`softmax_table_policy`, :func:`table_softmax`).  All of them index
+with :func:`table_lookup`, ``(x - lo) / step``; the kernels' own indexing,
+``(x - lo) * step_inv``, is :func:`repro_torch.kernels.ref.apply_table`.
 """
 
 from __future__ import annotations
@@ -16,10 +22,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .qtypes import FixedPointType
+from .qtypes import AC_FIXED_18_8, FixedPointType
 
 __all__ = ["TableSpec", "ConstexprTable", "get_table", "register_compute",
-           "table_lookup", "COMPUTE_FNS", "GATED_FORMS", "INDEXING"]
+           "table_lookup", "lut_activation", "SoftmaxTablePolicy",
+           "softmax_table_policy", "table_softmax", "COMPUTE_FNS",
+           "GATED_FORMS", "INDEXING"]
 
 COMPUTE_FNS: Dict[str, Callable[[np.ndarray], np.ndarray]] = {}
 
@@ -144,6 +152,10 @@ class ConstexprTable:
             self._on[device] = t
         return t
 
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return table_lookup(x, self.values(x.device), self.spec.lo,
+                            self.spec.hi, self.spec.indexing)
+
     def __repr__(self):
         return f"ConstexprTable({self.spec})"
 
@@ -172,3 +184,73 @@ def table_lookup(x: torch.Tensor, values: torch.Tensor, lo: float, hi: float,
     else:  # trunc -- hls4ml-faithful
         idx = torch.clamp(torch.floor(pos), 0, n - 1).to(torch.int64)
     return values[idx]
+
+
+def lut_activation(x: torch.Tensor, fn: str, *, n: int = 1024,
+                   lo: float = -8.0, hi: float = 8.0,
+                   qtype: Optional[FixedPointType] = None,
+                   indexing: str = "interp", gated: bool = True) -> torch.Tensor:
+    """Apply activation ``fn`` via a build-time constant table.
+
+    ``gated=True`` uses the exact gated form for unbounded activations
+    (silu/gelu): f(x) = x * gate_table(x).  ``gated=False`` tables f
+    directly (hls4ml-faithful; saturates for |x| > hi).
+    """
+    if gated and fn in GATED_FORMS:
+        gate = get_table(TableSpec(GATED_FORMS[fn], n, lo, hi, qtype,
+                                   indexing))
+        return x * gate(x)
+    t = get_table(TableSpec(fn, n, lo, hi, qtype, indexing))
+    if fn == "softplus":
+        # softplus(x) -> x for large x; keep the asymptote exact
+        return torch.where(x >= hi, x, t(x))
+    return t(x)
+
+
+# --------------------------------------------------------------------------
+# Softmax -- the hls4ml implementation, and its de-specialized fix.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SoftmaxTablePolicy:
+    n: int = 1024
+    qtype: Optional[FixedPointType] = AC_FIXED_18_8
+    exp_lo: float = -16.0
+    exp_hi: float = 0.0
+    inv_hi: float = 64.0          # hls4ml invert-table domain cap
+    exact_divide: bool = True     # improved mode: exact div after LUT exp
+    indexing: str = "trunc"
+
+
+def softmax_table_policy(user_qtype: Optional[FixedPointType] = None, *,
+                         respect_user_type: bool = False, n: int = 1024,
+                         exact_divide: bool = True,
+                         indexing: str = "trunc") -> SoftmaxTablePolicy:
+    """The paper-documented override: softmax tables are 1024 x 18-bit
+    fixed point (one Xilinx 18k BRAM) *regardless* of the user's model
+    type -- unless ``respect_user_type`` asks for the de-specialized fix."""
+    qtype = user_qtype if respect_user_type else AC_FIXED_18_8
+    return SoftmaxTablePolicy(n=n, qtype=qtype, exact_divide=exact_divide,
+                              indexing=indexing)
+
+
+def table_softmax(x: torch.Tensor, axis: int = -1,
+                  policy: Optional[SoftmaxTablePolicy] = None) -> torch.Tensor:
+    """Softmax whose exp (and optionally 1/x) come from constant tables.
+
+    ``exact_divide=False`` is the fully hls4ml-faithful path: the row sum
+    is inverted through a second table over (0, inv_hi] -- accurate only
+    while the sum stays inside the table domain.  The improved default
+    keeps the LUT exp (the expensive transcendental) and divides exactly.
+    """
+    p = policy or SoftmaxTablePolicy()
+    exp_t = get_table(TableSpec("exp", p.n, p.exp_lo, p.exp_hi, p.qtype,
+                                p.indexing))
+    z = x - torch.amax(x, dim=axis, keepdim=True).detach()
+    z = torch.clamp_min(z, p.exp_lo)  # saturate into the table domain
+    e = exp_t(z)
+    s = torch.sum(e, dim=axis, keepdim=True)
+    if p.exact_divide:
+        return e / s
+    inv_t = get_table(TableSpec("invert", p.n, 1.0 / p.n, p.inv_hi, p.qtype,
+                                p.indexing))
+    return e * inv_t(torch.clamp_max(s, p.inv_hi))

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``build/kernels/<name>-<hash>.so`` at the repository root
 (``.gitignore`` lists ``build/``), then loaded with ``ctypes``.  The
-hash covers the source and the flags, so an edit rebuilds and a rerun
-reuses.  Nothing is built when a module is imported: :func:`library`
+hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edit rebuilds and a rerun reuses.  Nothing is built when a module is imported: :func:`library`
 builds on the first launch, :func:`build` builds several sources at
 once (one ``nvcc`` per source, all started together).
 
@@ -21,6 +21,7 @@ the main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,11 +34,12 @@ from typing import Dict, Iterable, List
 import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "launch_counts", "reset_launch_counts",
-           "build", "library", "check", "stream_of", "BUILD_LOG"]
+           "build", "library", "check", "stream_of", "sm_count", "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmatmul": CSRC / "qmatmul.cu",
-           "paged_attention": CSRC / "paged_attention.cu"}
+           "paged_attention": CSRC / "paged_attention.cu",
+           "lut_activation": CSRC / "lut_activation.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,12 +47,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel wrapper name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
-                            "paged_attention_split": 0}
+                            "paged_attention_split": 0, "lut_activation": 0}
 #: source name -> {"seconds", "ptxas"} of the builds made by this process
 BUILD_LOG: Dict[str, dict] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 #: C signatures: every pointer and the stream as c_void_p (never a bare
 #: int, which ctypes would pass as 32 bits and cut the pointer)
 SIGNATURES = {
@@ -66,6 +69,10 @@ SIGNATURES = {
                                          _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                          _F, _I, _P],
         "combine_splits_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "lut_activation": {
+        "lut_activation_launch": [_P, _P, _P, _L, _I, _F, _F, _I, _I, _I,
+                                  _P],
     },
 }
 
@@ -92,8 +99,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -154,3 +164,9 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def stream_of(tensor) -> int:
     """PyTorch's current stream on ``tensor``'s device, as an address."""
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device (asked once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

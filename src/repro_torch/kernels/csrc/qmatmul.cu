@@ -7,8 +7,10 @@
 //   y = acc.f32 * sa[m] * sb[n]   (in that order, as qmatmul.py:82)
 //   y = y + bias[n]               (optional)
 //   y = table(y) or y * table(y)  (optional, apply_table of
-//                                  lut_activation.py:36; step_inv comes
-//                                  from the host, as qmatmul.py:87)
+//                                  lut_activation.py:36, shared with the
+//                                  lut_activation kernel through
+//                                  apply_table.cuh; step_inv comes from
+//                                  the host, as qmatmul.py:87)
 // cast to f32 or bf16 (round to nearest even).
 //
 // What bounds it on the H100: bytes.  On the serving path M is the token
@@ -37,7 +39,8 @@
 // shared memory: the (M, N) f32 intermediate never reaches HBM.  The
 // epilogue uses __fmul_rn/__fadd_rn so that nvcc cannot contract it into
 // FMAs: the op order is the reference's, so the f32 output is bitwise
-// the plain version's whenever the table step is a power of two.
+// the plain version's (repro_torch.kernels.ref.qmatmul_ref, whose table
+// epilogue indexes with the same (y - lo) * step_inv).
 // Ragged M, N and K are masked here (zero-filled loads, guarded stores);
 // the wrapper pads nothing.  Not yet done (a later change): int8
 // tensor-core MMA, TMA multi-stage pipelining.  The workspace is shared
@@ -48,36 +51,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "apply_table.cuh"
+
 namespace {
 
 constexpr int BN = 64;           // output columns per block
 constexpr int BK = 64;           // K bytes per tile
 constexpr int KW = BK / 4;       // int32 words of K per tile
 constexpr int THREADS = 256;     // 16 x 16 thread grid
-
-enum Indexing { kTrunc = 0, kNearest = 1, kInterp = 2 };
-
-__device__ __forceinline__ float apply_table(float y, const float* t, int n,
-                                             float lo, float step_inv,
-                                             int indexing, int gated) {
-  float pos = __fmul_rn(__fsub_rn(y, lo), step_inv);
-  float z;
-  if (indexing == kInterp) {
-    pos = fminf(fmaxf(pos, 0.f), (float)(n - 1));
-    const float i0f = floorf(pos);
-    const float frac = __fsub_rn(pos, i0f);
-    const int i0 = (int)i0f;
-    const int i1 = min(i0 + 1, n - 1);
-    z = __fadd_rn(__fmul_rn(t[i0], __fsub_rn(1.f, frac)),
-                  __fmul_rn(t[i1], frac));
-  } else {
-    // rintf rounds half to even, as jnp.round does
-    float r = (indexing == kNearest) ? rintf(pos) : floorf(pos);
-    r = fminf(fmaxf(r, 0.f), (float)(n - 1));
-    z = t[(int)r];
-  }
-  return gated ? __fmul_rn(y, z) : z;
-}
 
 // Four consecutive int8 values of a row, zero past `limit`; one 4-byte
 // load when the row is 4-aligned and wholly inside.

@@ -17,10 +17,13 @@ from ..core.registry import get_impl, register_op
 from ..core.tables import TableSpec
 from . import ref as _ref
 from .flash_attention import paged_attention as _paged_attention_cuda
+from .lut_activation import lut_activation as _lut_activation_cuda
 from .qmatmul import qmatmul as _qmatmul_cuda
 
-__all__ = ["qmatmul", "paged_attention", "sample_tokens"]
+__all__ = ["lut_activation", "qmatmul", "paged_attention", "sample_tokens"]
 
+register_op("lut_activation", "ref")(_ref.lut_activation_ref)
+register_op("lut_activation", "cuda")(_lut_activation_cuda)
 register_op("qmatmul", "ref")(_ref.qmatmul_ref)
 register_op("qmatmul", "cuda")(_qmatmul_cuda)
 register_op("paged_attention", "ref")(_ref.paged_attention_ref)
@@ -29,6 +32,12 @@ register_op("paged_attention", "cuda")(_paged_attention_cuda)
 # backend, as the reference leaves it to an XLA fusion (no Pallas kernel)
 register_op("sample_tokens", "ref")(_ref.sample_tokens_ref)
 register_op("sample_tokens", "cuda")(_ref.sample_tokens_ref)
+
+
+def lut_activation(x: torch.Tensor, spec: TableSpec, *,
+                   backend: Optional[str] = None, **kw) -> torch.Tensor:
+    """Elementwise table lookup of ``x`` through ``spec``'s table."""
+    return get_impl("lut_activation", backend)(x, spec, **kw)
 
 
 def qmatmul(a_data, b_data, a_scale, b_scale, *, bias=None,

@@ -27,9 +27,9 @@ MAX_TABLE = 8192
 #: the kernel's output tile (columns) and K tile (bytes)
 _BN, _BK = 64, 64
 
-#: per device: (SM count, int32 split-K workspace, tile tickets).  The
-#: kernel leaves both buffers zeroed after every launch, so they are
-#: allocated (zeroed) once and grown when a larger output needs them.
+#: per device: (int32 split-K workspace, tile tickets).  The kernel
+#: leaves both buffers zeroed after every launch, so they are allocated
+#: (zeroed) once and grown when a larger output needs them.
 _SPLITK: dict = {}
 
 
@@ -45,16 +45,14 @@ def _splitk_plan(m: int, n: int, k: int, sms: int) -> int:
 
 
 def _workspace(dev, m: int, n: int):
-    sms, ws, tickets = _SPLITK.get(dev, (None, None, None))
-    if sms is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws, tickets = _SPLITK.get(dev, (None, None))
     tiles = -(-n // _BN) * -(-m // 16)
     if ws is None or ws.numel() < m * n:
         ws = torch.zeros(m * n, dtype=torch.int32, device=dev)
     if tickets is None or tickets.numel() < tiles:
         tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
-    _SPLITK[dev] = (sms, ws, tickets)
-    return sms, ws, tickets
+    _SPLITK[dev] = (ws, tickets)
+    return _cuda.sm_count(dev), ws, tickets
 
 
 def _vector(s, n: int, what: str, device) -> torch.Tensor:

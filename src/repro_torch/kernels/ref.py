@@ -4,6 +4,16 @@ Each function mirrors its ``repro.kernels.ref`` counterpart op for op and
 runs on any device.  They are the ``ref`` backend of the registry, what
 a kernel wrapper runs when it is handed CPU tensors, and what
 ``chip_smoke.py`` holds every CUDA kernel against on the card.
+
+Table lookups come in two forms.  :func:`lut_activation_ref` is the
+reference's ``lut_activation_ref``, bit for bit: positions ``(x - lo) /
+step``.  :func:`apply_table` is the in-kernel form that the TPU kernels
+(``repro.kernels.lut_activation.apply_table``) and the CUDA kernels
+compute, ``(x - lo) * step_inv`` with ``step_inv = 1 / step`` rounded to
+f32 once; the two agree whenever the step is a power of two and may pick
+a neighbouring entry otherwise.  :func:`lut_activation_plain` and the
+epilogue of :func:`qmatmul_ref` use the kernel form, so that each is
+bitwise the plain version of its kernel.
 """
 
 from __future__ import annotations
@@ -15,7 +25,8 @@ import torch
 
 from ..core.tables import TableSpec, get_table, table_lookup
 
-__all__ = ["lut_activation_ref", "qmatmul_ref", "paged_attention_ref",
+__all__ = ["lut_activation_ref", "apply_table", "lut_activation_plain",
+           "qmatmul_ref", "paged_attention_ref",
            "paged_attention_split_ref", "combine_splits",
            "sample_tokens_ref"]
 
@@ -26,6 +37,63 @@ def lut_activation_ref(x: torch.Tensor, spec: TableSpec) -> torch.Tensor:
     """Table-lookup activation: gather from a build-time constant table."""
     return table_lookup(x, get_table(spec).values(x.device), spec.lo,
                         spec.hi, spec.indexing)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on f32 tensors with one rounding, as a fused
+    multiply-add computes it.
+
+    The product of two f32 values is exact in f64.  The f64 sum is made
+    round-to-odd (TwoSum gives its exact error; an inexact sum with an
+    even last bit steps one ulp towards the exact value), and rounding a
+    round-to-odd f64 to f32 is the correctly rounded result, because f64
+    carries more than 24 + 1 bits.
+    """
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    t = s - p
+    err = (p - (s - t)) + (c64 - t)
+    even = (s.view(torch.int64) & 1) == 0
+    step = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf))
+    return torch.where((err != 0) & even, step, s).to(torch.float32)
+
+
+def apply_table(y: torch.Tensor, values: torch.Tensor, *, lo: float,
+                step_inv: float, indexing: str,
+                gated: bool = False) -> torch.Tensor:
+    """The kernels' table gather on an f32 tensor ``y`` (the plain twin of
+    ``csrc/apply_table.cuh``): ``pos = (y - lo) * step_inv``, clip,
+    ``floor``/round-half-even, one or two gathers, all in f32.  ``interp``
+    returns ``y0 * (1 - frac) + y1 * frac`` with the first product fused
+    into the add, ``fma(y0, 1 - frac, y1 * frac)``: that is how XLA
+    compiles the reference kernel's expression (its interpret mode on the
+    CPU), and the port keeps it, so that the plain version, the CUDA
+    kernels and ``lut_activation_pallas`` agree bit for bit.
+    ``gated=True`` returns ``y * table(y)``."""
+    n = values.shape[0]
+    pos = (y - lo) * step_inv
+    if indexing == "interp":
+        pos = torch.clamp(pos, 0.0, n - 1.0)
+        i0f = torch.floor(pos)
+        frac = pos - i0f
+        i0 = i0f.to(torch.int64)
+        i1 = torch.clamp_max(i0 + 1, n - 1)
+        z = fma_f32(values[i0], 1.0 - frac, values[i1] * frac)
+    else:
+        r = torch.round(pos) if indexing == "nearest" else torch.floor(pos)
+        z = values[torch.clamp(r, 0, n - 1).to(torch.int64)]
+    return y * z if gated else z
+
+
+def lut_activation_plain(x: torch.Tensor, spec: TableSpec) -> torch.Tensor:
+    """The plain version of the ``lut_activation`` kernel (TPU
+    ``lut_activation_pallas``): :func:`apply_table` in f32, the result
+    cast to ``x``'s dtype."""
+    z = apply_table(x.to(torch.float32), get_table(spec).values(x.device),
+                    lo=spec.lo, step_inv=1.0 / spec.step,
+                    indexing=spec.indexing)
+    return z.to(x.dtype)
 
 
 def int8_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -47,7 +115,11 @@ def qmatmul_ref(a_data: torch.Tensor, b_data: torch.Tensor,
     """int8 x int8 -> int32 -> ``acc.f32 * sa * sb`` (+ bias) (-> LUT).
 
     ``a_scale`` broadcasts as (M, 1) or scalar, ``b_scale`` as (1, N) or
-    scalar; ``act_gated`` gives ``y * table(y)``.
+    scalar; ``act_gated`` gives ``y * table(y)``.  The table epilogue
+    indexes as the kernels do (:func:`apply_table`, as
+    ``repro.kernels.qmatmul.qmatmul_pallas``), not as the reference's
+    ``qmatmul_ref`` (``/ step``): the two differ only at a step that is
+    not a power of two.
     """
     dev = a_data.device
     acc = int8_matmul_exact(a_data, b_data)
@@ -58,8 +130,9 @@ def qmatmul_ref(a_data: torch.Tensor, b_data: torch.Tensor,
         y = y + torch.as_tensor(bias, dtype=torch.float32,
                                 device=dev).reshape(1, -1)
     if act_spec is not None:
-        z = lut_activation_ref(y, act_spec)
-        y = y * z if act_gated else z
+        y = apply_table(y, get_table(act_spec).values(dev), lo=act_spec.lo,
+                        step_inv=1.0 / act_spec.step,
+                        indexing=act_spec.indexing, gated=act_gated)
     return y.to(out_dtype)
 
 

@@ -1,10 +1,14 @@
 """Serving engine: batched chunked prefill, the fused greedy decode block
-and continuous batching over a paged KV cache (port of the core of
-``repro.launch.serve``).
+and continuous batching over a dense or paged KV cache (port of the core
+of ``repro.launch.serve``).
 
 * **Weights are quantized once** (``--quant int8``): :func:`quantize_for_serving`
   runs ``ptq_params`` before serving; every projection then runs the
   ``qmatmul`` kernel on int8 payloads.
+* **The paper's tables** (``--lut``): activations go through the
+  ``lut_activation`` kernel (or, on int8 projections, the ``qmatmul``
+  kernel's fused bias + table epilogue) and the attention softmax of the
+  dense and int8 caches through the exp/invert tables.
 * **Batched chunked prefill**: admitted prompts advance together, one
   full-batch model call per ``prefill_chunk`` tokens.  Lanes that are
   still generating keep their position; their chunk writes land at or
@@ -15,12 +19,15 @@ and continuous batching over a paged KV cache (port of the core of
   with one host sync per block.
 * **Continuous batching**: ``submit`` queues requests; each block
   boundary retires finished lanes and admits the queue head (FIFO) as
-  soon as a lane and enough free pages exist.
-* **Paged KV cache** with the split-KV knob resolved once per geometry,
-  exactly as the reference resolves it; ``stats()`` reports the knob
-  and the kernel launch counts.
+  soon as a lane (and, paged, enough free pages) exists.
+* **KV cache**: dense by default, as in the reference -- per-slot rows
+  ``max_len + prefill_chunk`` long, a retired slot's rows zeroed -- or
+  paged (``paged=True``), with the split-KV knob resolved once per
+  geometry, exactly as the reference resolves it.  ``kv_bits=8`` stores
+  either as int8 rows or pages with bf16 scales.  ``stats()`` reports
+  the cache, the knob and the kernel launch counts.
 
-Out of this slice (ROADMAP.md): the dense cache, sampled decoding,
+Out of this slice (ROADMAP.md): sampled decoding,
 speculative decoding, prefix caching, preemption, priorities, the
 durable journal, the fleet, the autotuner and non-``lm`` families.  The
 CLI refuses their flags by name.
@@ -30,6 +37,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --quant int8 --paged --batch 8 --prompt-len 128 --gen-len 32 \\
         --requests 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+        --quant int8 --lut --kv-bits 8 --batch 8 --requests 8
 """
 
 from __future__ import annotations
@@ -51,7 +60,8 @@ from ..core.quantize import ptq_params
 from ..data.pipeline import SyntheticLM
 from ..kernels import launch_counts
 from ..kernels.flash_attention import _resolve_knobs
-from ..models.api import get_family, init_paged_cache_fn, set_block_table
+from ..models.api import (get_family, init_cache_fn, init_paged_cache_fn,
+                          invalidate_fn, set_block_table)
 from ..nn.context import QuantContext
 from ..train.step import build_decode_loop, build_prefill_step
 from .lifecycle import RequestStatus, request_row, validate_request
@@ -105,23 +115,24 @@ def quantize_for_serving(params, ctx: QuantContext):
 
 class Engine:
     """Slot-based continuous batching over chunked prefill and fused greedy
-    decode blocks, on a paged KV cache.
+    decode blocks, on a dense (default) or paged KV cache.
 
-    ``kv_split`` / ``pages_per_step``: ``"auto"`` (the cost model, as the
-    reference), or explicit integers; ``kv_split=1, pages_per_step=1`` is
-    the unsplit kernel.  ``device``: None means ``cuda`` (raises without
-    a GPU); pass ``"cpu"`` to run the plain versions on the CPU.
+    ``kv_bits``: None (f32 cache) or 8 (int8 rows / pages with bf16
+    scales).  ``kv_split`` / ``pages_per_step`` (paged only): ``"auto"``
+    (the cost model, as the reference), or explicit integers;
+    ``kv_split=1, pages_per_step=1`` is the unsplit kernel.  ``device``:
+    None means ``cuda`` (raises without a GPU); pass ``"cpu"`` to run the
+    plain versions on the CPU.
     """
 
     def __init__(self, cfg, ctx: QuantContext, params, *, batch: int,
-                 max_len: int, prefill_chunk: int = 16, eos_id: int = -1,
-                 seed: int = 0, paged: bool = True, page_size: int = 16,
-                 num_pages: Optional[int] = None, kv_split="auto",
-                 pages_per_step="auto", autotune: str = "off", device=None):
-        if not paged:
-            raise NotImplementedError(
-                "the dense (non-paged) KV cache is not ported yet "
-                "(ROADMAP.md queue 1, item 4); pass paged=True")
+                 max_len: int, kv_bits=None, prefill_chunk: int = 16,
+                 eos_id: int = -1, seed: int = 0, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 kv_split="auto", pages_per_step="auto",
+                 autotune: str = "off", device=None):
+        if kv_bits not in (None, 8):
+            raise ValueError(f"kv_bits must be None or 8, not {kv_bits!r}")
         if autotune != "off":
             raise NotImplementedError(
                 f"autotune={autotune!r}: the autotuner is not ported yet "
@@ -133,30 +144,45 @@ class Engine:
         self.prefill_chunk = max(1, prefill_chunk)
         self.seed = seed
         self.params = prepare_params(params, ctx, self.device)
+        self.kv_bits = kv_bits
+        cache_dtype = torch.int8 if kv_bits == 8 else torch.float32
+        # chunked prefill writes a full chunk at every lane's position,
+        # also at a generating lane's (ignored) one: the margin keeps
+        # those writes past max_len (dense rows, or table entries)
         margin = self.prefill_chunk
-        ps = max(1, int(page_size))
-        if num_pages is None:
-            num_pages = -(-(batch * max_len) // ps)
-        self.allocator = PageAllocator(num_pages, ps)
-        self._trash = num_pages              # reserved garbage page id
-        # the table covers every reachable write position: decode holds a
-        # dead lane at pos <= max_len; prefill margin writes reach
-        # max_len + margin - 1
-        width = -(-(max_len + max(margin, 1)) // ps)
-        self.block_tables = np.full((batch, width), self._trash, np.int32)
-        self._slot_pages: Dict[int, List[int]] = {}
+        self.paged = bool(paged)
         self._bt_dirty = False
-        self.cache = init_paged_cache_fn(cfg, batch, num_pages, ps, width,
-                                         torch.float32, self.device)
-        # split-KV knob: explicit engine kwarg > ctx > cost model
-        req_t = (int(pages_per_step) if pages_per_step not in (None, "auto")
-                 else ctx.pages_per_step)
-        req_s = (int(kv_split) if kv_split not in (None, "auto")
-                 else ctx.kv_split)
-        hkv = cfg.n_kv_heads or cfg.n_heads or 1
-        t, split = _resolve_knobs(width, ps, max(1, hkv), batch, req_s, req_t)
-        self.kv_split, self.pages_per_step = split, t
-        self.ctx = dataclasses.replace(ctx, kv_split=split, pages_per_step=t)
+        self.kv_split = self.pages_per_step = None
+        if self.paged:
+            ps = max(1, int(page_size))
+            if num_pages is None:
+                num_pages = -(-(batch * max_len) // ps)
+            self.allocator = PageAllocator(num_pages, ps)
+            self._trash = num_pages          # reserved garbage page id
+            # the table covers every reachable write position: decode
+            # holds a dead lane at pos <= max_len; prefill margin writes
+            # reach max_len + margin - 1
+            width = -(-(max_len + max(margin, 1)) // ps)
+            self.block_tables = np.full((batch, width), self._trash,
+                                        np.int32)
+            self._slot_pages: Dict[int, List[int]] = {}
+            self.cache = init_paged_cache_fn(cfg, batch, num_pages, ps,
+                                             width, cache_dtype, self.device)
+            # split-KV knob: explicit engine kwarg > ctx > cost model
+            req_t = (int(pages_per_step)
+                     if pages_per_step not in (None, "auto")
+                     else ctx.pages_per_step)
+            req_s = (int(kv_split) if kv_split not in (None, "auto")
+                     else ctx.kv_split)
+            hkv = cfg.n_kv_heads or cfg.n_heads or 1
+            self.pages_per_step, self.kv_split = _resolve_knobs(
+                width, ps, max(1, hkv), batch, req_s, req_t)
+            ctx = dataclasses.replace(ctx, kv_split=self.kv_split,
+                                      pages_per_step=self.pages_per_step)
+        else:
+            self.cache = init_cache_fn(cfg, batch, max_len + margin,
+                                       cache_dtype, self.device)
+        self.ctx = ctx
         self.prefill = build_prefill_step(cfg, self.ctx)
         self._loops: Dict[int, callable] = {}
         self.pos = np.zeros((batch,), np.int32)
@@ -168,7 +194,8 @@ class Engine:
         self.done: List[list] = []
         self.waiting: deque = deque()
         self.counters = {"peak_live": 0, "admitted": 0, "gen_tokens": 0,
-                         "decode_s": 0.0, "failures": 0}
+                         "decode_s": 0.0, "failures": 0, "decode_steps": 0,
+                         "prefill_chunks": 0}
         self.request_log: List[dict] = []
         self._req_meta: Dict[int, dict] = {}
         self.results: Dict[int, dict] = {}
@@ -182,9 +209,9 @@ class Engine:
         """Prefill several fresh slots together (batched chunked prefill).
 
         ``gen_len`` (scalar or ``{slot: v}``) bounds generation
-        (``stop_pos = min(prompt_len + gen_len, max_len)``).  The whole
-        token budget's pages are allocated here (MemoryError when the
-        pool is short; queue through :meth:`submit` to wait instead).
+        (``stop_pos = min(prompt_len + gen_len, max_len)``).  Paged: the
+        whole token budget's pages are allocated here (MemoryError when
+        the pool is short; queue through :meth:`submit` to wait instead).
         An empty prompt is a single pad token (id 0).
         """
         t_call = self.clock()
@@ -211,24 +238,9 @@ class Engine:
         def stop_of(s, plen):
             return self._token_budget(plen, per_slot(gen_len, s, None))
 
-        needs = {s: self.allocator.pages_for(stop_of(s, p.shape[0]))
-                 for s, p in reqs.items()}
-        recyclable = sum(len(self._slot_pages.get(s, ())) for s in reqs)
-        if sum(needs.values()) - self.allocator.free_pages - recyclable > 0:
-            raise MemoryError(
-                f"page pool exhausted: admission needs "
-                f"{sum(needs.values())} pages, free "
-                f"{self.allocator.free_pages} of {self.allocator.num_pages} "
-                f"(queue through submit() to wait for pages)")
-        for s in reqs:
-            if s in self._slot_pages:
-                self.allocator.free(self._slot_pages.pop(s))
-        for s in reqs:
-            pages = self.allocator.alloc(needs[s], owner=s)
-            self._slot_pages[s] = pages
-            self.block_tables[s, :] = self._trash
-            self.block_tables[s, :len(pages)] = pages
-        self._flush_block_tables()
+        if self.paged:
+            self._alloc_pages({s: stop_of(s, p.shape[0])
+                               for s, p in reqs.items()})
 
         first = self._prefill_chunked(reqs)
         t_first = self.clock()
@@ -247,6 +259,27 @@ class Engine:
         self.counters["admitted"] += len(reqs)
         self.counters["peak_live"] = max(self.counters["peak_live"],
                                          int(self.live.sum()))
+
+    def _alloc_pages(self, budgets: Dict[int, int]) -> None:
+        """Pages for each slot's whole token budget, all or nothing, and
+        the block table flushed to the device."""
+        needs = {s: self.allocator.pages_for(n) for s, n in budgets.items()}
+        recyclable = sum(len(self._slot_pages.get(s, ())) for s in needs)
+        if sum(needs.values()) - self.allocator.free_pages - recyclable > 0:
+            raise MemoryError(
+                f"page pool exhausted: admission needs "
+                f"{sum(needs.values())} pages, free "
+                f"{self.allocator.free_pages} of {self.allocator.num_pages} "
+                f"(queue through submit() to wait for pages)")
+        for s in needs:
+            if s in self._slot_pages:
+                self.allocator.free(self._slot_pages.pop(s))
+        for s, need in needs.items():
+            pages = self.allocator.alloc(need, owner=s)
+            self._slot_pages[s] = pages
+            self.block_tables[s, :] = self._trash
+            self.block_tables[s, :len(pages)] = pages
+        self._flush_block_tables()
 
     @staticmethod
     def _greedy_only(temperature) -> None:
@@ -281,12 +314,13 @@ class Engine:
                 f"cache (max_len={self.max_len})")
         req = {"id": self._mint_id(), "prompt": prompt, "gen_len": gen_len,
                "t_submit": self.clock()}
-        need = self.allocator.pages_for(self._budget(req))
-        if need > self.allocator.num_pages:
-            raise ValueError(
-                f"request needs {need} pages but the pool only has "
-                f"{self.allocator.num_pages}; raise num_pages or lower "
-                f"gen_len")
+        if self.paged:
+            need = self.allocator.pages_for(self._budget(req))
+            if need > self.allocator.num_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the pool only has "
+                    f"{self.allocator.num_pages}; raise num_pages or lower "
+                    f"gen_len")
         self.waiting.append(req)
         return req["id"]
 
@@ -309,8 +343,8 @@ class Engine:
         return n
 
     def try_admit(self) -> int:
-        """Admit queued requests into free lanes while pages last: FIFO, no
-        head-of-line skipping; one batched prefill for all of them."""
+        """Admit queued requests into free lanes (paged: while pages last):
+        FIFO, no head-of-line skipping; one batched prefill for all."""
         free = [s for s in range(self.batch)
                 if self.outputs[s] is None and not self.live[s]]
         admit: Dict[int, np.ndarray] = {}
@@ -318,12 +352,13 @@ class Engine:
         planned = 0
         while self.waiting and free:
             req = self.waiting[0]
-            need = self.allocator.pages_for(self._budget(req))
-            if not self.allocator.can_alloc(planned + need):
-                break
+            if self.paged:
+                need = self.allocator.pages_for(self._budget(req))
+                if not self.allocator.can_alloc(planned + need):
+                    break
+                planned += need
             self.waiting.popleft()
             s = free.pop(0)
-            planned += need
             admit[s] = req["prompt"]
             kw["gen_len"][s] = req["gen_len"]
             kw["_t_submit"][s] = req["t_submit"]
@@ -359,6 +394,7 @@ class Engine:
             logits, self.cache = self.prefill(
                 self.params, {"tokens": toks_d[:, c0:c0 + chunk]},
                 self.cache, cur)
+            self.counters["prefill_chunks"] += 1
             picks.append(torch.argmax(logits.to(torch.float32), dim=-1))
         ids = torch.cat(picks, dim=1).cpu().numpy()
         return {s: int(ids[s, p.shape[0] - 1]) for s, p in reqs.items()}
@@ -378,6 +414,7 @@ class Engine:
         block, block_live, fault = self._block_decode(n)
         t1 = self.clock()
         self.counters["decode_s"] += t1 - t0
+        self.counters["decode_steps"] += n
         self.counters["gen_tokens"] += int(block_live.sum())
         for s in range(self.batch):
             if not self.live[s] and s in self._req_meta:
@@ -426,9 +463,11 @@ class Engine:
 
     def finish(self, slot: int,
                status: RequestStatus = RequestStatus.COMPLETED):
-        """Retire ``slot``: its tokens land in ``results[req_id]``, its pages
-        return to the free list and its table row points at the trash
-        page (the device table is rewritten lazily, once per sweep)."""
+        """Retire ``slot``: its tokens land in ``results[req_id]``.  Dense:
+        its KV rows are zeroed, so a recycled slot never observes its
+        previous occupant.  Paged: its pages return to the free list and
+        its table row points at the trash page (the device table is
+        rewritten lazily, once per sweep)."""
         meta = self._req_meta.pop(slot, None)
         if meta is not None:
             done = meta.get("t_done", self.clock())
@@ -445,21 +484,28 @@ class Engine:
         self.live[slot] = False
         self.pos[slot] = 0
         self.stop_pos[slot] = self.max_len
-        self.allocator.free(self._slot_pages.pop(slot, []))
-        self.block_tables[slot, :] = self._trash
-        self._bt_dirty = True
+        self.cache = invalidate_fn(self.cache, slot, self.cfg)
+        if self.paged:
+            self.allocator.free(self._slot_pages.pop(slot, []))
+            self.block_tables[slot, :] = self._trash
+            self._bt_dirty = True
 
     # -- telemetry ----------------------------------------------------------------
     def stats(self) -> dict:
         """Serving telemetry: TTFT (submit -> first token), decode tokens
-        per second of block wall time (syncs included), the resolved
-        split-KV knob and the kernel launch counts since the last reset."""
+        per second of block wall time (syncs included), the model calls
+        made (decode steps, prefill chunks), the cache, the resolved
+        split-KV knob (None when dense) and the kernel launch counts --
+        ``lut_activation`` among them -- since the last reset."""
         c = self.counters
         out = {"requests": len(self.done), "admitted": c["admitted"],
                "peak_live": c["peak_live"], "gen_tokens": c["gen_tokens"],
                "decode_s": c["decode_s"],
                "decode_tok_per_s": (c["gen_tokens"] / c["decode_s"]
                                     if c["decode_s"] > 0 else None),
+               "decode_steps": c["decode_steps"],
+               "prefill_chunks": c["prefill_chunks"],
+               "paged": self.paged, "kv_bits": self.kv_bits,
                "kv_split": self.kv_split,
                "pages_per_step": self.pages_per_step,
                "queued": len(self.waiting), "failures": c["failures"],
@@ -481,7 +527,7 @@ def build_ctx(args) -> QuantContext:
     if args.quant != "none":
         qt = FixedPointType(args.qbits, max(args.qbits // 2, 2))
         policy = PrecisionPolicy.uniform(qt)
-    return QuantContext(mode=args.quant, policy=policy,
+    return QuantContext(mode=args.quant, policy=policy, use_lut=args.lut,
                         compute_dtype=(torch.float32 if args.f32
                                        else torch.bfloat16))
 
@@ -489,13 +535,13 @@ def build_ctx(args) -> QuantContext:
 #: reference CLI flags outside this slice -> the ROADMAP.md item porting them
 _REFUSED = {"--spec": "queue 1, item 8", "--prefix-cache": "queue 1, item 11",
             "--preempt": "queue 1, item 10",
-            "--durable-dir": "queue 1, item 12", "--lut": "queue 2, item 4",
-            "--kv-bits": "queue 1, item 4", "--replicas": "queue 1, item 13"}
+            "--durable-dir": "queue 1, item 12",
+            "--replicas": "queue 1, item 13"}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve a model with the PyTorch/CUDA port (greedy, paged).")
+        description="Serve a model with the PyTorch/CUDA port (greedy).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
@@ -504,12 +550,16 @@ def main(argv=None):
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--quant", default="none", choices=["none", "int8"])
     ap.add_argument("--qbits", type=int, default=8)
+    ap.add_argument("--lut", action="store_true",
+                    help="the paper's constant-table activations and softmax")
     ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=[8],
+                    help="int8 KV cache (per-token scales)")
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--decode-block", type=int, default=8)
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache (required: the dense cache is not "
-                         "ported yet)")
+                    help="paged KV cache: shared page pool + block tables "
+                         "(default: the dense cache)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--kv-split", default="auto")
@@ -526,9 +576,6 @@ def main(argv=None):
     for flag, item in _REFUSED.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
-    if not args.paged:
-        ap.error("the dense KV cache is not ported yet: pass --paged "
-                 "(ROADMAP.md queue 1, item 4)")
     if args.autotune != "off":
         ap.error("--autotune other than 'off' is not ported yet "
                  "(ROADMAP.md queue 1, item 9)")
@@ -542,17 +589,22 @@ def main(argv=None):
         cfg = cfg.smoke()
     ctx = build_ctx(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = get_family(cfg).init(gen, cfg, device=device)
     if args.quant == "int8":
-        params = quantize_for_serving(params, ctx)
+        params = quantize_for_serving(
+            get_family(cfg).init(gen, cfg, device=device), ctx)
+    else:
+        # float projections cast their weights to the compute dtype before
+        # every product; drawing them in it changes no value
+        params = get_family(cfg).init(gen, cfg, dtype=ctx.compute_dtype,
+                                      device=device)
 
     def knob(v):
         return "auto" if v == "auto" else int(v)
 
     eng = Engine(cfg, ctx, params, batch=args.batch,
                  max_len=args.prompt_len + args.gen_len + 1,
-                 prefill_chunk=args.prefill_chunk, seed=args.seed,
-                 paged=True, page_size=args.page_size,
+                 kv_bits=args.kv_bits, prefill_chunk=args.prefill_chunk,
+                 seed=args.seed, paged=args.paged, page_size=args.page_size,
                  num_pages=args.num_pages, kv_split=knob(args.kv_split),
                  pages_per_step=knob(args.pages_per_step), device=device)
     src = SyntheticLM(cfg.vocab, seed=args.seed)
@@ -568,11 +620,13 @@ def main(argv=None):
         gen_tokens += int(block_live.sum())
     eng.retire_finished()
     dt = time.perf_counter() - t0
+    cache = (f"paged(ps={eng.allocator.page_size},"
+             f"pages={eng.allocator.num_pages},kv_split={eng.kv_split},"
+             f"pages_per_step={eng.pages_per_step})" if eng.paged
+             else "dense")
     print(f"served {len(eng.done)} requests, {gen_tokens} tokens in "
           f"{dt:.2f}s ({gen_tokens / dt:.1f} tok/s), quant={args.quant} "
-          f"device={device} paged(ps={eng.allocator.page_size},"
-          f"pages={eng.allocator.num_pages},kv_split={eng.kv_split},"
-          f"pages_per_step={eng.pages_per_step})")
+          f"lut={args.lut} kv_bits={args.kv_bits} device={device} {cache}")
     print(json.dumps(eng.stats(), default=str))
     return eng.done
 

@@ -1,4 +1,5 @@
-"""Family registry (port of ``repro.models.api``; the ``lm`` family only)."""
+"""Family registry and serving-cache helpers (port of ``repro.models.api``;
+the ``lm`` family only)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import torch
 from . import lm
 
 __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
-           "init_paged_cache_fn", "set_block_table"]
+           "init_cache_fn", "init_paged_cache_fn", "set_block_table",
+           "invalidate_fn"]
 
 FAMILIES = {"lm": lm}
 
@@ -34,6 +36,12 @@ def decode_fn(params, tokens, cache, pos, cfg, ctx):
     return get_family(cfg).decode_step(params, tokens, cache, pos, cfg, ctx)
 
 
+def init_cache_fn(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device="cpu"):
+    """Family-dispatched dense serving cache."""
+    return get_family(cfg).init_cache(cfg, batch, max_len, dtype, device)
+
+
 def init_paged_cache_fn(cfg, batch: int, num_pages: int, page_size: int,
                         table_width: int, dtype=torch.float32, device="cpu"):
     return get_family(cfg).init_paged_cache(cfg, batch, num_pages, page_size,
@@ -50,5 +58,33 @@ def set_block_table(cache, bt: torch.Tensor):
                 val.copy_(bt.to(val.dtype).expand_as(val))
             elif isinstance(val, dict):
                 walk(val)
+    walk(cache)
+    return cache
+
+
+def _is_paged(cache) -> bool:
+    """A serving cache is paged iff any subtree carries a block table."""
+    return any(key == "block_table" or (isinstance(val, dict)
+                                        and _is_paged(val))
+               for key, val in cache.items())
+
+
+def invalidate_fn(cache, slot: int, cfg):
+    """Zero one slot's dense KV rows, in place, so a recycled slot can
+    never observe its previous occupant.  Dense leaves are (L, B, ...),
+    so the slot is batch axis 1.  A paged cache is returned unchanged:
+    its pages carry no batch axis, and a retired slot's pages are
+    unreachable once the engine resets its block-table row.  ``cfg`` is
+    the reference's argument (its families with other cache layouts
+    bring their own hook); the lm family needs none."""
+    if _is_paged(cache):
+        return cache
+
+    def walk(node):
+        for val in node.values():
+            if isinstance(val, dict):
+                walk(val)
+            else:
+                val[:, slot].zero_()
     walk(cache)
     return cache

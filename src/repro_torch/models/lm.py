@@ -2,10 +2,12 @@
 
 The layer stack keeps the reference's stacked ``(L, ...)`` leaves and
 runs as a loop over layers (:func:`repro_torch.nn.blocks.scan_apply`).
-Serving uses the paged KV cache: per-layer page pools ``(L, P+1, Hkv,
-ps, D)`` and per-layer block tables ``(L, B, NP)`` that the engine keeps
-identical across layers.  The MoE body and the dense cache are not
-ported yet (ROADMAP.md).
+Serving runs on either KV cache, as in the reference: the dense cache,
+per-layer rows ``(L, B, Hkv, rows, D)``, or the paged cache, per-layer
+page pools ``(L, P+1, Hkv, ps, D)`` and per-layer block tables ``(L, B,
+NP)`` that the engine keeps identical across layers.  Both come in f32
+or int8 (payload plus bf16 per-(token, head) scales).  The MoE body is
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,13 +16,14 @@ from typing import Optional
 
 import torch
 
-from ..nn.attention import gqa_paged_cache_spec
+from ..nn.attention import gqa_cache_spec, gqa_paged_cache_spec
 from ..nn.blocks import (dense_block_apply, dense_block_init, norm_apply,
                          norm_init, scan_apply, stack_init)
 from ..nn.context import DEFAULT_CTX, QuantContext
 from ..nn.embedding import embed, embedding_init, unembed
 
-__all__ = ["init", "forward", "init_paged_cache", "prefill", "decode_step"]
+__all__ = ["init", "forward", "init_cache", "init_paged_cache", "prefill",
+           "decode_step"]
 
 
 def _check_dense(cfg) -> None:
@@ -60,17 +63,30 @@ def forward(params, tokens: torch.Tensor, cfg, ctx: QuantContext = DEFAULT_CTX,
     return logits, cache, torch.zeros((), device=x.device)
 
 
+def _stack_layers(tree, n: int):
+    """Every leaf of one layer's cache repeated over a leading L axis."""
+    if isinstance(tree, dict):
+        return {k: _stack_layers(v, n) for k, v in tree.items()}
+    return tree[None].repeat(n, *([1] * tree.ndim))
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cpu"):
+    """Per-layer dense KV rows (stacked over L); ``torch.int8`` adds the
+    bf16 scale rows."""
+    _check_dense(cfg)
+    return {"dense": _stack_layers(gqa_cache_spec(
+        cfg.attn_dims(), batch, max_len, dtype, device), cfg.n_layers)}
+
+
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
                      table_width: int, dtype=torch.float32, device="cpu"):
-    """Per-layer KV page pools + per-layer block tables (stacked over L)."""
+    """Per-layer KV page pools + per-layer block tables (stacked over L);
+    ``torch.int8`` adds the bf16 scale pages."""
     _check_dense(cfg)
-    one = gqa_paged_cache_spec(cfg.attn_dims(), batch, num_pages, page_size,
-                               table_width, dtype, device)
-    L = cfg.n_layers
-    return {"dense": {
-        "pages": {k: v[None].repeat(L, *([1] * v.ndim))
-                  for k, v in one["pages"].items()},
-        "block_table": one["block_table"][None].repeat(L, 1, 1)}}
+    return {"dense": _stack_layers(gqa_paged_cache_spec(
+        cfg.attn_dims(), batch, num_pages, page_size, table_width, dtype,
+        device), cfg.n_layers)}
 
 
 def prefill(params, tokens: torch.Tensor, cache, cfg,

@@ -1,17 +1,30 @@
-"""GQA / MQA attention over the paged KV cache (port of the paged f32
-branch of ``repro.nn.attention``).
+"""GQA / MQA self-attention over a KV cache (port of the cache branches
+of ``repro.nn.attention``).
 
-Each call scatters the new tokens' K/V into their pages through the
-block table (write-before-attend), then attends through the table with
-``ops.paged_attention``: the Hopper kernel for CUDA tensors, its plain
-version for CPU tensors.  Unlike the reference, which gathers pages and
-runs an einsum off-TPU, the port always goes through the paged op; the
-kernel's knob (``ctx.kv_split`` / ``ctx.pages_per_step``) rides along.
+Three caches, as in the reference:
 
-The page pool is updated **in place** (the reference returns a new
-pool): a decode step writes ``B`` rows, not a copy of every layer's
-pages.  The dense (non-paged) cache, int8 pages, cross-attention and
-MLA are not ported yet (ROADMAP.md).
+* **paged f32** -- each call scatters the new tokens' K/V into their
+  pages through the block table (write-before-attend), then attends
+  through the table with ``ops.paged_attention``: the Hopper kernel for
+  CUDA tensors, its plain version for CPU tensors, always with the exact
+  softmax.  Unlike the reference, which gathers pages and runs an einsum
+  off-TPU, the port always goes through the paged op; the kernel's knob
+  (``ctx.kv_split`` / ``ctx.pages_per_step``) rides along.
+* **paged int8** -- int8 payload pages plus per-(token, head) bf16 scale
+  pages; the pages are gathered, dequantized in ``compute_dtype`` and
+  attended by :func:`_einsum_attention` (whose softmax is the LUT one
+  under ``ctx.use_lut``), as the reference does on every backend.
+* **dense** -- per-slot rows ``(B, Hkv, rows, Dh)`` in f32, or int8 with
+  bf16 scales; the new rows are written at ``cache_pos`` and the whole
+  row range is attended under a visibility mask by
+  :func:`_einsum_attention`.
+
+Caches are updated **in place** (the reference returns new arrays): a
+decode step writes ``B`` rows, not a copy of every layer's cache.  The
+cache-free forward (the reference's flash kernel path), cross-attention
+and MLA are not ported yet (ROADMAP.md); nor is the reference's
+``seq_kv`` mesh constraint on the dense cache (distribution, ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -21,11 +34,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from .activations import softmax
 from .context import DEFAULT_CTX, QuantContext
 from .linear import linear, linear_init
 from .rope import apply_rope
 
-__all__ = ["AttnDims", "gqa_init", "gqa_apply", "gqa_paged_cache_spec"]
+__all__ = ["AttnDims", "gqa_init", "gqa_apply", "gqa_cache_spec",
+           "gqa_paged_cache_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,15 +70,40 @@ def gqa_init(gen: torch.Generator, d: AttnDims, *, dtype=torch.float32,
     }
 
 
+def _kv_leaves(shape, dtype, device):
+    """K and V buffers of ``shape``; ``torch.int8`` adds per-(token, head)
+    bf16 scale buffers (the last axis cut to 1)."""
+    kv = {"k": torch.zeros(shape, dtype=dtype, device=device),
+          "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        sshape = (*shape[:-1], 1)
+        kv["k_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                    device=device)
+        kv["v_scale"] = torch.zeros(sshape, dtype=torch.bfloat16,
+                                    device=device)
+    return kv
+
+
+def gqa_cache_spec(d: AttnDims, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device="cpu"):
+    """Dense KV cache: K and V of shape (B, Hkv, max_len, Dh).
+
+    ``dtype=torch.int8`` selects the quantized cache: int8 payload plus
+    per-(token, head) bf16 scales."""
+    return _kv_leaves((batch, d.n_kv_heads, max_len, d.head_dim), dtype,
+                      device)
+
+
 def gqa_paged_cache_spec(d: AttnDims, batch: int, num_pages: int,
                          page_size: int, table_width: int,
                          dtype=torch.float32, device="cpu"):
     """Shared pool of ``num_pages`` pages plus one trash page (index
     ``num_pages``) that absorbs writes from lanes with no allocation;
-    every table entry starts pointing at it."""
-    shape = (num_pages + 1, d.n_kv_heads, page_size, d.head_dim)
-    return {"pages": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)},
+    every table entry starts pointing at it.  ``dtype=torch.int8`` pages
+    the quantized cache: int8 payload pages plus bf16 scale pages, the
+    dense int8 layout, so paged and dense serving quantize identically."""
+    return {"pages": _kv_leaves((num_pages + 1, d.n_kv_heads, page_size,
+                                 d.head_dim), dtype, device),
             "block_table": torch.full((batch, table_width), num_pages,
                                       dtype=torch.int32, device=device)}
 
@@ -84,19 +124,89 @@ def _paged_write(pages: torch.Tensor, page: torch.Tensor, row: torch.Tensor,
     pages[page, :, row] = u.transpose(1, 2).to(pages.dtype)
 
 
+def _paged_gather(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """A slot-contiguous copy (B, Hkv, NP*ps, X) of the table's pages."""
+    g = pages[bt.to(torch.int64)]                  # (B, NP, Hkv, ps, X)
+    b, np_, h, ps, x = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, np_ * ps, x)
+
+
+def _dense_write(rows: torch.Tensor, u: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """Write (B, Hkv, s, X) new rows into ``rows`` (B, Hkv, R, X) in place
+    at each lane's ``pos``, clamped to ``R - s`` as the reference's
+    ``dynamic_update_slice`` clamps its start."""
+    b, s = u.shape[0], u.shape[2]
+    start = torch.clamp(pos.to(torch.int64), 0, rows.shape[2] - s)
+    idx = start[:, None] + torch.arange(s, device=rows.device)[None, :]
+    lanes = torch.arange(b, device=rows.device)[:, None]
+    rows[lanes, :, idx] = u.transpose(1, 2).to(rows.dtype)
+
+
+def _quantize_kv(u: torch.Tensor):
+    """(B, H, s, Dh) -> int8 payload + per-(token, head) bf16 scale."""
+    uf = u.to(torch.float32)
+    amax = torch.amax(torch.abs(uf), dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-6) / 127.0
+    q = torch.clamp(torch.round(uf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _dequantize(data: torch.Tensor, scale: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return data.to(dtype) * scale.to(dtype)
+
+
+def _einsum_attention(q, k, v, *, ctx: QuantContext, mask: torch.Tensor):
+    """(B,Hq,Sq,D) x (B,Hkv,Skv,D) attention with GQA folding under the
+    (B, Sq, Skv) visibility ``mask``.
+
+    Operands are rounded to ``compute_dtype`` and multiplied in f32 (the
+    reference's bf16 operands with ``preferred_element_type=f32``); the
+    softmax is :func:`repro_torch.nn.activations.softmax` on f32 logits.
+    """
+    b, hq, sq, dh = q.shape
+    hkv = k.shape[1]
+    dv = v.shape[-1]
+    cd = ctx.compute_dtype
+
+    def operand(t):
+        return t.to(cd).to(torch.float32)
+
+    qg = q.reshape(b, hkv, hq // hkv, sq, dh)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", operand(qg),
+                          operand(k)) * (dh ** -0.5)
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    w = softmax(logits, ctx, axis=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", operand(w), operand(v))
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def _cache_mask(pos: torch.Tensor, s: int, max_len: int,
+                causal: bool) -> torch.Tensor:
+    """(B, s, max_len) visibility for queries written at pos..pos+s-1."""
+    dev = pos.device
+    qpos = pos.to(torch.int64)[:, None] + torch.arange(s, device=dev)[None, :]
+    kvpos = torch.arange(max_len, device=dev)[None, None, :]
+    if causal:
+        return kvpos <= qpos[:, :, None]
+    return kvpos < (pos.to(torch.int64)[:, None, None] + s)
+
+
 def gqa_apply(p, x: torch.Tensor, d: AttnDims, ctx: QuantContext = DEFAULT_CTX,
               *, cache=None, cache_pos: Optional[torch.Tensor] = None,
               path: str = "attn") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention of ``x`` (B, S, D_model) against the paged cache.
+    """Self-attention of ``x`` (B, S, D_model) against a KV cache.
 
-    ``cache`` = {"pages": {"k", "v"}, "block_table"} of one layer;
-    ``cache_pos`` (B,) is each lane's position before this call.
-    Returns ``(y, cache)`` (the cache is updated in place).
+    ``cache``: one layer's paged cache ({"pages": {"k", "v"[, "k_scale",
+    "v_scale"]}, "block_table"}) or dense cache ({"k", "v"[, "k_scale",
+    "v_scale"]}); ``cache_pos`` (B,) is each lane's position before this
+    call.  Returns ``(y, cache)`` (the cache is updated in place).
     """
-    if cache is None or "pages" not in cache:
+    if cache is None:
         raise NotImplementedError(
-            "only the paged KV cache is ported; the dense cache and the "
-            "cache-free forward are ROADMAP.md queue 1, item 4")
+            "the cache-free forward (the reference's flash-attention "
+            "kernel path) is not ported yet: ROADMAP.md queue 2, item 5")
     if not d.causal or not d.use_rope:
         raise NotImplementedError("only causal RoPE self-attention is ported")
     b, s, _ = x.shape
@@ -117,14 +227,38 @@ def gqa_apply(p, x: torch.Tensor, d: AttnDims, ctx: QuantContext = DEFAULT_CTX,
                    theta=d.rope_theta, fraction=d.rope_fraction)
     v = v.transpose(1, 2)                                # (B, Hkv, S, Dh)
 
-    pages, bt = cache["pages"], cache["block_table"]
-    page, row = _page_coords(bt, pos, s, pages["k"].shape[2])
-    _paged_write(pages["k"], page, row, k)
-    _paged_write(pages["v"], page, row, v)
-    from ..kernels.ops import paged_attention
-    y = paged_attention(q.contiguous(), pages["k"], pages["v"], bt,
-                        pos.to(torch.int32), kv_split=ctx.kv_split,
-                        pages_per_step=ctx.pages_per_step,
-                        backend=ctx.backend)
+    cd = ctx.compute_dtype
+    paged = "pages" in cache
+    store = cache["pages"] if paged else cache
+    quantized = "k_scale" in store          # int8 K/V + bf16 scales
+    new = {"k": k, "v": v}
+    if quantized:
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    if paged:
+        bt = cache["block_table"]
+        page, row = _page_coords(bt, pos, s, store["k"].shape[2])
+        for name, u in new.items():
+            _paged_write(store[name], page, row, u)
+
+        def rows(name):
+            return _paged_gather(store[name], bt)
+    else:
+        for name, u in new.items():
+            _dense_write(store[name], u, pos)
+
+        def rows(name):
+            return store[name]
+    if paged and not quantized:            # the kernel walks the table
+        from ..kernels.ops import paged_attention
+        y = paged_attention(q.contiguous(), store["k"], store["v"], bt,
+                            pos.to(torch.int32), kv_split=ctx.kv_split,
+                            pages_per_step=ctx.pages_per_step,
+                            backend=ctx.backend)
+    else:
+        ck, cv = ((_dequantize(rows(n), rows(f"{n}_scale"), cd)
+                   if quantized else rows(n)) for n in ("k", "v"))
+        y = _einsum_attention(q, ck, cv, ctx=ctx,
+                              mask=_cache_mask(pos, s, ck.shape[2], d.causal))
     y = y.transpose(1, 2).reshape(b, s, d.n_heads * d.head_dim)
     return linear(p["wo"], y, ctx, path=f"{path}/wo"), cache

@@ -12,7 +12,6 @@ from typing import Callable, Optional
 import torch
 
 from ..core.qtypes import QTensor
-from .activations import act_fn
 from .attention import gqa_apply, gqa_init
 from .context import DEFAULT_CTX, QuantContext
 from .linear import linear, linear_init

@@ -1,10 +1,13 @@
 """Execution context threading the paper's knobs through the model stack
 (port of ``repro.nn.context``).
 
-The fields are the reference's.  Of the numeric modes this slice runs
+The fields are the reference's.  Of the numeric modes the port runs
 ``none`` (matmuls in ``compute_dtype``) and ``int8`` (the ``qmatmul``
-kernel); ``fake`` and ``use_lut`` are refused with an error naming the
-ROADMAP.md item that will port them.
+kernel), each with or without ``use_lut`` (the paper's constant-table
+activations and softmax); ``fake`` is refused with an error naming the
+ROADMAP.md item that will port it.  ``kv_cache_bits`` is carried as in
+the reference, where nothing reads it: the engine's ``kv_bits`` chooses
+the cache.
 """
 
 from __future__ import annotations
@@ -56,16 +59,6 @@ class QuantContext:
                 "ported yet: ROADMAP.md queue 1, item 2 (core) and item 16")
         if self.mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}")
-        if self.use_lut:
-            raise NotImplementedError(
-                "use_lut=True is not ported yet: the standalone LUT "
-                "activation kernel is ROADMAP.md queue 2, item 4 "
-                "(lut_activation_pallas); the qmatmul kernel's fused LUT "
-                "epilogue itself is ported")
-        if self.kv_cache_bits is not None:
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP.md queue 1, "
-                "item 4)")
         if self.reuse_factor < 1:
             raise ValueError("reuse_factor >= 1")
         for knob in ("kv_split", "pages_per_step"):

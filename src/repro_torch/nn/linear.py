@@ -7,9 +7,11 @@
   :func:`repro_torch.core.quantize.ptq_params`), or on a weight quantized
   per call when the policy asks for int8 but the weight is float.
 
-The fused LUT epilogue is reached only under ``ctx.use_lut``, which this
-slice refuses; :func:`_act_table` is kept so the selection rule travels
-with the kernel that already implements the epilogue.
+Under ``ctx.use_lut`` an int8 projection with a fusable activation
+(sigmoid, tanh, gelu, silu) runs bias and the activation table inside the
+``qmatmul`` kernel's epilogue (:func:`_act_table` picks the same table as
+``act_fn``); every other path applies the identical ``act_fn`` after the
+product.
 """
 
 from __future__ import annotations
@@ -22,16 +24,14 @@ from ..core.precision import LayerPrecision
 from ..core.qtypes import FixedPointType, QTensor
 from ..core.quantize import calibrate_scale
 from ..core.tables import GATED_FORMS, TableSpec
+from .activations import _LUT_DOMAIN, act_fn
 from .context import DEFAULT_CTX, QuantContext
 
 __all__ = ["linear_init", "linear"]
 
-#: activations the fused LUT epilogue supports
+#: activations the fused LUT epilogue supports (relu is cheaper exact;
+#: softplus needs its asymptote)
 _FUSABLE_ACTS = ("sigmoid", "tanh", "gelu", "silu")
-#: LUT domains per activation (the reference's ``activations._LUT_DOMAIN``)
-_LUT_DOMAIN = {"gelu": (-8.0, 8.0), "silu": (-10.0, 10.0),
-               "tanh": (-6.0, 6.0), "sigmoid": (-10.0, 10.0),
-               "softplus": (-16.0, 16.0), "relu": (-8.0, 8.0)}
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -48,7 +48,7 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
 
 def _act_table(act: str, ctx: QuantContext,
                path: str) -> Tuple[TableSpec, bool]:
-    """TableSpec + gated flag matching the reference's LUT selection."""
+    """TableSpec + gated flag matching act_fn's LUT selection exactly."""
     prec = ctx.policy.resolve(path)
     n = prec.table_n or ctx.table_n
     lo, hi = _LUT_DOMAIN[act]
@@ -121,6 +121,5 @@ def linear(p, x: torch.Tensor, ctx: QuantContext = DEFAULT_CTX, *,
     if bias is not None:
         y = y + bias.to(y.dtype)
     if act is not None and not act_done:
-        from .activations import act_fn
         y = act_fn(act, y, ctx, path=act_path or f"{path}/act")
     return y

@@ -5,7 +5,8 @@ The reference runs ``steps`` decode steps inside one ``lax.scan``; here
 the block is a Python loop of ``steps`` model calls whose tokens,
 positions, live mask and fault lane stay on the device.  Nothing in the
 loop reads a device value, so the host syncs once per block, when the
-engine copies the block's tokens back.  Greedy decoding only: sampled
+engine copies the block's tokens back.  Both steps carry either serving
+cache, dense or paged, which the model updates in place.  Greedy decoding only: sampled
 streams need the reference's threefry noise (ROADMAP.md queue 1).
 """
 

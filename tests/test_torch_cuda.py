@@ -49,6 +49,18 @@ def test_qmatmul_kernel_matches_plain(card, mkn, out_dtype):
 @pytest.mark.parametrize("indexing", ["trunc", "nearest", "interp"])
 @pytest.mark.parametrize("gated", [False, True])
 def test_qmatmul_fused_epilogue_matches_plain(card, indexing, gated):
+    _fused_epilogue_case(card, indexing, gated, (-8.0, 8.0))
+
+
+@pytest.mark.parametrize("indexing", ["trunc", "nearest", "interp"])
+@pytest.mark.parametrize("gated", [False, True])
+def test_qmatmul_fused_epilogue_non_power_of_two_step(card, indexing, gated):
+    """A table step of 20/1024: the plain version indexes as the kernel
+    does, ``(y - lo) * step_inv``, so the two still agree bit for bit."""
+    _fused_epilogue_case(card, indexing, gated, (-10.0, 10.0))
+
+
+def _fused_epilogue_case(card, indexing, gated, domain):
     from repro_torch.core.tables import TableSpec
     from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
     a = torch.randint(-127, 128, (32, 128), generator=card, device="cuda",
@@ -58,12 +70,12 @@ def test_qmatmul_fused_epilogue_matches_plain(card, indexing, gated):
     sa = (torch.rand((32, 1), generator=card, device="cuda") + 0.1) * 5e-3
     sb = (torch.rand((1, 64), generator=card, device="cuda") + 0.1) * 5e-3
     bias = torch.randn((64,), generator=card, device="cuda")
-    # power-of-two step: the kernel's * step_inv equals the plain / step
-    spec = TableSpec("silu_gate" if gated else "sigmoid", 1024, -8.0, 8.0,
+    # the same indexing and the same single-rounded operations: bitwise
+    spec = TableSpec("silu_gate" if gated else "sigmoid", 1024, *domain,
                      None, indexing)
     got = qmatmul(a, b, sa, sb, bias, act_spec=spec, act_gated=gated)
     want = qmatmul_plain(a, b, sa, sb, bias, act_spec=spec, act_gated=gated)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("knobs", [(1, 1), (2, 1), (3, 2), (2, 8)])
@@ -95,3 +107,45 @@ def test_paged_attention_kernels_match_plain(card, knobs, s, group):
     again = ops.paged_attention(q, kp2, vp2, bt, qpos, kv_split=split,
                                 pages_per_step=tile)
     assert torch.equal(again[:2], got[:2])
+
+
+@pytest.mark.parametrize("shape", [(8, 16384), (128, 16384), (3, 1001),
+                                   (7,)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("indexing", ["trunc", "nearest", "interp"])
+@pytest.mark.parametrize("table", [("gelu_gate", -8.0, 8.0),
+                                   ("silu_gate", -10.0, 10.0)])
+def test_lut_activation_kernel_matches_plain(card, shape, dtype, indexing,
+                                             table):
+    """Bitwise: the kernel and its plain version compute every f32
+    operation with one rounding, in the same order, and both round the
+    same f32 value to bf16.  (3, 1001) and (7,) leave a scalar tail; a
+    view at offset 1 is not 16-byte aligned and takes the scalar path."""
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.lut_activation import (lut_activation,
+                                                    lut_activation_plain)
+    dt = getattr(torch, dtype)
+    spec = TableSpec(table[0], 1024, table[1], table[2], None, indexing)
+    x = (torch.randn(shape, generator=card, device="cuda") * 6).to(dt)
+    before = _cuda.LAUNCHES["lut_activation"]
+    got = lut_activation(x, spec)
+    want = lut_activation_plain(x, spec)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["lut_activation"] == before + 1
+    assert got.dtype == dt and got.shape == x.shape
+    assert torch.equal(got, want)
+    flat = x.reshape(-1)
+    if flat.numel() > 1:
+        assert torch.equal(lut_activation(flat[1:], spec),
+                           lut_activation_plain(flat[1:], spec))
+
+
+def test_lut_activation_kernel_refuses(card):
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels.lut_activation import lut_activation
+    x = torch.randn((4, 8), generator=card, device="cuda")
+    with pytest.raises(ValueError, match="exceeds"):
+        lut_activation(x, TableSpec("gelu_gate", 8192))
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        lut_activation(x.half(), TableSpec("gelu_gate"))

@@ -2,7 +2,11 @@
 streams as the JAX ``Engine`` on gemma-2b smoke, paged, ``none`` and
 ``int8``, batch 2 with three requests (so a lane is refilled mid-flight),
 at the auto knobs, at ``(1, 1)`` and at an explicit split; the resolved
-knobs are equal too.  Streams are compared exactly, never loosened.
+knobs are equal too.  With the paper's tables (``use_lut``) the paged f32
+cache still attends through the paged kernel with the exact softmax, so
+the reference runs its paged kernel too (``force_paged_kernel``, interpret
+mode).  Streams are compared exactly, never loosened.  The dense and int8
+KV caches' cells are in ``tests/test_torch_dense_cache.py``.
 """
 
 import numpy as np
@@ -10,45 +14,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import auto_mesh, contexts, smoke_params  # noqa: E402
+from torch_parity import (ENGINE_GEN, ENGINE_KW, contexts,  # noqa: E402
+                          engine_prompts, serve_jax, serve_torch,
+                          smoke_params)
 
-GEN, MAX_LEN, PLEN = 8, 24, 13
-ENGINE_KW = dict(batch=2, max_len=MAX_LEN, paged=True, page_size=4,
-                 prefill_chunk=5)
-
-
-def _prompts(vocab):
-    from repro.data.pipeline import SyntheticLM
-    src = SyntheticLM(vocab, seed=0)
-    return [src.tokens(i, 1, PLEN + 1)[0, :-1] for i in range(3)]
-
-
-def _serve_jax(cfg, ctx, params, prompts, knobs):
-    from repro.dist.constrain import use_mesh
-    from repro.launch.serve import Engine
-    mesh = auto_mesh()
-    with use_mesh(mesh):
-        eng = Engine(cfg, ctx, params, mesh, **ENGINE_KW, **knobs)
-        ids = [eng.submit(p, gen_len=GEN) for p in prompts]
-        eng.try_admit()
-        while eng.live.any() or eng.waiting:
-            eng.step_many(4)
-        eng.retire_finished()
-    return [eng.results[i]["tokens"] for i in ids], eng
-
-
-def _serve_torch(cfg, ctx, params, prompts, knobs):
-    from repro_torch.kernels import launch_counts
-    from repro_torch.launch.serve import Engine
-    eng = Engine(cfg, ctx, params, device="cpu", **ENGINE_KW, **knobs)
-    ids = [eng.submit(p, gen_len=GEN) for p in prompts]
-    eng.try_admit()
-    while eng.live.any() or eng.waiting:
-        eng.step_many(4)
-    eng.retire_finished()
-    assert launch_counts() == {k: 0 for k in launch_counts()}   # CPU: plain
-    return [eng.results[i]["tokens"] for i in ids], eng
-
+GEN = ENGINE_GEN
 
 KNOBS = {"auto": {}, "unsplit": {"kv_split": 1, "pages_per_step": 1},
          "split2": {"kv_split": 2}}
@@ -59,9 +29,9 @@ KNOBS = {"auto": {}, "unsplit": {"kv_split": 1, "pages_per_step": 1},
 def test_greedy_streams_identical(mode, knobs):
     cfg, jparams, tparams = smoke_params(mode)
     jctx, tctx = contexts(mode)
-    prompts = _prompts(cfg.vocab)
-    want, jeng = _serve_jax(cfg, jctx, jparams, prompts, KNOBS[knobs])
-    got, teng = _serve_torch(cfg, tctx, tparams, prompts, KNOBS[knobs])
+    prompts = engine_prompts(cfg.vocab)
+    want, jeng = serve_jax(cfg, jctx, jparams, prompts, KNOBS[knobs])
+    got, teng = serve_torch(cfg, tctx, tparams, prompts, KNOBS[knobs])
     assert got == want
     assert all(len(t) == GEN for t in got)
     assert (teng.kv_split, teng.pages_per_step) == \
@@ -76,12 +46,31 @@ def test_greedy_streams_identical(mode, knobs):
         assert teng.kv_split == 2
 
 
+@pytest.mark.parametrize("mode", ["none", "int8"],
+                         ids=["a-lut-paged", "b-int8-lut-paged"])
+def test_greedy_streams_identical_lut_paged(mode):
+    """Regime (a): float weights, every gated GELU through the
+    ``lut_activation`` op; regime (b): int8 weights, the table fused into
+    qmatmul's epilogue.  Both on the paged f32 cache."""
+    cfg, jparams, tparams = smoke_params(mode)
+    jctx, _ = contexts(mode, use_lut=True, force_paged_kernel=True)
+    _, tctx = contexts(mode, use_lut=True)
+    prompts = engine_prompts(cfg.vocab)
+    want, _ = serve_jax(cfg, jctx, jparams, prompts, {})
+    got, teng = serve_torch(cfg, tctx, tparams, prompts, {})
+    assert got == want
+    assert all(len(t) == GEN for t in got)
+    st = teng.stats()
+    assert st["paged"] and st["gen_tokens"] == 3 * GEN
+    assert st["decode_steps"] > 0 and st["prefill_chunks"] > 0
+
+
 def test_block_size_invariance_and_stop_rules():
     """Blocks of 1, 3 and 8 steps give the same streams; an EOS id stops a
     lane early, exactly as the reference engine does."""
     cfg, jparams, tparams = smoke_params("none")
     jctx, tctx = contexts("none")
-    prompts = _prompts(cfg.vocab)
+    prompts = engine_prompts(cfg.vocab)
     from repro_torch.launch.serve import Engine
     streams = []
     for block in (1, 3, 8):
@@ -105,27 +94,38 @@ def test_block_size_invariance_and_stop_rules():
 
 
 def test_refusals():
+    """Out-of-slice options are refused by name; ``--lut``, ``--kv-bits 8``
+    and the dense cache (no ``--paged``) are served."""
     from repro_torch.launch.serve import Engine, main
     cfg, _, tparams = smoke_params("none")
     _, tctx = contexts("none")
-    with pytest.raises(NotImplementedError, match="dense"):
-        Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8,
-               paged=False)
     with pytest.raises(NotImplementedError, match="autotune"):
         Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8,
                autotune="analytic")
+    with pytest.raises(ValueError, match="kv_bits"):
+        Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8,
+               kv_bits=4)
+    with pytest.raises(NotImplementedError, match="fake"):
+        contexts("fake")
     eng = Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8)
+    assert not eng.paged and eng.kv_split is None
     with pytest.raises(NotImplementedError, match="sampled"):
         eng.submit(np.arange(4), gen_len=2, temperature=0.7)
     with pytest.raises(ValueError, match="out-of-vocab"):
         eng.submit(np.asarray([cfg.vocab]), gen_len=2)
-    for flag in ("--spec", "--prefix-cache", "--preempt", "--lut",
-                 "--kv-bits", "--replicas", "--durable-dir"):
+    for flag in ("--spec", "--prefix-cache", "--preempt", "--replicas",
+                 "--durable-dir"):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma-2b", "--smoke", "--paged", "--device",
                   "cpu", flag, "8"])
     with pytest.raises(SystemExit):
-        main(["--arch", "gemma-2b", "--smoke", "--device", "cpu"])
+        main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+              "--kv-bits", "4"])
+    for flags in (["--lut"], ["--kv-bits", "8"], []):
+        done = main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+                     "--requests", "2", "--batch", "2", "--prompt-len", "5",
+                     "--gen-len", "3", *flags])
+        assert len(done) == 2 and all(len(t) == 3 for t in done)
 
 
 def test_cli_serves_on_cpu(capsys):
@@ -135,3 +135,18 @@ def test_cli_serves_on_cpu(capsys):
                  "2", "--prompt-len", "6", "--gen-len", "4"])
     assert len(done) == 3 and all(len(t) == 4 for t in done)
     assert "served 3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [["--paged", "--lut"],
+                                   ["--quant", "int8", "--lut", "--kv-bits",
+                                    "8"]],
+                         ids=["a-lut-paged", "c-int8-lut-kv8"])
+def test_cli_serves_lut_regimes_on_cpu(capsys, flags):
+    from repro_torch.launch.serve import main
+    done = main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+                 "--requests", "3", "--batch", "2", "--prompt-len", "6",
+                 "--gen-len", "4", *flags])
+    assert len(done) == 3 and all(len(t) == 4 for t in done)
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out and "lut=True" in out
+    assert ("paged(" in out) == ("--paged" in flags)

@@ -61,6 +61,9 @@ def test_cuda_lookup_never_falls_back_to_ref():
     assert ops is not None
     assert get_impl("qmatmul", "cuda") is qmatmul
     assert get_impl("qmatmul", "ref") is ref.qmatmul_ref
+    from repro_torch.kernels.lut_activation import lut_activation
+    assert get_impl("lut_activation", "cuda") is lut_activation
+    assert get_impl("lut_activation", "ref") is ref.lut_activation_ref
     register_op("only_ref_op_for_test", "ref")(lambda x: x)
     with pytest.raises(KeyError, match="never falls back"):
         get_impl("only_ref_op_for_test", "cuda")
@@ -86,6 +89,10 @@ def test_wrappers_refuse_other_devices():
     for fn in (paged_attention_unsplit, paged_attention_split):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(q, pages, pages, bt, qpos)
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels.lut_activation import lut_activation
+    with pytest.raises(ValueError, match="unsupported device"):
+        lut_activation(q, TableSpec("gelu_gate"))
 
 
 def test_entry_points_default_to_the_card():

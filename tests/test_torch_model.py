@@ -4,7 +4,15 @@ reference's init, converted through numpy) and the same pages and block
 tables.  Per-layer outputs and logits agree at atol 1e-4 (f32; both
 sides run the same formulas in another association order, and the int8
 path re-quantizes activations that already agree to ~1e-6).
+
+Also with the paper's tables (``use_lut``) on f32 pages -- the reference
+then runs its paged kernel (``force_paged_kernel``), since the port's
+paged f32 path is the kernel's, with the exact softmax -- and on int8 KV
+pages, where both gather, dequantize and attend with the (table)
+softmax; int8 pages are compared through their dequantized values.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,15 +44,30 @@ def _tables():
     return bt
 
 
-def _caches(cfg):
-    jc = jlm.init_paged_cache(cfg, B, NUM_PAGES, PS, WIDTH, jnp.float32)
+def _caches(cfg, kv_bits=None):
+    jdt, tdt = ((jnp.int8, torch.int8) if kv_bits
+                else (jnp.float32, torch.float32))
+    jc = jlm.init_paged_cache(cfg, B, NUM_PAGES, PS, WIDTH, jdt)
     bt = _tables()
     jc = {"dense": {"pages": jc["dense"]["pages"],
                     "block_table": jnp.broadcast_to(
                         jnp.asarray(bt), jc["dense"]["block_table"].shape)}}
-    tc = tlm.init_paged_cache(cfg, B, NUM_PAGES, PS, WIDTH, torch.float32)
+    tc = tlm.init_paged_cache(cfg, B, NUM_PAGES, PS, WIDTH, tdt)
     tc["dense"]["block_table"].copy_(torch.from_numpy(bt))
     return jc, tc
+
+
+def _page_values(cache):
+    """f32 K/V page values (int8 pages dequantized by their scale pages)."""
+    pages = cache["dense"]["pages"]
+
+    def get(name):
+        v = pages[name]
+        return np.asarray(v.float() if isinstance(v, torch.Tensor)
+                          else v.astype(jnp.float32))
+    if "k_scale" not in pages:
+        return {n: get(n) for n in ("k", "v")}
+    return {n: get(n) * get(f"{n}_scale") for n in ("k", "v")}
 
 
 def _layers_jax(params, x, cfg, ctx, cache, pos):
@@ -75,9 +98,31 @@ def _layers_torch(params, x, cfg, ctx, cache, pos):
                          ids=["auto", "split1"])
 @pytest.mark.parametrize("mode", ["none", "int8"])
 def test_prefill_then_decode_matches(mode, knobs):
+    _prefill_then_decode(mode, *contexts(mode, **knobs))
+
+
+@pytest.mark.parametrize("cache", ["f32-lut", "kv8-exact", "kv8-lut"])
+@pytest.mark.parametrize("mode", ["none", "int8"])
+def test_lut_and_int8_pages_match(mode, cache):
+    use_lut, kv_bits = cache.endswith("lut"), (8 if "kv8" in cache else None)
+    jctx, tctx = contexts(mode, use_lut=use_lut,
+                          force_paged_kernel=kv_bits is None)
+    _prefill_then_decode(mode, jctx, tctx, kv_bits)
+    if use_lut:
+        # the tables are in effect: the exact path gives other logits
+        cfg, _, tparams = smoke_params(mode)
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab, (B, CHUNK)).astype(np.int32))
+        lut, exact = (tlm.prefill(tparams, tokens, _caches(cfg, kv_bits)[1],
+                                  cfg, c, full_logits=True)[0]
+                      for c in (tctx, dataclasses.replace(tctx,
+                                                          use_lut=False)))
+        assert not torch.equal(lut, exact)
+
+
+def _prefill_then_decode(mode, jctx, tctx, kv_bits=None):
     cfg, jparams, tparams = smoke_params(mode)
-    jctx, tctx = contexts(mode, **knobs)
-    jcache, tcache = _caches(cfg)
+    jcache, tcache = _caches(cfg, kv_bits)
     rs = np.random.RandomState(0)
     prompt = rs.randint(0, cfg.vocab, (B, CHUNK)).astype(np.int32)
     pos = np.asarray([0, 5], np.int32)     # lane 1 continues at position 5
@@ -105,10 +150,9 @@ def test_prefill_then_decode_matches(mode, knobs):
     tl, tcache = tlm.prefill(tparams, torch.from_numpy(prompt), tcache, cfg,
                              tctx, pos=torch.from_numpy(pos), full_logits=True)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL, rtol=0)
+    jv, tv = _page_values(jcache), _page_values(tcache)
     for name in ("k", "v"):
-        np.testing.assert_allclose(tcache["dense"]["pages"][name].numpy(),
-                                   np.asarray(jcache["dense"]["pages"][name]),
-                                   atol=ATOL, rtol=0)
+        np.testing.assert_allclose(tv[name], jv[name], atol=ATOL, rtol=0)
 
     pos = pos + CHUNK
     tok = np.asarray(jl)[:, -1].argmax(-1).astype(np.int32)[:, None]

@@ -76,3 +76,46 @@ def contexts(mode: str, **knobs):
     return (JCtx(mode=mode, policy=jpol, compute_dtype=jnp.float32, **knobs),
             QuantContext(mode=mode, policy=pol, compute_dtype=torch.float32,
                          **knobs))
+
+
+#: the engine parity suites' geometry: batch 2 with three requests (a lane
+#: is refilled mid-flight), small pages, a ragged prefill chunk
+ENGINE_GEN, ENGINE_MAX_LEN, ENGINE_PLEN = 8, 24, 13
+ENGINE_KW = dict(batch=2, max_len=ENGINE_MAX_LEN, paged=True, page_size=4,
+                 prefill_chunk=5)
+
+
+def engine_prompts(vocab):
+    from repro.data.pipeline import SyntheticLM
+    src = SyntheticLM(vocab, seed=0)
+    return [src.tokens(i, 1, ENGINE_PLEN + 1)[0, :-1] for i in range(3)]
+
+
+def serve_jax(cfg, ctx, params, prompts, kw):
+    """Greedy streams of the reference ``Engine`` (``ENGINE_KW`` updated
+    by ``kw``) on an Auto mesh."""
+    from repro.dist.constrain import use_mesh
+    from repro.launch.serve import Engine
+    with use_mesh(auto_mesh()):
+        eng = Engine(cfg, ctx, params, auto_mesh(), **{**ENGINE_KW, **kw})
+        ids = [eng.submit(p, gen_len=ENGINE_GEN) for p in prompts]
+        eng.try_admit()
+        while eng.live.any() or eng.waiting:
+            eng.step_many(4)
+        eng.retire_finished()
+    return [eng.results[i]["tokens"] for i in ids], eng
+
+
+def serve_torch(cfg, ctx, params, prompts, kw):
+    """Greedy streams of the port's ``Engine(device="cpu")``; on the CPU no
+    kernel launches (the wrappers run their plain versions)."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import Engine
+    eng = Engine(cfg, ctx, params, device="cpu", **{**ENGINE_KW, **kw})
+    ids = [eng.submit(p, gen_len=ENGINE_GEN) for p in prompts]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(4)
+    eng.retire_finished()
+    assert launch_counts() == {k: 0 for k in launch_counts()}
+    return [eng.results[i]["tokens"] for i in ids], eng
