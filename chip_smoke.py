@@ -14,12 +14,15 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    name and power limit);
 3. hold every kernel against its plain PyTorch version on the card at the
    main path's shapes (gemma-2b at full width: qmatmul at M = 8 and 128
-   over every projection, paged attention at decode and prefill, unsplit
+   over every projection, and over whisper-base's at M = 8, 128 and
+   12000 with and without a bias, all bitwise; paged attention at decode and prefill, unsplit
    and split, plus a ~4096-token decode, lut_activation on one layer's
    gate activations at decode and prefill with every indexing and the
-   gelu, silu and softmax-exp tables), with the kernel's, the plain
-   version's and a library call's device time (median of cold-L2
-   launches, CUDA events) beside the least time the card could take;
+   gelu, silu and softmax-exp tables; flash_attention at the whisper
+   encoder's shape, gemma-2b's cache-free prefill, ragged Sq/Skv and the
+   MLA width, bf16 and f32), with the kernel's, the plain version's and a
+   library call's device time (median of cold-L2 launches, CUDA events)
+   beside the least time the card could take;
 4. serve full-width gemma-2b, bf16 compute, batch 8, prompt 128, gen 32,
    on four paths, each with the launch counters reset just before it and
    read just after, failing if a kernel of the path never launched:
@@ -30,6 +33,13 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    fused table epilogue, int8 KV rows, the table softmax).  Logits of one
    prefill chunk and 4 decode steps through the kernels are compared with
    the plain versions' on the int8 paged and the LUT paged configurations;
+   then path 5: full-width whisper-base through the serving step builders
+   (batch 8, 1500 encoder frames, prompt 16, 32 greedy tokens in blocks
+   of 8, the f32 dense cache), with bf16 and with int8 weights: the
+   encoder runs the flash kernel, 6 launches per prefill, checked, and
+   the logits are held against the plain versions' at path 5's own gates,
+   which two planted faults (a causal encoder, zeroed cross K/V) must
+   fail;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -57,6 +67,11 @@ F32_FLOP_PER_S = 67e12
 
 GEMMA_PROJ = [("wq", 2048, 2048), ("wk/wv", 2048, 256), ("wo", 2048, 2048),
               ("up/gate", 2048, 16384), ("down", 16384, 2048)]
+#: whisper-base's projections (d_model 512, d_ff 2048): the decoder runs
+#: them at M = 8 (decode) and 128 (the prefill's prompt), the encoder and
+#: the cross K/V at M = 8 x 1500 frames
+WHISPER_PROJ = [("wq/wk/wv/wo", 512, 512), ("up", 512, 2048),
+                ("down", 2048, 512)]
 
 
 def log(msg: str) -> None:
@@ -104,18 +119,26 @@ def check_qmatmul(torch, timer, rows):
     from repro_torch.core.tables import TableSpec, get_table
     from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
     g = torch.Generator(device="cuda").manual_seed(1)
-    cases = [(m, name, k, n, torch.bfloat16, None)
+    # (M, name, K, N, output type, epilogue table, bias)
+    cases = [(m, name, k, n, torch.bfloat16, None, False)
              for m in (8, 128) for name, k, n in GEMMA_PROJ]
-    cases.append((128, "wq f32", 2048, 2048, torch.float32, None))
+    cases.append((128, "wq f32", 2048, 2048, torch.float32, None, False))
     # the fused epilogue: bias + gated gelu table (step 2^-6), and silu's
     # gate table, whose step 20/1024 is not a power of two (both the
     # kernel and its plain version index with (y - lo) * step_inv)
     cases.append((128, "up+bias+lut", 2048, 2048, torch.float32,
-                  TableSpec("gelu_gate", 1024, -8.0, 8.0, None, "interp")))
+                  TableSpec("gelu_gate", 1024, -8.0, 8.0, None, "interp"),
+                  True))
     cases.append((8, "up+bias+silu-lut", 2048, 16384, torch.bfloat16,
                   TableSpec("silu_gate", 1024, -10.0, 10.0, None,
-                            "interp")))
-    for m, name, k, n, out_dtype, spec in cases:
+                            "interp"), True))
+    # whisper-base's projections, without and with a bias (the epilogue's
+    # fma(acc * sa, sb, bias))
+    cases += [(m, f"whisper {name}{'+bias' if bias else ''}", k, n,
+               torch.bfloat16, None, bias)
+              for m in (8, 128, 12000) for name, k, n in WHISPER_PROJ
+              for bias in (False, True)]
+    for m, name, k, n, out_dtype, spec, with_bias in cases:
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
         b = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
@@ -123,16 +146,15 @@ def check_qmatmul(torch, timer, rows):
         sa = (torch.rand((m, 1), generator=g, device="cuda") + 0.1) * 1e-3
         sb = (torch.rand((1, n), generator=g, device="cuda") + 0.1) * 1e-3
         bias = (torch.randn((n,), generator=g, device="cuda")
-                if spec is not None else None)
+                if with_bias else None)
         kw = dict(act_spec=spec, act_gated=spec is not None)
         got = qmatmul(a, b, sa, sb, bias, out_dtype, **kw)
         want = qmatmul_plain(a, b, sa, sb, bias, out_dtype, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        # exact int32 accumulation and the reference's epilogue op order:
-        # equal up to one rounding of the output type at the largest value
-        tol = scale * (2.0 ** -8 if out_dtype == torch.bfloat16 else 1e-6)
+        # exact int32 accumulation and the same single-rounded epilogue
+        # operations in the same order: bitwise equal
+        tol = 0.0
         if not (err <= tol and torch.isfinite(got).all().item()):
             raise AssertionError(f"qmatmul {name} M={m}: max_abs_err {err} "
                                  f"> tol {tol}")
@@ -144,8 +166,10 @@ def check_qmatmul(torch, timer, rows):
             lib_ms = yardstick(timer, lambda: torch._int_mm(a, b))
         out_bytes = 2 if out_dtype == torch.bfloat16 else 4
         nbytes = m * k + k * n + 4 * m + 4 * n + out_bytes * m * n
+        if with_bias:
+            nbytes += 4 * n
         if spec is not None:
-            nbytes += 4 * n + 4 * get_table(spec).np_values.size
+            nbytes += 4 * get_table(spec).np_values.size
         bnd, by = bound_ms(nbytes, 2.0 * m * n * k, INT8_OPS_PER_S)
         rows.append(dict(kernel="qmatmul", case=f"{name} M={m} K={k} N={n} "
                          f"{str(out_dtype)[6:]}", max_abs_err=err, tol=tol,
@@ -317,6 +341,104 @@ def check_attention(torch, timer, rows):
                        f"library={fmt_ms(row['library_ms'])} "
                        f"bound={row['bound_ms']:.4f}ms ({row['bound_by']})"
                        if "ms" in row else ""))
+
+
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
+
+#: the flash kernel's cases: (label, B, Hq, Hkv, Sq, Skv, D, causal, dtypes,
+#: V's nonzero width); (a) the whisper encoder, (b) gemma-2b's cache-free
+#: prefill, (c) ragged and MLA-wide shapes; f32 for (a) and (b) is (d)
+FLASH_CASES = [
+    ("a whisper-encoder", 8, 8, 8, 1500, 1500, 64, False, ("bf16", "f32"),
+     None),
+    ("b gemma-prefill", 2, 8, 1, 512, 512, 256, True, ("bf16", "f32"), None),
+    ("c ragged Sq<Skv causal", 2, 8, 2, 77, 200, 64, True, ("bf16",), None),
+    ("c ragged Sq>Skv", 2, 8, 2, 200, 77, 64, False, ("bf16",), None),
+    ("c MLA-width", 1, 16, 16, 256, 256, 192, True, ("bf16",), 128),
+]
+
+
+def check_flash(torch, timer, rows):
+    """The flash kernel against its plain version (same inputs, on the
+    card), with SDPA's time as the library yardstick (never called by
+    the port).  bf16: one bf16 ulp of the output plus 2e-5 (the f32 sums
+    run in another order); f32: atol = rtol = 2e-5."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for (label, b, hq, hkv, sq, skv, d, causal, dtypes,
+         dv) in FLASH_CASES:
+        for dname in dtypes:
+            dt = torch.bfloat16 if dname == "bf16" else torch.float32
+            q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dt)
+            k = torch.randn((b, hkv, skv, d), generator=g,
+                            device="cuda").to(dt)
+            v = torch.randn((b, hkv, skv, d), generator=g,
+                            device="cuda").to(dt)
+            if dv is not None:        # MLA: V zero-padded to the qk width
+                v[..., dv:] = 0
+            got = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            gf, wf = got.float(), want.float()
+            err = (gf - wf).abs().max().item()
+            if dt == torch.bfloat16:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    wf.abs().clamp_min(2.0 ** -126))) - 7)
+                ok = bool(((gf - wf).abs() <= ulp + 2e-5).all().item())
+                tol = "1 bf16 ulp + 2e-5"
+            else:
+                ok = torch.allclose(gf, wf, atol=2e-5, rtol=2e-5)
+                tol = "atol=rtol=2e-5"
+            if not (ok and torch.isfinite(got).all().item()):
+                raise AssertionError(f"flash_attention {label} {dname}: "
+                                     f"max_abs_err {err} beyond {tol}")
+            ms = timer(lambda: flash_attention(q, k, v, causal=causal))
+            plain_ms = timer(lambda: flash_attention_plain(
+                q, k, v, causal=causal), reps=5)
+            lib_ms = yardstick(timer, _sdpa_dense(torch, F, q, k, v, causal))
+            # visible (query, key) pairs of this run: all, or causal
+            # (queries the last Sq positions), counted exactly
+            if causal:
+                qpos = torch.arange(sq) + (skv - sq)
+                pairs = int(torch.clamp(qpos + 1, 0, skv).sum())
+            else:
+                pairs = sq * skv
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) \
+                * q.element_size()
+            bnd, by = bound_ms(nbytes, 4.0 * b * hq * pairs * d,
+                               BF16_FLOP_PER_S if dt == torch.bfloat16
+                               else F32_FLOP_PER_S)
+            rows.append(dict(kernel="flash_attention",
+                             case=f"{label} B={b} H={hq}/{hkv} Sq={sq} "
+                             f"Skv={skv} D={d} causal={causal} {dname}",
+                             max_abs_err=err, tol=tol, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bnd, bound_by=by))
+            log(f"[check] flash_attention {rows[-1]['case']}: "
+                f"max_abs_err={err:.3g} ({tol}) kernel={ms:.4f}ms "
+                f"plain={plain_ms:.4f}ms library(SDPA)={fmt_ms(lib_ms)} "
+                f"bound={bnd:.4f}ms ({by})")
+
+
+def _sdpa_dense(torch, F, q, k, v, causal):
+    """The library yardstick for the flash kernel: SDPA on K/V expanded to
+    the query heads, with the bottom-right causal mask (queries the last
+    Sq positions) when Sq != Skv (expansion and mask not timed)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    group = hq // k.shape[1]
+    ke = k.repeat_interleave(group, dim=1)
+    ve = v.repeat_interleave(group, dim=1)
+    if causal and sq != skv:
+        mask = (torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+                >= torch.arange(skv, device="cuda")[None, :])
+        return lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                      attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                  is_causal=causal)
 
 
 def _sdpa_ms(torch, F, timer, q, kp, vp, bt, qpos):
@@ -513,6 +635,284 @@ def serve_main_path(torch, rows_out, profile: bool):
     return total
 
 
+#: path 5: whisper-base, batch 8, 1500 encoder frames (the 30-second
+#: window after the stubbed conv front end), a 16-token decoder prompt,
+#: 32 greedy tokens in blocks of 8
+WHISPER = dict(batch=8, frames=1500, plen=16, gen=32, block=8)
+
+
+def serve_whisper(torch, report, profile: bool):
+    """Path 5: whisper-base at full width through the serving step
+    builders (the Engine refuses encdec, as the reference Engine never
+    runs an encoder), with bf16 and with int8 weights, bf16 compute, the
+    f32 dense KV cache.  Per weight type: the logit check (kernels vs
+    plain, one prefill and 4 teacher-forced decode steps, and the planted
+    faults it must catch), then one
+    counted run -- counts reset just before the prefill and read after
+    the last decode block: flash_attention must launch exactly once per
+    encoder layer (6), qmatmul 0 (bf16) or > 0 (int8) times.  Returns the
+    launch counts summed over both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import prepare_params, quantize_for_serving
+    from repro_torch.models import encdec
+    from repro_torch.models.api import init_cache_fn
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.train.step import build_decode_loop, build_prefill_step
+
+    cfg = get_config("whisper-base")
+    w = WHISPER
+    b, plen, gen = w["batch"], w["plen"], w["gen"]
+    nb = make_batch(cfg, 0, b, w["frames"], seed=0)
+    batch = {"tokens": torch.from_numpy(nb["tokens"][:, :plen]).cuda(),
+             "enc_input": torch.from_numpy(nb["enc_input"]).cuda()}
+    log(f"[whisper] whisper-base full width: {cfg.enc_layers}+{cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; batch {b}, "
+        f"{w['frames']} encoder frames, prompt {plen}, {gen} greedy tokens "
+        f"in blocks of {w['block']}")
+    runs, total = {}, {}
+    for label, mode in (("bf16 weights", "none"), ("int8 weights", "int8")):
+        ctx = QuantContext(
+            mode=mode, compute_dtype=torch.bfloat16,
+            policy=(PrecisionPolicy.uniform(FixedPointType(8, 4))
+                    if mode == "int8" else PrecisionPolicy()))
+        gen_t = torch.Generator(device="cuda").manual_seed(0)
+        if mode == "int8":
+            params = quantize_for_serving(
+                encdec.init(gen_t, cfg, device="cuda"), ctx)
+        else:
+            params = encdec.init(gen_t, cfg, dtype=torch.bfloat16,
+                                 device="cuda")
+        params = prepare_params(params, ctx, "cuda")
+        checks = whisper_logit_check(torch, cfg, params, ctx, batch, steps=4)
+
+        prefill_step = build_prefill_step(cfg, ctx)
+        loop = build_decode_loop(cfg, ctx, w["block"])
+        cache = init_cache_fn(cfg, b, plen + gen, torch.float32, "cuda")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, batch, cache)
+        tok = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pos = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+        live = torch.ones((b,), dtype=torch.bool, device="cuda")
+        stop = torch.full((b,), plen + gen, dtype=torch.int32, device="cuda")
+        streams = []
+        t1 = time.perf_counter()
+        for _ in range(gen // w["block"]):
+            cache, tok, pos, live, bt, bl, fault = loop(params, cache, tok,
+                                                        pos, live, stop, -1)
+            streams.append(bt.cpu())          # the host's one sync a block
+            if fault.any().item():
+                raise AssertionError(f"whisper {label}: non-finite logits")
+        decode_s = time.perf_counter() - t1
+        counts = launch_counts()
+        toks = torch.cat(streams).T
+        if not (toks.shape == (b, gen) and toks.min() >= 0
+                and toks.max() < cfg.vocab and not live.any().item()):
+            raise AssertionError(f"whisper {label}: streams "
+                                 f"{tuple(toks.shape)} out of range or "
+                                 f"still live")
+        want_q = counts["qmatmul"] > 0 if mode == "int8" \
+            else counts["qmatmul"] == 0
+        others = {k: v for k, v in counts.items()
+                  if k not in ("flash_attention", "qmatmul") and v}
+        if counts["flash_attention"] != cfg.enc_layers or not want_q \
+                or others:
+            raise AssertionError(
+                f"whisper {label}: launches {counts}; expected "
+                f"flash_attention = {cfg.enc_layers} (one prefill), qmatmul "
+                f"{'> 0' if mode == 'int8' else '0'}, nothing else")
+        encode_ms = event_ms(torch, lambda: encdec.encode(
+            params, batch["enc_input"], cfg, ctx))
+        run = dict(weights=label, prefill_s=prefill_s, encode_ms=encode_ms,
+                   decode_s=decode_s, decode_tok_per_s=b * gen / decode_s,
+                   gen_tokens=b * gen, launches=counts, logit_checks=checks)
+        runs[label] = run
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[whisper] {label}: prefill (encode {w['frames']} frames + "
+            f"cross K/V + {plen}-token prompt) {prefill_s * 1e3:.2f} ms, "
+            f"encode alone {encode_ms:.2f} ms (CUDA events), decode {b * gen} tokens in "
+            f"{decode_s:.3f}s = {run['decode_tok_per_s']:.1f} tok/s; "
+            f"launches {json.dumps(counts)}")
+        if profile:
+            try:
+                run["profile"] = profile_whisper(torch, cfg, ctx, params,
+                                                 batch, prefill_step, loop)
+            except (RuntimeError, AttributeError) as e:
+                log(f"[profile] failed: {e!r}")
+        del params, cache
+        torch.cuda.synchronize()
+    report["whisper"] = runs
+    log(f"[whisper] launches over both runs: {json.dumps(total)}")
+    return total
+
+
+def event_ms(torch, fn, reps: int = 5) -> float:
+    """Median device time of ``fn`` (warm), CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+#: gates of path 5's logit check (whisper-base, kernels vs plain): set
+#: between the sound runs' largest reading and the planted faults'
+#: readings (PERF.md section 6)
+WHISPER_TOL_REL, WHISPER_MIN_AGREE = 0.05, 0.9
+
+
+def _causal_encoder(encdec, torch):
+    """Planted fault: the encoder's self-attention made causal."""
+    f = encdec.dense_block_apply
+    return "dense_block_apply", lambda *a, **kw: f(*a, **{**kw,
+                                                        "causal": True})
+
+
+def _zero_cross_kv(encdec, torch):
+    """Planted fault: every decoder layer's cross K/V zeroed."""
+    f = encdec.gqa_project_kv
+    return "gqa_project_kv", lambda *a, **kw: tuple(
+        torch.zeros_like(t) for t in f(*a, **kw))
+
+
+WHISPER_FAULTS = {"causal encoder": _causal_encoder,
+                  "zeroed cross K/V": _zero_cross_kv}
+
+
+def whisper_logit_check(torch, cfg, params, ctx, batch, *, steps: int):
+    """Full-width whisper logits of the prefill (every prompt position)
+    and ``steps`` teacher-forced decode steps (the plain side's argmax),
+    through the kernels and through the plain versions
+    (``backend="ref"``), from the same weights and inputs, each run with
+    its own dense cache; gated at WHISPER_TOL_REL / WHISPER_MIN_AGREE.
+    Then each planted fault of WHISPER_FAULTS, patched into the kernels'
+    run only, must fail that gate at some step: the gate is shown to
+    catch a wrong encoder and wrong cross K/V in every run."""
+    from repro_torch.models import encdec
+    b, plen = batch["tokens"].shape
+
+    def run(c, forced=None):
+        cache = encdec.init_cache(cfg, b, plen + steps + 1, torch.float32,
+                                  "cuda")
+        out, toks = [], []
+        for step in range(steps + 1):
+            if step == 0:
+                logits, cache = encdec.prefill(params, batch, cache, cfg, c,
+                                               full_logits=True)
+            else:
+                pos = torch.full((b,), plen + step - 1, dtype=torch.int32,
+                                 device="cuda")
+                tok = (toks if forced is None else forced)[step - 1]
+                logits, cache = encdec.decode_step(params, tok, cache, pos,
+                                                   cfg, c)
+            out.append(logits.float())
+            toks.append(out[-1][:, -1].argmax(-1).to(torch.int32)[:, None])
+        return out, toks
+
+    def what(step):
+        return "prefill" if step == 0 else f"decode step {step}"
+
+    plain, forced = run(dataclasses.replace(ctx, backend="ref"))
+    got, _ = run(ctx, forced)
+    gate = dict(tol_rel=WHISPER_TOL_REL, min_agree=WHISPER_MIN_AGREE)
+    checks = [gate_logits(torch, "[whisper]",
+                          f"whisper {ctx.mode}: {what(step)}", lk, lp,
+                          ctx.compute_dtype, **gate)
+              for step, (lk, lp) in enumerate(zip(got, plain))]
+    for fault, plant in WHISPER_FAULTS.items():
+        attr, patched = plant(encdec, torch)
+        orig = getattr(encdec, attr)
+        setattr(encdec, attr, patched)
+        try:
+            got, _ = run(ctx, forced)
+        finally:
+            setattr(encdec, attr, orig)
+        readings = [logit_readings(lk, lp) for lk, lp in zip(got, plain)]
+        caught = [r for r in readings if not passes_gate(r, **gate)]
+        worst_rel = max(r["rel_l2_err"] for r in readings)
+        worst_agree = min(r["argmax_agree"] for r in readings)
+        log(f"[whisper] planted fault '{fault}' ({ctx.mode} weights): "
+            f"relative L2 up to {worst_rel:.4g}, argmax agreement down to "
+            f"{worst_agree:.4f}; fails the gate at {len(caught)} of "
+            f"{len(readings)} steps")
+        if not caught:
+            raise AssertionError(f"whisper {ctx.mode}: the logit gate does "
+                                 f"not catch the planted fault '{fault}'")
+        checks.append(dict(step=f"planted fault: {fault}",
+                           rel_l2_err=worst_rel, argmax_agree=worst_agree,
+                           steps_caught=len(caught)))
+    del plain, got
+    torch.cuda.synchronize()
+    return checks
+
+
+def profile_whisper(torch, cfg, ctx, params, batch, prefill_step, loop):
+    """Device time by kernel for one whisper prefill and one decode block
+    (torch.profiler, the second of two traced rounds)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.api import init_cache_fn
+    b, plen = batch["tokens"].shape
+    out = {}
+    for what in ("prefill", "decode block"):
+        for _ in range(2):          # the first traced round starts the tracer
+            cache = init_cache_fn(cfg, b, plen + 2 * WHISPER["block"],
+                                  torch.float32, "cuda")
+            logits, cache = prefill_step(params, batch, cache)
+            tok = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+            pos = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+            live = torch.ones((b,), dtype=torch.bool, device="cuda")
+            stop = pos + 2 * WHISPER["block"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if what == "prefill":
+                    prefill_step(params, batch, cache)
+                else:
+                    loop(params, cache, tok, pos, live, stop, -1)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = device_rows(prof)
+        busy = sum(r[1] for r in rows)
+        log(f"[profile] whisper {ctx.mode} {what}: wall {wall * 1e3:.2f} ms, "
+            f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+        for k, ms, n in rows[:10]:
+            log(f"[profile]   {ms:9.3f} ms  x{n:<5d} {k[:90]}")
+        out[what] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                         top=[dict(kernel=k, ms=ms, count=n)
+                              for k, ms, n in rows[:25]])
+    return out
+
+
+def device_rows(prof):
+    """(kernel, device ms, count) of a torch.profiler run, longest first."""
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "cuda_time_total", 0)
+        if dev and getattr(ev, "device_type", None) is not None \
+                and "CUDA" in str(ev.device_type):
+            rows.append((ev.key, dev / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 #: gates of the full-width logit check: relative L2 error, argmax agreement
 LOGIT_TOL_REL, LOGIT_MIN_AGREE = 0.25, 0.75
 
@@ -566,30 +966,53 @@ def logit_check(torch, cfg, params, ctx, prompts, batch, max_len, chunk, ps,
             else:
                 logits[name], _ = lm.decode_step(pp, tokens, caches[name],
                                                  pos, cfg, c)
-        lk, lp = logits["kernels"].float(), logits["plain"].float()
-        rel = ((lk - lp).norm() / lp.norm()).item()
-        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-        err = (lk - lp).abs().max().item()
-        what = (f"{mode}: " + ("prefill chunk" if step == 0
-                               else f"decode step {step}"))
-        log(f"[engine] {what} logits {tuple(lk.shape)}, kernels vs plain "
-            f"({str(ctx.compute_dtype)[6:]}): relative L2 error {rel:.4g} "
-            f"(tol {LOGIT_TOL_REL}), argmax agreement {agree:.4f} (tol "
-            f"{LOGIT_MIN_AGREE}), max_abs_err {err:.4g} of max |logit| "
-            f"{lp.abs().max().item():.4g}")
-        if not (torch.isfinite(lk).all().item() and rel <= LOGIT_TOL_REL
-                and agree >= LOGIT_MIN_AGREE):
-            raise AssertionError(f"{what} through the kernels disagrees with "
-                                 f"the plain versions")
-        checks.append(dict(step=what, rel_l2_err=rel, tol_rel=LOGIT_TOL_REL,
-                           max_abs_err=err, argmax_agree=agree,
-                           max_abs_logit=lp.abs().max().item()))
+        lp = logits["plain"].float()
+        checks.append(gate_logits(
+            torch, "[engine]", f"{mode}: " + (
+                "prefill chunk" if step == 0 else f"decode step {step}"),
+            logits["kernels"].float(), lp, ctx.compute_dtype))
         # teacher forcing: both sides continue from the plain argmax
         pos = pos + tokens.shape[1]
         tokens = lp[:, -1].argmax(-1).to(torch.int32)[:, None]
     del pp, caches
     torch.cuda.synchronize()
     return checks
+
+
+def logit_readings(lk, lp) -> dict:
+    """Relative L2 error, argmax agreement and max abs error of logits
+    through the kernels ``lk`` against the plain versions' ``lp``."""
+    return dict(rel_l2_err=((lk - lp).norm() / lp.norm()).item(),
+                argmax_agree=(lk.argmax(-1) == lp.argmax(-1)).float()
+                .mean().item(),
+                max_abs_err=(lk - lp).abs().max().item(),
+                max_abs_logit=lp.abs().max().item(),
+                finite=bool(lk.isfinite().all().item()))
+
+
+def passes_gate(r: dict, *, tol_rel: float, min_agree: float) -> bool:
+    return (r["finite"] and r["rel_l2_err"] <= tol_rel
+            and r["argmax_agree"] >= min_agree)
+
+
+def gate_logits(torch, tag, what, lk, lp, dtype, *,
+                tol_rel: float = LOGIT_TOL_REL,
+                min_agree: float = LOGIT_MIN_AGREE):
+    """Hold logits through the kernels ``lk`` against the plain versions'
+    ``lp``: finite, relative L2 error <= ``tol_rel``, argmax agreement
+    >= ``min_agree``; log and return the numbers."""
+    r = logit_readings(lk, lp)
+    log(f"{tag} {what} logits {tuple(lk.shape)}, kernels vs plain "
+        f"({str(dtype)[6:]}): relative L2 error {r['rel_l2_err']:.4g} "
+        f"(tol {tol_rel}), argmax agreement {r['argmax_agree']:.4f} (tol "
+        f"{min_agree}), max_abs_err {r['max_abs_err']:.4g} of max |logit| "
+        f"{r['max_abs_logit']:.4g}")
+    if not passes_gate(r, tol_rel=tol_rel, min_agree=min_agree):
+        raise AssertionError(f"{what} through the kernels disagrees with "
+                             f"the plain versions")
+    return dict(step=what, rel_l2_err=r["rel_l2_err"], tol_rel=tol_rel,
+                max_abs_err=r["max_abs_err"], argmax_agree=r["argmax_agree"],
+                max_abs_logit=r["max_abs_logit"])
 
 
 def np_stack(arrs):
@@ -632,15 +1055,7 @@ def profile_block(torch, eng, prompts, gen_len):
             eng.step_many(8)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "cuda_time_total", 0)
-        if dev and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
-            rows.append((ev.key, dev / 1e3, ev.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
     log(f"[profile] one 8-step decode block: wall {wall * 1e3:.2f} ms, "
         f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
@@ -657,20 +1072,25 @@ def kernels_line(rows, counts):
     pick = {"qmatmul": "up/gate M=8 K=2048 N=16384 bfloat16",
             "paged_attention_unsplit": "decode B=8 S=1 tokens~150",
             "paged_attention_split": "decode B=8 S=1 tokens~150",
-            "lut_activation": "gelu_gate interp 8x16384 bfloat16"}
+            "lut_activation": "gelu_gate interp 8x16384 bfloat16",
+            "flash_attention": "a whisper-encoder B=8 H=8/8 Sq=1500 "
+                               "Skv=1500 D=64 causal=False bf16"}
     source = {"qmatmul": "src/repro_torch/kernels/csrc/qmatmul.cu",
               "paged_attention_unsplit":
                   "src/repro_torch/kernels/csrc/paged_attention.cu",
               "paged_attention_split":
                   "src/repro_torch/kernels/csrc/paged_attention.cu",
               "lut_activation":
-                  "src/repro_torch/kernels/csrc/lut_activation.cu"}
+                  "src/repro_torch/kernels/csrc/lut_activation.cu",
+              "flash_attention":
+                  "src/repro_torch/kernels/csrc/flash_attention.cu"}
     replaces = {"qmatmul": "src/repro/kernels/qmatmul.py:104",
                 "paged_attention_unsplit":
                     "src/repro/kernels/flash_attention.py:217",
                 "paged_attention_split":
                     "src/repro/kernels/flash_attention.py:514",
-                "lut_activation": "src/repro/kernels/lut_activation.py:74"}
+                "lut_activation": "src/repro/kernels/lut_activation.py:74",
+                "flash_attention": "src/repro/kernels/flash_attention.py:101"}
     out = []
     for name in pick:
         mine = [r for r in rows if r["kernel"] == name]
@@ -743,12 +1163,17 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     check_lut(torch, timer, rows)
     torch.cuda.synchronize()
+    check_flash(torch, timer, rows)
+    torch.cuda.synchronize()
     report["checks"] = rows
     counts = {}
     if not args.kernels:
-        # 4. the main path
+        # 4. the main path: gemma-2b's four paths, then whisper-base
         del timer
         counts = serve_main_path(torch, report, args.profile)
+        torch.cuda.synchronize()
+        for k, v in serve_whisper(torch, report, args.profile).items():
+            counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
 
     if args.report:

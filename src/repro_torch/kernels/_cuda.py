@@ -39,7 +39,8 @@ __all__ = ["SOURCES", "LAUNCHES", "launch_counts", "reset_launch_counts",
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmatmul": CSRC / "qmatmul.cu",
            "paged_attention": CSRC / "paged_attention.cu",
-           "lut_activation": CSRC / "lut_activation.cu"}
+           "lut_activation": CSRC / "lut_activation.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,7 +48,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel wrapper name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
-                            "paged_attention_split": 0, "lut_activation": 0}
+                            "paged_attention_split": 0, "lut_activation": 0,
+                            "flash_attention": 0}
 #: source name -> {"seconds", "ptxas"} of the builds made by this process
 BUILD_LOG: Dict[str, dict] = {}
 
@@ -73,6 +75,10 @@ SIGNATURES = {
     "lut_activation": {
         "lut_activation_launch": [_P, _P, _P, _L, _I, _F, _F, _I, _I, _I,
                                   _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _I, _P],
     },
 }
 

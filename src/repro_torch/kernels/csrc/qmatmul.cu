@@ -4,8 +4,10 @@
 // Replaces: src/repro/kernels/qmatmul.py:104 qmatmul_pallas (the Pallas
 // body is _kernel at :60).  Same contract: A (M, K) int8 row-major,
 // B (K, N) int8 row-major, exact int32 accumulation over K, then
-//   y = acc.f32 * sa[m] * sb[n]   (in that order, as qmatmul.py:82)
-//   y = y + bias[n]               (optional)
+//   y = acc.f32 * sa[m] * sb[n]   (in that order, as qmatmul.py:82;
+//                                  with a bias, fma(acc.f32 * sa[m],
+//                                  sb[n], bias[n]), as XLA compiles
+//                                  qmatmul.py:82-84)
 //   y = table(y) or y * table(y)  (optional, apply_table of
 //                                  lut_activation.py:36, shared with the
 //                                  lut_activation kernel through
@@ -37,8 +39,8 @@
 // 16 rows high so no thread computes rows that cannot exist.  The
 // epilogue runs on the int32 accumulator in registers, with the table in
 // shared memory: the (M, N) f32 intermediate never reaches HBM.  The
-// epilogue uses __fmul_rn/__fadd_rn so that nvcc cannot contract it into
-// FMAs: the op order is the reference's, so the f32 output is bitwise
+// epilogue uses __fmul_rn/__fmaf_rn so that nvcc contracts nothing on
+// its own: the op order is the reference's, so the f32 output is bitwise
 // the plain version's (repro_torch.kernels.ref.qmatmul_ref, whose table
 // epilogue indexes with the same (y - lo) * step_inv).
 // Ragged M, N and K are masked here (zero-filled loads, guarded stores);
@@ -194,8 +196,11 @@ qmatmul_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
-      float y = __fmul_rn(__fmul_rn((float)acc[i][j], sam), sb[n]);
-      if (bias != nullptr) y = __fadd_rn(y, bias[n]);
+      // with a bias, one rounding for the last product and the sum:
+      // XLA compiles the reference's acc * sa * sb + bias into this FMA
+      const float y0 = __fmul_rn((float)acc[i][j], sam);
+      float y = bias != nullptr ? __fmaf_rn(y0, sb[n], bias[n])
+                                : __fmul_rn(y0, sb[n]);
       if (table_n > 0)
         y = apply_table(y, tab, table_n, lo, step_inv, indexing, gated);
       const size_t o = (size_t)m * N + n;

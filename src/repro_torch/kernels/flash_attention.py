@@ -1,18 +1,24 @@
-"""Paged attention over a block-table-indexed KV page pool.
+"""Flash attention: the cache-free kernel and paged attention.
 
-Port of the paged part of ``repro.kernels.flash_attention``: the
-one-page-per-step kernel (TPU ``_paged_attention_unsplit``), the split-KV
-flash-decoding kernel with its log-sum-exp combine (TPU
-``paged_attention_pallas`` + ``combine_splits``), and the pure-Python
-knob resolvers, which must pick exactly the reference's
-``(pages_per_step, kv_split)``.  The Hopper kernels are in
-``csrc/paged_attention.cu``; the plain versions are
-:func:`repro_torch.kernels.ref.paged_attention_ref` (unsplit) and
-:func:`~repro_torch.kernels.ref.paged_attention_split_ref` (split).
+Port of ``repro.kernels.flash_attention``:
+
+* the cache-free blocked online-softmax kernel (TPU
+  ``flash_attention_pallas``), :func:`flash_attention`, which serves the
+  cache-free forward (the whisper encoder, ``lm.forward`` without a
+  cache); Hopper kernel ``csrc/flash_attention.cu``, plain version
+  :func:`repro_torch.kernels.ref.flash_attention_plain`;
+* the paged kernels over a block-table-indexed KV page pool: the
+  one-page-per-step kernel (TPU ``_paged_attention_unsplit``) and the
+  split-KV flash-decoding kernel with its log-sum-exp combine (TPU
+  ``paged_attention_pallas`` + ``combine_splits``), with the pure-Python
+  knob resolvers, which must pick exactly the reference's
+  ``(pages_per_step, kv_split)``.  Hopper kernels in
+  ``csrc/paged_attention.cu``; plain versions
+  :func:`repro_torch.kernels.ref.paged_attention_ref` (unsplit) and
+  :func:`~repro_torch.kernels.ref.paged_attention_split_ref` (split).
 
 Each wrapper runs its plain version for CPU tensors and launches its
-kernel (or raises) for CUDA tensors.  The cache-free ``flash_attention``
-kernel is not ported yet (ROADMAP.md queue 2).
+kernel (or raises) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .ref import combine_splits, paged_attention_ref, paged_attention_split_ref
+from .ref import (combine_splits, flash_attention_plain, paged_attention_ref,
+                  paged_attention_split_ref)
 
-__all__ = ["paged_attention", "paged_attention_unsplit",
+__all__ = ["flash_attention", "flash_attention_plain", "MAX_HEAD_DIM",
+           "paged_attention", "paged_attention_unsplit",
            "paged_attention_split", "combine_splits", "choose_kv_split",
            "auto_pages_per_step", "get_cost_constants", "set_cost_constants",
            "_resolve_knobs"]
@@ -121,6 +129,55 @@ def _resolve_knobs(np_: int, ps: int, hkv: int, batch: int, kv_split,
 
 
 # -- wrappers ----------------------------------------------------------------
+#: widest head the flash kernel takes (gemma-2b's 256)
+MAX_HEAD_DIM = 256
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    softmax_scale: Optional[float] = None):
+    """Cache-free attention: q (B, Hq, Sq, D) against k, v (B, Hkv, Skv, D),
+    ``Hq % Hkv == 0``, the queries the last Sq positions of the context;
+    f32 or bf16 (all three alike), f32 softmax and accumulation, output
+    in q's dtype.  ``softmax_scale`` None is ``D ** -0.5``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes f32 or bf16 q, k, v of one "
+                        f"dtype, not {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"(B, H, S, D) with v like k")
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv \
+            or skv == 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k/v {tuple(k.shape)} (batch, head dim, Hq % Hkv, "
+                         f"Skv >= 1)")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} outside the "
+                         f"kernel's 1..{MAX_HEAD_DIM}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: operands on different devices")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lib = _cuda.library("flash_attention")
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
+        sq, skv, d, _scale(softmax_scale, d), int(bool(causal)),
+        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+    _cuda.check(lib, err, "flash_attention")
+    _cuda.LAUNCHES["flash_attention"] += 1
+    return out
+
+
 def _check(q, k_pages, v_pages, block_tables, qpos):
     """Validate what the CUDA kernels take; returns the geometry."""
     if q.device.type != "cuda":

@@ -16,16 +16,20 @@ import torch
 from ..core.registry import get_impl, register_op
 from ..core.tables import TableSpec
 from . import ref as _ref
+from .flash_attention import flash_attention as _flash_attention_cuda
 from .flash_attention import paged_attention as _paged_attention_cuda
 from .lut_activation import lut_activation as _lut_activation_cuda
 from .qmatmul import qmatmul as _qmatmul_cuda
 
-__all__ = ["lut_activation", "qmatmul", "paged_attention", "sample_tokens"]
+__all__ = ["lut_activation", "qmatmul", "attention", "paged_attention",
+           "sample_tokens"]
 
 register_op("lut_activation", "ref")(_ref.lut_activation_ref)
 register_op("lut_activation", "cuda")(_lut_activation_cuda)
 register_op("qmatmul", "ref")(_ref.qmatmul_ref)
 register_op("qmatmul", "cuda")(_qmatmul_cuda)
+register_op("attention", "ref")(_ref.flash_attention_ref)
+register_op("attention", "cuda")(_flash_attention_cuda)
 register_op("paged_attention", "ref")(_ref.paged_attention_ref)
 register_op("paged_attention", "cuda")(_paged_attention_cuda)
 # greedy choice is one argmax over (B, V): a library reduction on either
@@ -52,6 +56,15 @@ def qmatmul(a_data, b_data, a_scale, b_scale, *, bias=None,
         kw.update(act_spec=act_spec, act_gated=act_gated)
     return get_impl("qmatmul", backend)(a_data, b_data, a_scale, b_scale,
                                         out_dtype=out_dtype, **kw)
+
+
+def attention(q, k, v, *, causal: bool = True, softmax_scale=None,
+              backend: Optional[str] = None, **kw) -> torch.Tensor:
+    """Cache-free attention, q (B, Hq, Sq, D) against k, v (B, Hkv, Skv,
+    D): the ``flash_attention`` kernel (``cuda``) or the reference's
+    plain oracle (``ref``)."""
+    return get_impl("attention", backend)(q, k, v, causal=causal,
+                                          softmax_scale=softmax_scale, **kw)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, qpos, *,

@@ -26,7 +26,8 @@ import torch
 from ..core.tables import TableSpec, get_table, table_lookup
 
 __all__ = ["lut_activation_ref", "apply_table", "lut_activation_plain",
-           "qmatmul_ref", "paged_attention_ref",
+           "qmatmul_ref", "flash_attention_ref", "flash_attention_plain",
+           "paged_attention_ref",
            "paged_attention_split_ref", "combine_splits",
            "sample_tokens_ref"]
 
@@ -114,6 +115,11 @@ def qmatmul_ref(a_data: torch.Tensor, b_data: torch.Tensor,
                 act_gated: bool = False) -> torch.Tensor:
     """int8 x int8 -> int32 -> ``acc.f32 * sa * sb`` (+ bias) (-> LUT).
 
+    With a bias the last product and the sum round once,
+    ``fma(acc * sa, sb, bias)``, as XLA compiles ``qmatmul_pallas``'s
+    epilogue (bitwise its interpret mode); the reference's
+    ``qmatmul_ref`` rounds twice, an ulp away at most.
+
     ``a_scale`` broadcasts as (M, 1) or scalar, ``b_scale`` as (1, N) or
     scalar; ``act_gated`` gives ``y * table(y)``.  The table epilogue
     indexes as the kernels do (:func:`apply_table`, as
@@ -125,15 +131,91 @@ def qmatmul_ref(a_data: torch.Tensor, b_data: torch.Tensor,
     acc = int8_matmul_exact(a_data, b_data)
     sa = torch.as_tensor(a_scale, dtype=torch.float32, device=dev)
     sb = torch.as_tensor(b_scale, dtype=torch.float32, device=dev)
-    y = acc.to(torch.float32) * sa * sb
-    if bias is not None:
-        y = y + torch.as_tensor(bias, dtype=torch.float32,
-                                device=dev).reshape(1, -1)
+    y = acc.to(torch.float32) * sa
+    if bias is None:
+        y = y * sb
+    else:
+        # XLA compiles the reference kernel's ``acc * sa * sb + bias`` as
+        # ``fma(acc * sa, sb, bias)``; the CUDA kernel's __fmaf_rn too
+        y = fma_f32(y, sb, torch.as_tensor(bias, dtype=torch.float32,
+                                           device=dev).reshape(1, -1))
     if act_spec is not None:
         y = apply_table(y, get_table(act_spec).values(dev), lo=act_spec.lo,
                         step_inv=1.0 / act_spec.step,
                         indexing=act_spec.indexing, gated=act_gated)
     return y.to(out_dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain attention oracle with f32 softmax (the reference's
+    ``flash_attention_ref``): q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) with
+    Hq % Hkv == 0; the queries are the last Sq positions of the context,
+    masked with ``-inf`` (a row that sees no key comes out NaN)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = (softmax_scale if softmax_scale is not None
+             else float(1.0 / np.sqrt(d)))
+    qg = q.reshape(b, hkv, hq // hkv, sq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        mask = qpos >= torch.arange(skv, device=q.device)[None, :]
+        logits = torch.where(mask, logits, -torch.inf)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+#: the flash kernel's K/V tile (rows per online-softmax update)
+FLASH_BK = 64
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          softmax_scale: Optional[float] = None
+                          ) -> torch.Tensor:
+    """The plain version of the ``flash_attention`` kernel (TPU
+    ``flash_attention_pallas``): the online softmax over K/V tiles of
+    :data:`FLASH_BK` rows, vectorised over batch, heads and every query
+    row.  ``q.f32 * scale`` before the product; a position is visible
+    when ``kpos < Skv`` and, causal, ``q_off + i >= kpos`` with ``q_off =
+    Skv - Sq``; masked logits are ``-1e30`` and their ``p`` 0; ``l`` is
+    floored at ``1e-30``, so a row that sees no key gives 0, not NaN.
+    The kernel skips whole tiles that no query of its tile sees; for
+    those rows such a tile is an exact no-op of the update here.  The
+    output is in q's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = (softmax_scale if softmax_scale is not None
+             else float(1.0 / np.sqrt(d)))
+    dev = q.device
+    qf = q.reshape(b, hkv, hq // hkv, sq, d).to(torch.float32) * scale
+    qpos = (skv - sq) + torch.arange(sq, device=dev)[:, None]      # (Sq, 1)
+    m = torch.full((b, hkv, hq // hkv, sq, 1), _NEG, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, sq, v.shape[-1]),
+                      dtype=torch.float32, device=dev)
+    for k0 in range(0, skv, FLASH_BK):
+        kt = k[:, :, k0:k0 + FLASH_BK].to(torch.float32)
+        vt = v[:, :, k0:k0 + FLASH_BK].to(torch.float32)
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt)
+        if causal:
+            mask = qpos >= k0 + torch.arange(kt.shape[2], device=dev)
+            logits = torch.where(mask, logits, _NEG)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhgqk,bhkd->bhgqd", p, vt)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
 def combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor):

@@ -29,8 +29,10 @@ of ``repro.launch.serve``).
 
 Out of this slice (ROADMAP.md): sampled decoding,
 speculative decoding, prefix caching, preemption, priorities, the
-durable journal, the fleet, the autotuner and non-``lm`` families.  The
-CLI refuses their flags by name.
+durable journal, the fleet, the autotuner and non-``lm`` families (the
+``encdec`` family serves through the step builders of
+``repro_torch.train.step``, as the reference Engine never runs an
+encoder).  The Engine and the CLI refuse them by name.
 
 Usage::
 
@@ -88,6 +90,18 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _refuse_encdec(cfg) -> None:
+    """The Engine serves decoder-only models: the reference Engine never
+    runs an encoder (its looped prefill decodes against the zero cross
+    K/V of ``init_cache`` and never passes ``enc_input``)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the Engine does not serve the encdec family (the "
+            f"reference Engine never runs the encoder); serve it through "
+            f"train.step.build_prefill_step with enc_input and "
+            f"build_decode_loop (ROADMAP.md queue 1, item 7)")
+
+
 def _to(tree, device):
     from ..core.qtypes import QTensor
     if isinstance(tree, dict):
@@ -137,6 +151,7 @@ class Engine:
             raise NotImplementedError(
                 f"autotune={autotune!r}: the autotuner is not ported yet "
                 f"(ROADMAP.md queue 1, item 9); use 'off'")
+        _refuse_encdec(cfg)
         get_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -583,8 +598,12 @@ def main(argv=None):
         ap.error("temperature > 0 is not ported yet: greedy only "
                  "(ROADMAP.md queue 1, item 6)")
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family == "encdec":
+        ap.error(f"--arch {args.arch}: the Engine does not serve the encdec "
+                 f"family (the reference Engine never runs the encoder); "
+                 f"see ROADMAP.md queue 1, item 7")
+    device = resolve_device(args.device)
     if args.smoke:
         cfg = cfg.smoke()
     ctx = build_ctx(args)

@@ -1,5 +1,5 @@
 """Family registry and serving-cache helpers (port of ``repro.models.api``;
-the ``lm`` family only)."""
+the ``lm`` and ``encdec`` families)."""
 
 from __future__ import annotations
 
@@ -7,13 +7,13 @@ from types import ModuleType
 
 import torch
 
-from . import lm
+from . import encdec, lm
 
 __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
            "init_cache_fn", "init_paged_cache_fn", "set_block_table",
            "invalidate_fn"]
 
-FAMILIES = {"lm": lm}
+FAMILIES = {"lm": lm, "encdec": encdec}
 
 
 def get_family(cfg) -> ModuleType:
@@ -26,9 +26,15 @@ def get_family(cfg) -> ModuleType:
 
 def prefill_fn(params, batch, cache, cfg, ctx, *, pos=None,
                full_logits: bool = False):
-    """Family-dispatched (chunked) prefill; ``batch`` = {"tokens": (B, S)}."""
-    return get_family(cfg).prefill(params, batch["tokens"], cache, cfg, ctx,
-                                   pos=pos, full_logits=full_logits)
+    """Family-dispatched (chunked) prefill; ``batch`` = {"tokens": (B, S)},
+    plus ``"enc_input"`` (B, S_enc, D) for ``encdec``, which takes the
+    whole batch, as in the reference."""
+    fam = get_family(cfg)
+    if cfg.family == "encdec":
+        return fam.prefill(params, batch, cache, cfg, ctx, pos=pos,
+                           full_logits=full_logits)
+    return fam.prefill(params, batch["tokens"], cache, cfg, ctx, pos=pos,
+                       full_logits=full_logits)
 
 
 def decode_fn(params, tokens, cache, pos, cfg, ctx):
@@ -44,7 +50,12 @@ def init_cache_fn(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def init_paged_cache_fn(cfg, batch: int, num_pages: int, page_size: int,
                         table_width: int, dtype=torch.float32, device="cpu"):
-    return get_family(cfg).init_paged_cache(cfg, batch, num_pages, page_size,
+    fam = get_family(cfg)
+    if not hasattr(fam, "init_paged_cache"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no paged serving cache; serve it "
+            f"with a dense cache (paged=False)")
+    return fam.init_paged_cache(cfg, batch, num_pages, page_size,
                                             table_width, dtype, device)
 
 
@@ -72,11 +83,12 @@ def _is_paged(cache) -> bool:
 def invalidate_fn(cache, slot: int, cfg):
     """Zero one slot's dense KV rows, in place, so a recycled slot can
     never observe its previous occupant.  Dense leaves are (L, B, ...),
-    so the slot is batch axis 1.  A paged cache is returned unchanged:
-    its pages carry no batch axis, and a retired slot's pages are
-    unreachable once the engine resets its block-table row.  ``cfg`` is
-    the reference's argument (its families with other cache layouts
-    bring their own hook); the lm family needs none."""
+    so the slot is batch axis 1: the lm rows, and encdec's self rows and
+    cross K/V alike.  A paged cache is returned unchanged: its pages
+    carry no batch axis, and a retired slot's pages are unreachable once
+    the engine resets its block-table row.  ``cfg`` is the reference's
+    argument (its families with other cache layouts bring their own
+    hook); the ported families need none."""
     if _is_paged(cache):
         return cache
 

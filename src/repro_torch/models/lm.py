@@ -6,8 +6,10 @@ Serving runs on either KV cache, as in the reference: the dense cache,
 per-layer rows ``(L, B, Hkv, rows, D)``, or the paged cache, per-layer
 page pools ``(L, P+1, Hkv, ps, D)`` and per-layer block tables ``(L, B,
 NP)`` that the engine keeps identical across layers.  Both come in f32
-or int8 (payload plus bf16 per-(token, head) scales).  The MoE body is
-not ported yet (ROADMAP.md).
+or int8 (payload plus bf16 per-(token, head) scales).  Without a cache,
+:func:`forward` is the cache-free causal forward, through the
+``flash_attention`` kernel on the card.  The MoE body is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,8 +1,16 @@
-"""GQA / MQA self-attention over a KV cache (port of the cache branches
-of ``repro.nn.attention``).
+"""GQA / MQA attention: the cache-free forward, cross-attention and the
+KV-cache regimes (port of the GQA part of ``repro.nn.attention``).
 
-Three caches, as in the reference:
-
+* **cache-free** (prefill without a cache, training, the whisper
+  encoder; cross-attention with fresh K/V from ``kv_input``) -- always
+  ``ops.attention``: the Hopper ``flash_attention`` kernel for CUDA
+  tensors, its plain version for CPU tensors, as the reference's TPU
+  path takes ``flash_attention_pallas``.  Like that kernel it keeps the
+  exact softmax under ``ctx.use_lut``; the reference's CPU branch
+  (``_einsum_attention``) would use the table softmax there.
+* **cross over cached K/V** (``cached_kv``, the encoder projections made
+  once at prefill by :func:`gqa_project_kv`) -- :func:`_einsum_attention`
+  with no mask.
 * **paged f32** -- each call scatters the new tokens' K/V into their
   pages through the block table (write-before-attend), then attends
   through the table with ``ops.paged_attention``: the Hopper kernel for
@@ -20,11 +28,11 @@ Three caches, as in the reference:
   :func:`_einsum_attention`.
 
 Caches are updated **in place** (the reference returns new arrays): a
-decode step writes ``B`` rows, not a copy of every layer's cache.  The
-cache-free forward (the reference's flash kernel path), cross-attention
-and MLA are not ported yet (ROADMAP.md); nor is the reference's
-``seq_kv`` mesh constraint on the dense cache (distribution, ROADMAP.md
-queue 1).
+decode step writes ``B`` rows, not a copy of every layer's cache.  RoPE
+is skipped where ``use_rope`` is off (learned positions, whisper) and
+for cross-attention.  MLA is not ported yet (ROADMAP.md); nor is the
+reference's ``seq_kv`` mesh constraint on the dense cache (distribution,
+ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from .linear import linear, linear_init
 from .rope import apply_rope
 
 __all__ = ["AttnDims", "gqa_init", "gqa_apply", "gqa_cache_spec",
-           "gqa_paged_cache_spec"]
+           "gqa_paged_cache_spec", "gqa_project_kv"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +76,17 @@ def gqa_init(gen: torch.Generator, d: AttnDims, *, dtype=torch.float32,
                           bias=d.qkv_bias, **kw),
         "wo": linear_init(gen, d.n_heads * d.head_dim, d.d_model, **kw),
     }
+
+
+def gqa_project_kv(p, kv_src: torch.Tensor, d: AttnDims,
+                   ctx: QuantContext = DEFAULT_CTX, *, path: str = "attn"):
+    """Project cross-attention K/V once (prefill) -> (B, Hkv, Skv, Dh)."""
+    b, skv, _ = kv_src.shape
+    k = linear(p["wk"], kv_src, ctx, path=f"{path}/wk")
+    v = linear(p["wv"], kv_src, ctx, path=f"{path}/wv")
+    k = k.reshape(b, skv, d.n_kv_heads, d.head_dim).transpose(1, 2)
+    v = v.reshape(b, skv, d.n_kv_heads, d.head_dim).transpose(1, 2)
+    return k, v
 
 
 def _kv_leaves(shape, dtype, device):
@@ -157,9 +176,11 @@ def _dequantize(data: torch.Tensor, scale: torch.Tensor,
     return data.to(dtype) * scale.to(dtype)
 
 
-def _einsum_attention(q, k, v, *, ctx: QuantContext, mask: torch.Tensor):
+def _einsum_attention(q, k, v, *, ctx: QuantContext,
+                      mask: Optional[torch.Tensor] = None):
     """(B,Hq,Sq,D) x (B,Hkv,Skv,D) attention with GQA folding under the
-    (B, Sq, Skv) visibility ``mask``.
+    (B, Sq, Skv) visibility ``mask``; without one (cross-attention over
+    cached K/V), unmasked.
 
     Operands are rounded to ``compute_dtype`` and multiplied in f32 (the
     reference's bf16 operands with ``preferred_element_type=f32``); the
@@ -176,7 +197,8 @@ def _einsum_attention(q, k, v, *, ctx: QuantContext, mask: torch.Tensor):
     qg = q.reshape(b, hkv, hq // hkv, sq, dh)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", operand(qg),
                           operand(k)) * (dh ** -0.5)
-    logits = torch.where(mask[:, None, None], logits, -1e30)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, -1e30)
     w = softmax(logits, ctx, axis=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", operand(w), operand(v))
     return out.reshape(b, hq, sq, dv).to(q.dtype)
@@ -194,39 +216,67 @@ def _cache_mask(pos: torch.Tensor, s: int, max_len: int,
 
 
 def gqa_apply(p, x: torch.Tensor, d: AttnDims, ctx: QuantContext = DEFAULT_CTX,
-              *, cache=None, cache_pos: Optional[torch.Tensor] = None,
+              *, kv_input: Optional[torch.Tensor] = None,
+              cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache=None, cache_pos: Optional[torch.Tensor] = None,
               path: str = "attn") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention of ``x`` (B, S, D_model) against a KV cache.
+    """Self- or cross-attention over ``x`` (B, S, D_model).
 
-    ``cache``: one layer's paged cache ({"pages": {"k", "v"[, "k_scale",
-    "v_scale"]}, "block_table"}) or dense cache ({"k", "v"[, "k_scale",
-    "v_scale"]}); ``cache_pos`` (B,) is each lane's position before this
-    call.  Returns ``(y, cache)`` (the cache is updated in place).
+    ``kv_input``: the encoder stream for cross-attention (source of K/V,
+    non-causal, no RoPE).  ``cached_kv``: cross K/V (B, Hkv, Skv, Dh)
+    projected once at prefill.  ``cache``: one layer's paged cache
+    ({"pages": {"k", "v"[, "k_scale", "v_scale"]}, "block_table"}) or
+    dense cache ({"k", "v"[, "k_scale", "v_scale"]}), updated in place;
+    ``cache_pos`` (B,) is each lane's position before this call.  With
+    neither, the cache-free forward.  Returns ``(y, cache)``.
     """
-    if cache is None:
-        raise NotImplementedError(
-            "the cache-free forward (the reference's flash-attention "
-            "kernel path) is not ported yet: ROADMAP.md queue 2, item 5")
-    if not d.causal or not d.use_rope:
-        raise NotImplementedError("only causal RoPE self-attention is ported")
     b, s, _ = x.shape
     q = linear(p["wq"], x, ctx, path=f"{path}/wq")
-    q = q.reshape(b, s, d.n_heads, d.head_dim)
-    k = linear(p["wk"], x, ctx, path=f"{path}/wk")
-    k = k.reshape(b, s, d.n_kv_heads, d.head_dim)
-    v = linear(p["wv"], x, ctx, path=f"{path}/wv")
-    v = v.reshape(b, s, d.n_kv_heads, d.head_dim)
+    q = q.reshape(b, s, d.n_heads, d.head_dim).transpose(1, 2)
+    if cached_kv is not None:
+        y = _einsum_attention(q, *cached_kv, ctx=ctx)
+    else:
+        y = _fresh_kv_attention(p, q, x, d, ctx, kv_input=kv_input,
+                                cache=cache, cache_pos=cache_pos, path=path)
+    y = y.transpose(1, 2).reshape(b, s, d.n_heads * d.head_dim)
+    return linear(p["wo"], y, ctx, path=f"{path}/wo"), cache
+
+
+def _fresh_kv_attention(p, q, x, d: AttnDims, ctx: QuantContext, *,
+                        kv_input, cache, cache_pos, path: str):
+    """Project K/V from ``kv_input`` (cross) or ``x`` (self), rotate q and
+    k (self-attention with RoPE), then attend: cache-free through
+    ``ops.attention``, else through the cache (written in place)."""
+    b, s = x.shape[:2]
+    kv_src = x if kv_input is None else kv_input
+    skv = kv_src.shape[1]
+    k = linear(p["wk"], kv_src, ctx, path=f"{path}/wk")
+    k = k.reshape(b, skv, d.n_kv_heads, d.head_dim).transpose(1, 2)
+    v = linear(p["wv"], kv_src, ctx, path=f"{path}/wv")
+    v = v.reshape(b, skv, d.n_kv_heads, d.head_dim).transpose(1, 2)
 
     pos = (torch.zeros((b,), dtype=torch.int32, device=x.device)
            if cache_pos is None else cache_pos)
-    positions = (torch.arange(s, device=x.device)[None, :]
-                 + pos.to(torch.int64)[:, None])
-    q = apply_rope(q.transpose(1, 2), positions[:, None],
-                   theta=d.rope_theta, fraction=d.rope_fraction)
-    k = apply_rope(k.transpose(1, 2), positions[:, None],
-                   theta=d.rope_theta, fraction=d.rope_fraction)
-    v = v.transpose(1, 2)                                # (B, Hkv, S, Dh)
+    if d.use_rope and kv_input is None:
+        positions = (torch.arange(s, device=x.device)[None, :]
+                     + pos.to(torch.int64)[:, None])
+        q = apply_rope(q, positions[:, None], theta=d.rope_theta,
+                       fraction=d.rope_fraction)
+        k = apply_rope(k, positions[:, None], theta=d.rope_theta,
+                       fraction=d.rope_fraction)
 
+    if cache is None:                      # the flash kernel's path
+        from ..kernels.ops import attention
+        return attention(q, k, v, causal=d.causal and kv_input is None,
+                         backend=ctx.backend)
+    return _cache_attention(q, k, v, d, ctx, cache, pos)
+
+
+def _cache_attention(q, k, v, d: AttnDims, ctx: QuantContext, cache,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """Write the new K/V into ``cache`` at ``pos`` (in place), then attend
+    over the cached rows: (B, Hq, s, Dh)."""
+    s = q.shape[2]
     cd = ctx.compute_dtype
     paged = "pages" in cache
     store = cache["pages"] if paged else cache
@@ -251,14 +301,11 @@ def gqa_apply(p, x: torch.Tensor, d: AttnDims, ctx: QuantContext = DEFAULT_CTX,
             return store[name]
     if paged and not quantized:            # the kernel walks the table
         from ..kernels.ops import paged_attention
-        y = paged_attention(q.contiguous(), store["k"], store["v"], bt,
-                            pos.to(torch.int32), kv_split=ctx.kv_split,
-                            pages_per_step=ctx.pages_per_step,
-                            backend=ctx.backend)
-    else:
-        ck, cv = ((_dequantize(rows(n), rows(f"{n}_scale"), cd)
-                   if quantized else rows(n)) for n in ("k", "v"))
-        y = _einsum_attention(q, ck, cv, ctx=ctx,
-                              mask=_cache_mask(pos, s, ck.shape[2], d.causal))
-    y = y.transpose(1, 2).reshape(b, s, d.n_heads * d.head_dim)
-    return linear(p["wo"], y, ctx, path=f"{path}/wo"), cache
+        return paged_attention(q.contiguous(), store["k"], store["v"], bt,
+                               pos.to(torch.int32), kv_split=ctx.kv_split,
+                               pages_per_step=ctx.pages_per_step,
+                               backend=ctx.backend)
+    ck, cv = ((_dequantize(rows(n), rows(f"{n}_scale"), cd)
+               if quantized else rows(n)) for n in ("k", "v"))
+    return _einsum_attention(q, ck, cv, ctx=ctx,
+                             mask=_cache_mask(pos, s, ck.shape[2], d.causal))

@@ -15,7 +15,7 @@ from ..core.qtypes import QTensor
 from .attention import gqa_apply, gqa_init
 from .context import DEFAULT_CTX, QuantContext
 from .linear import linear, linear_init
-from .norms import rmsnorm, rmsnorm_init
+from .norms import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 
 __all__ = ["norm_init", "norm_apply", "mlp_init", "mlp_apply",
            "dense_block_init", "dense_block_apply", "stack_init",
@@ -23,13 +23,15 @@ __all__ = ["norm_init", "norm_apply", "mlp_init", "mlp_apply",
 
 
 def norm_init(cfg, d: Optional[int] = None, device="cpu"):
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError("only RMSNorm is ported (ROADMAP.md)")
-    return rmsnorm_init(d or cfg.d_model, device=device)
+    d = d or cfg.d_model
+    return (rmsnorm_init(d, device=device) if cfg.norm_type == "rmsnorm"
+            else layernorm_init(d, device=device))
 
 
 def norm_apply(cfg, p, x):
-    return rmsnorm(p, x, eps=cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    if cfg.norm_type == "rmsnorm":
+        return rmsnorm(p, x, eps=cfg.norm_eps, plus_one=cfg.norm_plus_one)
+    return layernorm(p, x, eps=cfg.norm_eps)
 
 
 def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool = True,
@@ -56,11 +58,12 @@ def mlp_apply(p, x, act: str, ctx: QuantContext = DEFAULT_CTX, *,
     return linear(p["down"], h, ctx, path=f"{path}/down")
 
 
-def dense_block_init(gen, cfg, *, dtype=torch.float32, device="cpu"):
+def dense_block_init(gen, cfg, *, causal: bool = True, dtype=torch.float32,
+                     device="cpu"):
     if cfg.attn_kind != "gqa" or cfg.parallel_block:
         raise NotImplementedError("only the sequential GQA block is ported")
     return {"ln1": norm_init(cfg, device=device),
-            "attn": gqa_init(gen, cfg.attn_dims(), dtype=dtype,
+            "attn": gqa_init(gen, cfg.attn_dims(causal=causal), dtype=dtype,
                              device=device),
             "ln2": norm_init(cfg, device=device),
             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated,
@@ -68,10 +71,12 @@ def dense_block_init(gen, cfg, *, dtype=torch.float32, device="cpu"):
 
 
 def dense_block_apply(p, x, cfg, ctx: QuantContext = DEFAULT_CTX, *,
-                      cache=None, cache_pos=None, path: str = "block"):
+                      causal: bool = True, cache=None, cache_pos=None,
+                      path: str = "block"):
     h = norm_apply(cfg, p["ln1"], x)
-    a, new_cache = gqa_apply(p["attn"], h, cfg.attn_dims(), ctx, cache=cache,
-                             cache_pos=cache_pos, path=f"{path}/attn")
+    a, new_cache = gqa_apply(p["attn"], h, cfg.attn_dims(causal=causal), ctx,
+                             cache=cache, cache_pos=cache_pos,
+                             path=f"{path}/attn")
     x = x + a
     m = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg.mlp_act, ctx,
                   path=f"{path}/mlp")

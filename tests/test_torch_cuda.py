@@ -149,3 +149,100 @@ def test_lut_activation_kernel_refuses(card):
         lut_activation(x, TableSpec("gelu_gate", 8192))
     with pytest.raises(TypeError, match="f32 or bf16"):
         lut_activation(x.half(), TableSpec("gelu_gate"))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 256), (130, 300, 70)])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_qmatmul_bias_epilogue_matches_plain(card, m, k, n, out_dtype):
+    """With a bias the kernel rounds ``fma(acc * sa, sb, bias)`` once, as
+    the plain version does (and XLA compiles the reference): bitwise."""
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    dt = getattr(torch, out_dtype)
+    a = torch.randint(-127, 128, (m, k), generator=card, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=card, device="cuda",
+                      dtype=torch.int8)
+    sa = (torch.rand((m, 1), generator=card, device="cuda") + 0.1) * 5e-3
+    sb = (torch.rand((1, n), generator=card, device="cuda") + 0.1) * 5e-3
+    bias = torch.randn((n,), generator=card, device="cuda")
+    assert torch.equal(qmatmul(a, b, sa, sb, bias, dt),
+                       qmatmul_plain(a, b, sa, sb, bias, dt))
+
+
+def _flash_close(got, want):
+    """bf16: one bf16 ulp of the output plus 2e-5 (f32 sums in another
+    order); f32: atol = rtol = 2e-5."""
+    gf, wf = got.float(), want.float()
+    assert torch.isfinite(gf).all()
+    if got.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            wf.abs().clamp_min(2.0 ** -126))) - 7)
+        assert ((gf - wf).abs() <= ulp + 2e-5).all(), \
+            (gf - wf).abs().max().item()
+    else:
+        torch.testing.assert_close(gf, wf, atol=2e-5, rtol=2e-5)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal): the whisper encoder's head shape,
+# gemma's MQA at D 256, ragged Sq < Skv and Sq > Skv, the MLA width, a
+# causal case whose first query rows see no key, single rows
+FLASH_SHAPES = [(2, 8, 8, 150, 150, 64, False), (2, 8, 1, 100, 100, 256, True),
+                (2, 8, 2, 77, 200, 64, True), (2, 8, 2, 200, 77, 64, False),
+                (1, 4, 4, 70, 70, 192, True), (1, 4, 2, 90, 20, 32, True),
+                (3, 2, 2, 1, 1, 16, False), (1, 2, 1, 1, 130, 128, True)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(card, shape, dtype):
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    b, hq, hkv, sq, skv, d, causal = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, h, s, d), generator=card, device="cuda").to(dt)
+               for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, softmax_scale=0.2)
+    want = flash_attention_plain(q, k, v, causal=causal, softmax_scale=0.2)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    _flash_close(got, want)
+    if causal and sq > skv:         # rows that see no key are 0, not NaN
+        assert (got[:, :, :sq - skv] == 0).all()
+
+
+def test_flash_attention_kernel_never_reads_past_skv(card):
+    """K/V are views into buffers whose rows past Skv hold NaN: nothing
+    past Skv is read or multiplied."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    sq, skv, d = 70, 100, 64
+    q = torch.randn((1, 2, sq, d), generator=card, device="cuda")
+    bufs = [torch.full((1, 1, skv + 37, d), float("nan"), device="cuda")
+            for _ in range(2)]
+    for buf in bufs:
+        buf[:, :, :skv] = torch.randn((1, 1, skv, d), generator=card,
+                                      device="cuda")
+    k, v = (buf[:, :, :skv] for buf in bufs)
+    assert k.is_contiguous() and v.is_contiguous()
+    for causal in (False, True):
+        got = flash_attention(q, k, v, causal=causal)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, flash_attention(q, k.clone(), v.clone(),
+                                                causal=causal))
+
+
+def test_flash_attention_kernel_refuses(card):
+    from repro_torch.kernels.flash_attention import flash_attention
+    x = torch.randn((1, 2, 4, 320), generator=card, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(x, x, x)
+    y = torch.randn((1, 2, 4, 64), generator=card, device="cuda")
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        flash_attention(y.half(), y.half(), y.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(y, y.bfloat16(), y)
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        flash_attention(torch.randn((1, 3, 4, 64), device="cuda"), y, y)

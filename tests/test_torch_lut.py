@@ -283,8 +283,8 @@ def test_qmatmul_plain_epilogue_indexes_like_the_kernels(indexing, m, k, n):
     """silu's gate table over (-10, 10) has a step of 20/1024: the plain
     epilogue follows the TPU kernel's ``* step_inv`` bit for bit.  With a
     bias the reference kernel, as XLA compiles it, also fuses
-    ``acc * sa * sb + bias`` into one multiply-add, which the port's
-    epilogue does not (an ulp apart, rtol 1e-6)."""
+    ``acc * sa * sb + bias`` into one multiply-add, and so does the
+    port's epilogue: bitwise with and without a bias."""
     rs = np.random.RandomState(m + n)
     a = rs.randint(-127, 128, (m, k)).astype(np.int8)
     b = rs.randint(-127, 128, (k, n)).astype(np.int8)
@@ -300,8 +300,4 @@ def test_qmatmul_plain_epilogue_indexes_like_the_kernels(indexing, m, k, n):
                               jnp.asarray(sb),
                               jnp.asarray(bias) if with_bias else None,
                               act_spec=js, act_gated=True, interpret=True)
-        if with_bias:
-            np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                       rtol=1e-6, atol=1e-6)
-        else:
-            _assert_bitwise(got, want)
+        _assert_bitwise(got, want)

@@ -138,6 +138,23 @@ def test_bias_only_epilogue():
     np.testing.assert_allclose(got, pal, **TIGHT)
 
 
+@pytest.mark.parametrize("mkn", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_bias_epilogue_bitwise_pallas(mkn, out_dtype):
+    """With a bias, XLA compiles ``qmatmul_pallas``'s ``acc * sa * sb +
+    bias`` as ``fma(acc * sa, sb, bias)``; the plain version (and the
+    CUDA kernel) round the same way, so the outputs agree bit for bit."""
+    m, k, n = mkn
+    a, b, sa, sb, bias = _operands(m, k, n, seed=2 * (m + k + n), scale=0.005)
+    got = qmatmul_plain(_t(a), _t(b), _t(sa), _t(sb), _t(bias),
+                        getattr(torch, out_dtype))
+    pal = qmatmul_pallas(jnp.asarray(a), jnp.asarray(b), jnp.asarray(sa),
+                         jnp.asarray(sb), jnp.asarray(bias),
+                         out_dtype=getattr(jnp, out_dtype), interpret=True)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(pal.astype(jnp.float32)))
+
+
 def test_bf16_output():
     a, b, sa, sb, _ = _operands(16, 64, 32, seed=14)
     got = qmatmul_plain(_t(a), _t(b), _t(sa), _t(sb),

@@ -39,9 +39,9 @@ def int8_policies():
             PrecisionPolicy.uniform(FixedPointType(8, 4)), FixedPointType(8, 4))
 
 
-def smoke_params(mode: str, seed: int = 0):
-    """gemma-2b smoke params from the reference's init, (JAX tree, port
-    tree on the CPU); ``mode="int8"`` quantizes with the reference's
+def smoke_params(mode: str, seed: int = 0, arch: str = "gemma-2b"):
+    """``arch`` smoke params from the reference's init, (cfg, JAX tree,
+    port tree on the CPU); ``mode="int8"`` quantizes with the reference's
     ``quantize_for_serving`` before converting."""
     import jax
     import jax.numpy as jnp
@@ -51,7 +51,7 @@ def smoke_params(mode: str, seed: int = 0):
     from repro.nn.context import QuantContext as JCtx
     from repro_torch.convert import params_from_numpy
 
-    cfg = get_config("gemma-2b").smoke()
+    cfg = get_config(arch).smoke()
     params = get_family(cfg).init(jax.random.PRNGKey(seed), cfg)
     qtype = None
     if mode == "int8":
