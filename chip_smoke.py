@@ -9,7 +9,8 @@
 Phases, one line each, any failure raises and the exit code is non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together) and print ``ptxas`` usage;
+   ``nvcc`` per source, started together) and print ``ptxas`` usage, with
+   a summary of the tensor-core flash and unsplit paged instances;
 2. print the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
 3. hold every kernel against its plain PyTorch version on the card at the
@@ -22,7 +23,8 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    encoder's shape, gemma-2b's cache-free prefill, ragged Sq/Skv and the
    MLA width, bf16 and f32), with the kernel's, the plain version's and a
    library call's device time (median of cold-L2 launches, CUDA events)
-   beside the least time the card could take;
+   and the kernel/library factor beside the least time the card could
+   take;
 4. serve full-width gemma-2b, bf16 compute, batch 8, prompt 128, gen 32,
    on four paths, each with the launch counters reset just before it and
    read just after, failing if a kernel of the path never launched:
@@ -52,6 +54,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -107,6 +110,15 @@ class Timer:
 
 def fmt_ms(ms) -> str:
     return "n/a" if ms is None else f"{ms:.4f}ms"
+
+
+def over_library(row) -> str:
+    """``kernel / library`` of a check row, as a factor (n/a: no library
+    call); stored in the row as ``kernel_over_library``."""
+    lib = row.get("library_ms")
+    row["kernel_over_library"] = None if not lib else row["ms"] / lib
+    return ("n/a" if row["kernel_over_library"] is None
+            else f"{row['kernel_over_library']:.2f}x")
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -178,6 +190,7 @@ def check_qmatmul(torch, timer, rows):
         log(f"[check] qmatmul {rows[-1]['case']}: max_abs_err={err:.3g} "
             f"(tol {tol:.3g}) kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"library={fmt_ms(lib_ms)} "
+            f"kernel/library={over_library(rows[-1])} "
             f"bound={bnd:.4f}ms ({by})")
 
 
@@ -233,7 +246,8 @@ def check_lut(torch, timer, rows):
                     log(f"[check] lut_activation {rows[-1]['case']}: "
                         f"max_abs_err={err:.3g} (tol {tol:.3g}) "
                         f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-                        f"library=none (context: F.gelu tanh "
+                        f"library=none kernel/library={over_library(rows[-1])}"
+                        f" (context: F.gelu tanh "
                         f"{gelu_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
 
 
@@ -339,6 +353,7 @@ def check_attention(torch, timer, rows):
                     + (f" kernel={row['ms']:.4f}ms "
                        f"plain={row['plain_ms']:.4f}ms "
                        f"library={fmt_ms(row['library_ms'])} "
+                       f"kernel/library={over_library(row)} "
                        f"bound={row['bound_ms']:.4f}ms ({row['bound_by']})"
                        if "ms" in row else ""))
 
@@ -362,8 +377,10 @@ FLASH_CASES = [
 def check_flash(torch, timer, rows):
     """The flash kernel against its plain version (same inputs, on the
     card), with SDPA's time as the library yardstick (never called by
-    the port).  bf16: one bf16 ulp of the output plus 2e-5 (the f32 sums
-    run in another order); f32: atol = rtol = 2e-5."""
+    the port).  bf16 (the tensor-core kernel, whose three bf16 terms of
+    p carry the plain version's f32 p): one bf16 ulp of the output plus
+    2e-5 (the f32 sums run in another order); f32 (the CUDA-core kernel):
+    atol = rtol = 2e-5."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -419,7 +436,9 @@ def check_flash(torch, timer, rows):
                              bound_ms=bnd, bound_by=by))
             log(f"[check] flash_attention {rows[-1]['case']}: "
                 f"max_abs_err={err:.3g} ({tol}) kernel={ms:.4f}ms "
-                f"plain={plain_ms:.4f}ms library(SDPA)={fmt_ms(lib_ms)} "
+                f"plain={plain_ms:.4f}ms "
+                f"library(SDPA)={fmt_ms(lib_ms)} "
+                f"kernel/library={over_library(rows[-1])} "
                 f"bound={bnd:.4f}ms ({by})")
 
 
@@ -624,8 +643,6 @@ def serve_main_path(torch, rows_out, profile: bool):
         # that cannot trace this machine is reported, not fatal
         rows_out["profile"] = {}
         for label, eng in engines.items():
-            if label == "int8 paged, kv_split=1":
-                continue
             log(f"[profile] {label}")
             try:
                 rows_out["profile"][label] = profile_block(torch, eng,
@@ -981,10 +998,15 @@ def logit_check(torch, cfg, params, ctx, prompts, batch, max_len, chunk, ps,
 
 def logit_readings(lk, lp) -> dict:
     """Relative L2 error, argmax agreement and max abs error of logits
-    through the kernels ``lk`` against the plain versions' ``lp``."""
+    through the kernels ``lk`` against the plain versions' ``lp``; for
+    the rows whose argmax differs, the plain side's top-2 margin (0: an
+    exact tie, which any rounding difference decides)."""
+    differ = lk.argmax(-1) != lp.argmax(-1)
+    top2 = lp[differ].topk(2, dim=-1).values
     return dict(rel_l2_err=((lk - lp).norm() / lp.norm()).item(),
                 argmax_agree=(lk.argmax(-1) == lp.argmax(-1)).float()
                 .mean().item(),
+                flip_margins=(top2[:, 0] - top2[:, 1]).tolist(),
                 max_abs_err=(lk - lp).abs().max().item(),
                 max_abs_logit=lp.abs().max().item(),
                 finite=bool(lk.isfinite().all().item()))
@@ -1006,12 +1028,16 @@ def gate_logits(torch, tag, what, lk, lp, dtype, *,
         f"({str(dtype)[6:]}): relative L2 error {r['rel_l2_err']:.4g} "
         f"(tol {tol_rel}), argmax agreement {r['argmax_agree']:.4f} (tol "
         f"{min_agree}), max_abs_err {r['max_abs_err']:.4g} of max |logit| "
-        f"{r['max_abs_logit']:.4g}")
+        f"{r['max_abs_logit']:.4g}"
+        + (f"; plain top-2 margins of the differing rows "
+           f"{[round(x, 4) for x in r['flip_margins'][:8]]}"
+           if r["flip_margins"] else ""))
     if not passes_gate(r, tol_rel=tol_rel, min_agree=min_agree):
         raise AssertionError(f"{what} through the kernels disagrees with "
                              f"the plain versions")
     return dict(step=what, rel_l2_err=r["rel_l2_err"], tol_rel=tol_rel,
                 max_abs_err=r["max_abs_err"], argmax_agree=r["argmax_agree"],
+                flip_margins=r["flip_margins"],
                 max_abs_logit=r["max_abs_logit"])
 
 
@@ -1068,6 +1094,47 @@ def profile_block(torch, eng, prompts, gen_len):
                           for k, ms, n in host[:40]])
 
 
+#: the redesigned kernels, by their names in ptxas's output (their shared
+#: memory is dynamic, sized at launch; ptxas reports the static part)
+PTXAS_KERNELS = ("flash_attention_bf16_kernel",
+                 "paged_attention_unsplit_kernel")
+
+
+def ptxas_summary(build_log) -> dict:
+    """Registers, spills, stack and static shared memory of every
+    instance of the redesigned kernels, from nvcc's ``-Xptxas -v`` lines;
+    logged."""
+    out, fn = {}, None
+    for info in build_log.values():
+        for ln in info["ptxas"]:
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", ln)
+            if m:
+                fn = m.group(1)
+                continue
+            hit = fn and next((k for k in PTXAS_KERNELS if k in fn), None)
+            if not hit:
+                continue
+            arg = re.search(hit + r"ILi(\d+)E", fn)
+            key = f"{hit}<{arg.group(1) if arg else '?'}>"
+            row = out.setdefault(key, {})
+            for field, pat in (("registers", r"Used (\d+) registers"),
+                               ("spill_stores", r"(\d+) bytes spill stores"),
+                               ("spill_loads", r"(\d+) bytes spill loads"),
+                               ("stack", r"(\d+) bytes stack frame"),
+                               ("static_smem", r"(\d+) bytes smem")):
+                f = re.search(pat, ln)
+                if f:
+                    row[field] = int(f.group(1))
+    for key, row in sorted(out.items()):
+        log(f"[build] ptxas {key}: {row.get('registers')} registers, "
+            f"{row.get('spill_stores', 0)} B spill stores, "
+            f"{row.get('spill_loads', 0)} B spill loads, "
+            f"{row.get('stack', 0)} B stack, static smem "
+            f"{row.get('static_smem', 0)} B")
+    return out
+
+
 def kernels_line(rows, counts):
     pick = {"qmatmul": "up/gate M=8 K=2048 N=16384 bfloat16",
             "paged_attention_unsplit": "decode B=8 S=1 tokens~150",
@@ -1102,7 +1169,9 @@ def kernels_line(rows, counts):
                         max_abs_err=max(r["max_abs_err"] for r in mine),
                         ms=rep["ms"], plain_ms=rep["plain_ms"],
                         bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-                        library_ms=rep["library_ms"], shape=rep["case"]))
+                        library_ms=rep["library_ms"],
+                        kernel_over_library=rep.get("kernel_over_library"),
+                        shape=rep["case"]))
         if name == "lut_activation":
             out[-1]["library_note"] = ("none (no PyTorch call is a table "
                                        "lookup)")
@@ -1144,6 +1213,7 @@ def main(argv=None) -> int:
         for ln in info["ptxas"]:
             log(f"[build]   {name}: {ln.strip()}")
     report["build_s"] = build_s
+    report["ptxas"] = ptxas_summary(_cuda.BUILD_LOG)
 
     # 2. card
     kind = torch.cuda.get_device_name(0)

@@ -50,7 +50,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
                             "paged_attention_split": 0, "lut_activation": 0,
                             "flash_attention": 0}
-#: source name -> {"seconds", "ptxas"} of the builds made by this process
+#: source name -> {"seconds", "ptxas"} of the builds made or reused by this
+#: process (a reused build's ptxas lines come from the log beside it)
 BUILD_LOG: Dict[str, dict] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -121,6 +122,9 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     for name in names:
         out = _target(name)
         if out.exists():
+            if name not in BUILD_LOG and out.with_suffix(".log").exists():
+                BUILD_LOG[name] = {"seconds": 0.0, "ptxas": out.with_suffix(
+                    ".log").read_text().splitlines()}
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -133,11 +137,14 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
         log, _ = proc.communicate()
         BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
                            "ptxas": [ln for ln in log.splitlines()
-                                     if "ptxas info" in ln]}
+                                     if "ptxas info" in ln
+                                     or "bytes spill" in ln]}
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"{SOURCES[name].name}:\n{log}")
         else:
+            out.with_suffix(".log").write_text(
+                "\n".join(BUILD_LOG[name]["ptxas"]))
             os.replace(tmp, out)     # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

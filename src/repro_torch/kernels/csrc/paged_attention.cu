@@ -1,6 +1,6 @@
 // Paged attention over a block-table-indexed KV page pool, for Hopper
-// (sm_90a): the one-page-per-step kernel, the split-KV partition kernel
-// and the log-sum-exp combine.
+// (sm_90a): the unsplit kernel, the split-KV partition kernel and the
+// log-sum-exp combine.
 //
 // Replaces:
 //  * src/repro/kernels/flash_attention.py:217 _paged_attention_unsplit
@@ -24,7 +24,28 @@
 // chunked-prefill call (rows = 8 * 16) is denser but still moves more
 // bytes than it can hide at these context lengths.
 //
-// What the design does about it:
+// The unsplit kernel (kv_split = 1: one launch, no partials in device
+// memory, no combine launch):
+//  * one block of 8 warps per (batch, KV head, 8-row tile) -- the 8 rows
+//    of gemma-2b's MQA decode in one block; the block reads its own block
+//    table, and warp w walks entries w, w + 8, ... with its own online
+//    softmax state (m, l and the 8 rows' f32 accumulator in registers,
+//    64 a lane at D 256), so a block streams 8 pages at a time instead
+//    of one; at the end the warps merge with the combine_splits formula
+//    through shared memory, and a warp that saw no page weighs 0;
+//  * K/V rows go straight to registers as 16-byte loads, each lane owning
+//    4 columns per 128, four rows at a time with the next four in flight
+//    (V's first rows load during the softmax); no __syncthreads in the
+//    page loop;
+//  * logits: per-lane partial dot products over the lane's columns, then
+//    one reduce-scatter of the 32 (row, key) sums of four keys (31
+//    shuffles), which leaves each lane one logit; the quad that holds a
+//    row updates its softmax state and hands p to the warp through a
+//    per-warp shared buffer;
+//  * entries past the last visible position, and pages whose id is out
+//    of range, are never dereferenced; a p of 0 multiplies nothing, so
+//    NaN in unwritten page rows cannot leak.
+// The split kernel (paged_attention_split_kernel, walk below):
 //  * pages are fetched through the block table by the block itself
 //    (float4 loads of one contiguous 16 x D page), each visible page read
 //    once per (batch, KV head, row tile); pages past the last visible
@@ -33,15 +54,14 @@
 //    shared memory for the whole walk: 16 rows x 256 x 4 B = 16 KB each,
 //    so rows beyond 16 (group 8 x S 16 = 128 at prefill) are spread over
 //    row-tile blocks instead of one 128 KB accumulator;
-//  * the split kernel cuts the table into kv_split partitions run by
-//    separate blocks (flash decoding), so a long context is not one
-//    serial page chain on one SM; its partials (acc, m, l) go to HBM and
-//    a second tiny kernel applies the combine formula.  A multi-page tile
-//    (pages_per_step) computes its logits page by page into shared memory
-//    and updates the softmax state once per tile, as the reference does.
-// Not yet done (a later change): tensor-core (mma) dot products, async
-// (cp.async / TMA) double-buffered page fetches, a KV-head-shared tile
-// for the MQA case.
+//  * it cuts the table into kv_split partitions run by separate blocks
+//    (flash decoding), so a long context is not one serial page chain on
+//    one SM; its partials (acc, m, l) go to HBM and a second tiny kernel
+//    applies the combine formula.  A multi-page tile (pages_per_step)
+//    computes its logits page by page into shared memory and updates the
+//    softmax state once per tile, as the reference does.
+//    Not yet done (a later change): async double-buffered page fetches
+//    and register-resident state, as in the unsplit kernel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -109,12 +129,10 @@ __host__ __device__ inline size_t smem_floats(int rt, int D, int ps, int t) {
          + 3 * (size_t)rt + t;
 }
 
-// Online-softmax walk of partition `sp` for (b, h, rows r0 .. r0+rt).
-// kFinal: write acc / max(l, 1e-30) in q's dtype (the unsplit kernel);
-// otherwise write the raw partials (acc, m, l) of this partition.
-template <bool kFinal>
+// Online-softmax walk of partition `sp` for (b, h, rows r0 .. r0+rt),
+// writing the raw partials (acc, m, l) of this partition.
 __device__ void walk(const Geometry& g, int b, int h, int r0, int sp,
-                     void* out, float* acc_o, float* m_o, float* l_o) {
+                     float* acc_o, float* m_o, float* l_o) {
   extern __shared__ float smem[];
   const int D = g.D, ps = g.ps, rt = g.rt, ld = D + 1;
   const int TC = g.t * ps;                 // columns of one tile
@@ -238,30 +256,275 @@ __device__ void walk(const Geometry& g, int b, int h, int r0, int sp,
     __syncthreads();
   }
 
-  if (kFinal) {
-    for (int i = tid; i < nr * D; i += THREADS) {
-      const float y = acc_s[i] / fmaxf(l_s[i / D], 1e-30f);
-      if (g.q_bf16)
-        static_cast<__nv_bfloat16*>(out)[qbase + i] = __float2bfloat16_rn(y);
-      else
-        static_cast<float*>(out)[qbase + i] = y;
-    }
-  } else {
-    const size_t row0 = ((size_t)(sp * g.B + b) * g.Hkv + h) * g.rows + r0;
-    for (int i = tid; i < nr * D; i += THREADS) acc_o[row0 * D + i] = acc_s[i];
-    for (int r = tid; r < nr; r += THREADS) {
-      m_o[row0 + r] = m_s[r];
-      l_o[row0 + r] = l_s[r];
-    }
+  const size_t row0 = ((size_t)(sp * g.B + b) * g.Hkv + h) * g.rows + r0;
+  for (int i = tid; i < nr * D; i += THREADS) acc_o[row0 * D + i] = acc_s[i];
+  for (int r = tid; r < nr; r += THREADS) {
+    m_o[row0 + r] = m_s[r];
+    l_o[row0 + r] = l_s[r];
   }
 }
 
-// grid (row tiles, 1, B * Hkv): one page per step over the whole table
-__global__ void __launch_bounds__(THREADS)
+// ---- the unsplit kernel: one block per (batch, KV head, 8-row tile), the
+// table's pages dealt round-robin to its warps ---------------------------
+
+constexpr int URT = 8;   // query rows per unsplit block
+
+// Shared-memory floats of the unsplit kernel: q (URT x D); per warp the
+// page's logits (URT x ps), its p (ps x URT) and alpha (URT); the warps'
+// states for the merge (NWARPS x URT x D acc, NWARPS x URT m and l), the
+// merge weights (NWARPS x URT) and the merged l (URT)
+__host__ __device__ inline size_t unsplit_smem_floats(int D, int ps) {
+  return (size_t)URT * D + (size_t)NWARPS * (2 * URT * ps + URT) +
+         (size_t)NWARPS * URT * D + 3 * (size_t)NWARPS * URT + URT;
+}
+
+// One step of a reduce-scatter over the warp: lanes that differ in bit N
+// swap halves of v and each adds what it kept to what it received.
+template <int N>
+__device__ __forceinline__ void fold(float (&v)[32], int lane) {
+  const bool up = lane & N;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = up ? v[i] : v[i + N];
+    const float keep = up ? v[i + N] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, N);
+  }
+}
+
+// The warp sum of v[lane]: 31 shuffles for 32 sums (not 5 per sum).
+__device__ __forceinline__ float reduce_scatter(float (&v)[32], int lane) {
+  fold<16>(v, lane);
+  fold<8>(v, lane);
+  fold<4>(v, lane);
+  fold<2>(v, lane);
+  fold<1>(v, lane);
+  return v[0];
+}
+
+// Rows c0 .. c0 + 3 (those < nc) of one page's (ps, D) K or V block into
+// registers: the lane's float4 columns 4 * (lane + 32 u), zero elsewhere.
+template <int NV>
+__device__ __forceinline__ void load_rows(float4 (&x)[4][NV],
+                                          const float* src, int c0, int nc,
+                                          int D, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int col = 4 * (lane + 32 * u);
+      x[j][u] = (c0 + j < nc && col < D)
+                    ? __ldg(reinterpret_cast<const float4*>(
+                          src + (size_t)(c0 + j) * D + col))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, s))));
+}
+
+__device__ __forceinline__ void axpy4(float p, float4 v, float4& acc) {
+  acc.x = fmaf(p, v.x, acc.x);
+  acc.y = fmaf(p, v.y, acc.y);
+  acc.z = fmaf(p, v.z, acc.z);
+  acc.w = fmaf(p, v.w, acc.w);
+}
+
+// grid (row tiles, 1, B * Hkv), NWARPS warps: warp w walks table entries
+// w, w + NWARPS, ... with its own online-softmax state, then the warps
+// merge with the combine_splits formula.  NV: float4 columns per lane
+// (D <= 128 * NV, D % 4 == 0).
+template <int NV>
+__global__ void __launch_bounds__(THREADS, 1)
 paged_attention_unsplit_kernel(Geometry g, void* out) {
-  const int bh = blockIdx.z;
-  walk<true>(g, bh / g.Hkv, bh % g.Hkv, blockIdx.x * g.rt, 0, out, nullptr,
-             nullptr, nullptr);
+  extern __shared__ __align__(16) float us_smem[];
+  const int D = g.D, ps = g.ps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.z / g.Hkv, h = blockIdx.z % g.Hkv;
+  const int r0 = blockIdx.x * URT;
+  float* q_s = us_smem;                                       // URT x D
+  float* s_w = q_s + URT * D + warp * (2 * URT * ps + URT);   // URT x ps
+  float* p_w = s_w + URT * ps;                                // ps x URT
+  float* a_w = p_w + URT * ps;                                // URT
+  float* acc_m = q_s + URT * D + NWARPS * (2 * URT * ps + URT);
+  float* m_m = acc_m + NWARPS * URT * D;                      // NWARPS x URT
+  float* l_m = m_m + NWARPS * URT;
+  float* w_m = l_m + NWARPS * URT;
+  float* l_star = w_m + NWARPS * URT;                         // URT
+
+  const int nr = min(URT, g.rows - r0);
+  const size_t qbase = ((size_t)(b * g.Hkv + h) * g.rows + r0) * D;
+  for (int i = threadIdx.x; i < URT * D; i += THREADS)
+    // q.astype(f32) * scale, as _paged_kernel:181
+    q_s[i] = (i / D < nr) ? load_q(g.q, qbase + i, g.q_bf16) * g.scale : 0.f;
+  __syncthreads();
+
+  const int qpos0 = g.qpos[b];
+  const int last = qpos0 + g.S - 1;        // last position any row sees
+  const int* btb = g.bt + (size_t)b * g.NP;
+  // entries past the last visible position are never read
+  const int npages = min(g.NP, last / ps + 1);
+  // after the reduce-scatter lane l holds row l / 4, key 4 i + l % 4 of
+  // each group of four keys; a quad of lanes shares one row's state
+  const int my_r = lane >> 2, my_c = lane & 3;
+  const int my_qp = qpos0 + (r0 + my_r) % g.S;
+  float m_r = NEG, l_r = 0.f;
+  float4 acc[URT][NV];
+#pragma unroll
+  for (int r = 0; r < URT; ++r)
+#pragma unroll
+    for (int u = 0; u < NV; ++u) acc[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int e = warp; e < npages; e += NWARPS) {
+    const int pg = btb[e];
+    // an out-of-range id is never dereferenced: all its columns would be
+    // masked, an exact no-op of the online update
+    if (pg < 0 || pg >= g.P) continue;
+    const size_t off = ((size_t)pg * g.Hkv + h) * ps * D;
+    const float* kp = g.k_pages + off;
+    const float* vp = g.v_pages + off;
+    const int base = e * ps;
+    const int nc = min(ps, last - base + 1);   // rows some query row sees
+    const int nk = (nc + 3) >> 2;
+    float4 buf[4][NV];
+    load_rows<NV>(buf, kp, 0, nc, D, lane);
+
+    // 1. logits, four keys at a time: per-lane partial dot products over
+    //    the lane's columns, then one reduce-scatter for all 32 (row, key)
+    for (int ci = 0; ci < nk; ++ci) {
+      float4 cur[4][NV];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < NV; ++u) cur[j][u] = buf[j][u];
+      if (ci + 1 < nk)
+        load_rows<NV>(buf, kp, 4 * (ci + 1), nc, D, lane);
+      else    // V's first rows load during the softmax
+        load_rows<NV>(buf, vp, 0, nc, D, lane);
+      float part[32];
+#pragma unroll
+      for (int r = 0; r < URT; ++r) {
+        float4 qv[NV];
+#pragma unroll
+        for (int u = 0; u < NV; ++u) {
+          const int col = 4 * (lane + 32 * u);
+          qv[u] = col < D ? *reinterpret_cast<const float4*>(q_s + r * D + col)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float sum = 0.f;
+#pragma unroll
+          for (int u = 0; u < NV; ++u) sum = dot4(qv[u], cur[j][u], sum);
+          part[r * 4 + j] = sum;
+        }
+      }
+      const float x = reduce_scatter(part, lane);
+      const int c = 4 * ci + my_c;
+      if (c < nc) s_w[my_r * ps + c] = x;
+    }
+    __syncwarp();
+
+    // 2. online-softmax update of row my_r over the page's visible keys
+    float mx = m_r;
+    for (int c = my_c; c < nc; c += 4)
+      if (base + c <= my_qp) mx = fmaxf(mx, s_w[my_r * ps + c]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sum = 0.f;
+    for (int c = my_c; c < nc; c += 4) {
+      const float p = base + c <= my_qp ? expf(s_w[my_r * ps + c] - mx) : 0.f;
+      p_w[c * URT + my_r] = p;
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float alpha = expf(m_r - mx);
+    l_r = alpha * l_r + sum;
+    m_r = mx;
+    if (my_c == 0) a_w[my_r] = alpha;
+    __syncwarp();
+
+    // 3. acc = alpha * acc + p . V, four keys at a time; a zero p (masked
+    //    or underflowed) multiplies nothing, so NaN in unwritten or
+    //    recycled rows cannot leak
+#pragma unroll
+    for (int r = 0; r < URT; ++r) {
+      const float a = a_w[r];
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        acc[r][u].x *= a;
+        acc[r][u].y *= a;
+        acc[r][u].z *= a;
+        acc[r][u].w *= a;
+      }
+    }
+    for (int ci = 0; ci < nk; ++ci) {
+      float4 cur[4][NV];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < NV; ++u) cur[j][u] = buf[j][u];
+      if (ci + 1 < nk) load_rows<NV>(buf, vp, 4 * (ci + 1), nc, D, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * ci + j;
+        if (c >= nc) continue;
+        const float4 pa = *reinterpret_cast<const float4*>(p_w + c * URT);
+        const float4 pb = *reinterpret_cast<const float4*>(p_w + c * URT + 4);
+        const float pr[URT] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int r = 0; r < URT; ++r) {
+          if (pr[r] == 0.f) continue;
+#pragma unroll
+          for (int u = 0; u < NV; ++u) axpy4(pr[r], cur[j][u], acc[r][u]);
+        }
+      }
+    }
+    __syncwarp();                // s_w, p_w and a_w are the next page's
+  }
+
+  // merge the warps' states: out = sum_w alpha_w acc_w / max(sum_w alpha_w
+  // l_w, 1e-30), alpha_w = exp(m_w - max_w m_w); a warp that saw no page
+  // (m = -1e30, l = 0) weighs exactly 0
+#pragma unroll
+  for (int r = 0; r < URT; ++r)
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int col = 4 * (lane + 32 * u);
+      if (col < D)
+        *reinterpret_cast<float4*>(acc_m + (warp * URT + r) * D + col) =
+            acc[r][u];
+    }
+  if (my_c == 0) {
+    m_m[warp * URT + my_r] = m_r;
+    l_m[warp * URT + my_r] = l_r;
+  }
+  __syncthreads();
+  if (threadIdx.x < URT) {
+    const int r = threadIdx.x;
+    float ms = NEG;
+    for (int w = 0; w < NWARPS; ++w) ms = fmaxf(ms, m_m[w * URT + r]);
+    float ls = 0.f;
+    for (int w = 0; w < NWARPS; ++w) {
+      const float wt = expf(m_m[w * URT + r] - ms);
+      w_m[w * URT + r] = wt;
+      ls += wt * l_m[w * URT + r];
+    }
+    l_star[r] = fmaxf(ls, 1e-30f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nr * D; i += THREADS) {
+    const int r = i / D;
+    float a = 0.f;
+    for (int w = 0; w < NWARPS; ++w)
+      a += w_m[w * URT + r] * acc_m[(size_t)w * URT * D + i];
+    const float y = a / l_star[r];
+    if (g.q_bf16)
+      static_cast<__nv_bfloat16*>(out)[qbase + i] = __float2bfloat16_rn(y);
+    else
+      static_cast<float*>(out)[qbase + i] = y;
+  }
 }
 
 // grid (row tiles, kv_split, B * Hkv): one partition per block
@@ -269,8 +532,8 @@ __global__ void __launch_bounds__(THREADS)
 paged_attention_split_kernel(Geometry g, float* acc_o, float* m_o,
                              float* l_o) {
   const int bh = blockIdx.z;
-  walk<false>(g, bh / g.Hkv, bh % g.Hkv, blockIdx.x * g.rt, blockIdx.y,
-              nullptr, acc_o, m_o, l_o);
+  walk(g, bh / g.Hkv, bh % g.Hkv, blockIdx.x * g.rt, blockIdx.y, acc_o, m_o,
+       l_o);
 }
 
 // out = sum_s alpha_s acc_s / max(sum_s alpha_s l_s, 1e-30),
@@ -333,18 +596,30 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The unsplit kernel takes D % 4 == 0 and D <= 256 (the wrapper checks).
 extern "C" int paged_attention_unsplit_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* bt,
     const void* qpos, void* out, int B, int Hkv, int rows, int D, int S,
     int ps, int P, int NP, float scale, int q_bf16, void* stream) {
+  if (D % 4 != 0 || D < 4 || D > 256 || rows < 1 || ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Geometry g = make_geometry(q, k_pages, v_pages, bt, qpos, B, Hkv,
-                                   rows, D, S, ps, P, NP, 1, 1, scale, q_bf16);
-  const size_t bytes = smem_floats(g.rt, D, ps, 1) * sizeof(float);
-  cudaError_t err = prepare(paged_attention_unsplit_kernel, bytes);
+                                   rows, D, S, ps, P, NP, 1, 1, scale,
+                                   q_bf16);
+  const size_t bytes = unsplit_smem_floats(D, ps) * sizeof(float);
+  const dim3 grid((rows + URT - 1) / URT, 1, B * Hkv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D <= 128) {
+    err = prepare(paged_attention_unsplit_kernel<1>, bytes);
+    if (err == cudaSuccess)
+      paged_attention_unsplit_kernel<1><<<grid, THREADS, bytes, s>>>(g, out);
+  } else {
+    err = prepare(paged_attention_unsplit_kernel<2>, bytes);
+    if (err == cudaSuccess)
+      paged_attention_unsplit_kernel<2><<<grid, THREADS, bytes, s>>>(g, out);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((rows + g.rt - 1) / g.rt, 1, B * Hkv);
-  paged_attention_unsplit_kernel<<<grid, THREADS, bytes,
-                                   static_cast<cudaStream_t>(stream)>>>(g, out);
   return static_cast<int>(cudaGetLastError());
 }
 

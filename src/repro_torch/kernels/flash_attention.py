@@ -138,7 +138,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Cache-free attention: q (B, Hq, Sq, D) against k, v (B, Hkv, Skv, D),
     ``Hq % Hkv == 0``, the queries the last Sq positions of the context;
     f32 or bf16 (all three alike), f32 softmax and accumulation, output
-    in q's dtype.  ``softmax_scale`` None is ``D ** -0.5``."""
+    in q's dtype.  ``softmax_scale`` None is ``D ** -0.5``.  bf16 runs the
+    tensor-core kernel, f32 the CUDA-core kernel (no TF32); both have
+    :func:`flash_attention_plain` as their plain version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      softmax_scale=softmax_scale)
@@ -215,13 +217,18 @@ def _scale(softmax_scale, d) -> float:
 
 def paged_attention_unsplit(q, k_pages, v_pages, block_tables, qpos, *,
                             softmax_scale: Optional[float] = None):
-    """One page per step over the whole table (knobs ``(1, 1)``)."""
+    """The whole table in one launch (knobs ``(1, 1)``): each block's
+    warps take its pages in turn and merge at the end.  The kernel takes
+    head dims that are multiples of 4 up to 256."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, qpos,
                                    softmax_scale=softmax_scale)
     q = q.contiguous()
     b, hq, s, d, p_, hkv, ps, np_ = _check(q, k_pages, v_pages,
                                            block_tables, qpos)
+    if d % 4 or d > MAX_HEAD_DIM:
+        raise ValueError(f"paged_attention_unsplit: head dim {d} is not a "
+                         f"multiple of 4 up to {MAX_HEAD_DIM}")
     out = torch.empty_like(q)
     lib = _cuda.library("paged_attention")
     err = lib.paged_attention_unsplit_launch(

@@ -186,7 +186,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     floored at ``1e-30``, so a row that sees no key gives 0, not NaN.
     The kernel skips whole tiles that no query of its tile sees; for
     those rows such a tile is an exact no-op of the update here.  The
-    output is in q's dtype."""
+    output is in q's dtype.  It is the plain version of both kernels: the
+    f32 CUDA-core kernel, and the bf16 tensor-core kernel, which feeds p
+    to ``p.v`` as three bf16 terms that sum to the f32 p."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     scale = (softmax_scale if softmax_scale is not None

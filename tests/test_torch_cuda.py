@@ -234,6 +234,170 @@ def test_flash_attention_kernel_never_reads_past_skv(card):
                                                 causal=causal))
 
 
+# (B, Hq, Hkv, Sq, Skv, D, causal) for the tensor-core kernel: Sq and Skv
+# off the 64-row tiles and the 128-row mark, a single query row, Sq > Skv
+# causal (the first rows see no key), every instance (D 32/64 -> 64, 128,
+# 192, 256), groups 1, 2 and 8, and a head dim that is not a multiple of 8
+# (the kernel stages it with plain loads)
+FLASH_BF16_EDGES = [(1, 8, 8, 129, 191, 64, True), (2, 8, 1, 1, 300, 256, True),
+                    (2, 4, 2, 1, 1, 32, False), (1, 8, 1, 200, 70, 64, True),
+                    (1, 2, 1, 65, 130, 192, True), (1, 4, 4, 127, 63, 128,
+                                                    False),
+                    (2, 8, 1, 100, 257, 256, False), (1, 2, 2, 40, 90, 20,
+                                                      True)]
+
+
+@pytest.mark.parametrize("shape", FLASH_BF16_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_flash_attention_bf16_edge_shapes(card, shape):
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    b, hq, hkv, sq, skv, d, causal = shape
+    q, k, v = (torch.randn((b, h, s, d), generator=card,
+                           device="cuda").bfloat16()
+               for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _flash_close(got, want)
+    if causal and sq > skv:         # rows that see no key are exactly 0
+        assert (got[:, :, :sq - skv] == 0).all()
+        assert (got[:, :, sq - skv:] != 0).any()
+
+
+def test_flash_attention_bf16_unaligned_view(card):
+    """An operand view that is not 16-byte aligned stages with plain
+    loads, with the same result."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    d = 64
+    q, k, v = (torch.randn((1, 2, 70, d), generator=card,
+                           device="cuda").bfloat16() for _ in range(3))
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    view = flat[1:].view(q.shape)
+    view.copy_(q)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    assert torch.equal(flash_attention(view, k, v, causal=True),
+                       flash_attention(q, k, v, causal=True))
+
+
+def test_flash_attention_bf16_never_reads_past_skv(card):
+    """bf16 K/V views into buffers whose rows past Skv hold NaN: the
+    tensor-core kernel zero-fills them and never reads them."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    sq, skv, d = 70, 100, 64
+    q = torch.randn((1, 2, sq, d), generator=card, device="cuda").bfloat16()
+    bufs = [torch.full((1, 1, skv + 37, d), float("nan"), device="cuda",
+                       dtype=torch.bfloat16) for _ in range(2)]
+    for buf in bufs:
+        buf[:, :, :skv] = torch.randn((1, 1, skv, d), generator=card,
+                                      device="cuda").bfloat16()
+    k, v = (buf[:, :, :skv] for buf in bufs)
+    assert k.is_contiguous() and v.is_contiguous()
+    for causal in (False, True):
+        got = flash_attention(q, k, v, causal=causal)
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, flash_attention(q, k.clone(), v.clone(),
+                                                causal=causal))
+
+
+def _unsplit_case(card, visible_pages, q_dtype, s=1):
+    """gemma-2b's heads (8 q on 1 KV, D 256), 16-row pages, three lanes:
+    lane 0 sees ``visible_pages`` pages, lane 1 one row fewer, lane 2 is
+    dead (a table of trash pages, qpos 0); the trash page is last and
+    poisoned with large finite values, as dead-lane writes leave it."""
+    hq, hkv, d, ps, b = 8, 1, 256, 16, 3
+    width = visible_pages + 2
+    npg = 2 * width + 1
+    trash = npg - 1
+    kp = torch.randn((npg, hkv, ps, d), generator=card, device="cuda")
+    vp = torch.randn((npg, hkv, ps, d), generator=card, device="cuda")
+    kp[trash], vp[trash] = 1e4, -1e4
+    bt = torch.randperm(npg - 1, generator=card, device="cuda")[:2 * width] \
+        .reshape(2, width).to(torch.int32)
+    bt = torch.cat([bt, torch.full((1, width), trash, dtype=torch.int32,
+                                   device="cuda")])
+    tokens = visible_pages * ps
+    qpos = torch.tensor([tokens - s, tokens - s - 1, 0], dtype=torch.int32,
+                        device="cuda")
+    q = torch.randn((b, hq, s, d), generator=card, device="cuda").to(q_dtype)
+    return q, kp, vp, bt, qpos
+
+
+def _unsplit_close(got, want):
+    if got.dtype == torch.bfloat16:
+        # one bf16 ulp at |x| in [2, 4) + relative slack (chip_smoke's gate)
+        torch.testing.assert_close(got.float(), want.float(), atol=2.0 ** -6,
+                                   rtol=2.0 ** -8)
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("visible_pages", [1, 5, 9, 257])
+def test_paged_unsplit_kernel_pages(card, visible_pages, q_dtype):
+    """1 and 5 pages leave warps without a page, 9 gives one warp two,
+    257 is the decode-4096 table; the dead lane on the poisoned trash
+    page stays finite, and NaN in every unwritten page row never leaks."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import paged_attention_unsplit
+    from repro_torch.kernels.ref import paged_attention_ref
+    q, kp, vp, bt, qpos = _unsplit_case(card, visible_pages,
+                                        getattr(torch, q_dtype))
+    before = _cuda.LAUNCHES["paged_attention_unsplit"]
+    got = paged_attention_unsplit(q, kp, vp, bt, qpos)
+    want = paged_attention_ref(q, kp, vp, bt, qpos)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["paged_attention_unsplit"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _unsplit_close(got[:2], want[:2])
+    assert torch.isfinite(got[2].float()).all()
+    # NaN in every row past each live lane's visible prefix
+    kp2, vp2 = kp.clone(), vp.clone()
+    ps = kp.shape[2]
+    for lane in range(2):
+        for t in range(int(qpos[lane]) + 1, bt.shape[1] * ps):
+            pg = int(bt[lane, t // ps])
+            kp2[pg, :, t % ps] = float("nan")
+            vp2[pg, :, t % ps] = float("nan")
+    again = paged_attention_unsplit(q, kp2, vp2, bt, qpos)
+    assert torch.equal(again[:2], got[:2])
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_paged_unsplit_kernel_prefill_chunk(card, q_dtype):
+    """A 16-row prefill chunk (128 folded rows, 16 row tiles) against the
+    plain version, with NaN past the chunk's last position."""
+    from repro_torch.kernels.flash_attention import paged_attention_unsplit
+    from repro_torch.kernels.ref import paged_attention_ref
+    q, kp, vp, bt, qpos = _unsplit_case(card, 9, getattr(torch, q_dtype),
+                                        s=16)
+    got = paged_attention_unsplit(q, kp, vp, bt, qpos)
+    _unsplit_close(got[:2], paged_attention_ref(q, kp, vp, bt, qpos)[:2])
+    kp2, vp2 = kp.clone(), vp.clone()
+    ps = kp.shape[2]
+    for lane in range(2):
+        for t in range(int(qpos[lane]) + 16, bt.shape[1] * ps):
+            pg = int(bt[lane, t // ps])
+            kp2[pg, :, t % ps] = float("nan")
+            vp2[pg, :, t % ps] = float("nan")
+    assert torch.equal(paged_attention_unsplit(q, kp2, vp2, bt, qpos)[:2],
+                       got[:2])
+
+
+def test_paged_unsplit_kernel_refuses(card):
+    from repro_torch.kernels.flash_attention import paged_attention_unsplit
+    q = torch.randn((1, 2, 1, 30), device="cuda")
+    kp = torch.randn((3, 1, 4, 30), device="cuda")
+    bt = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    qpos = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention_unsplit(q, kp, kp, bt, qpos)
+
+
 def test_flash_attention_kernel_refuses(card):
     from repro_torch.kernels.flash_attention import flash_attention
     x = torch.randn((1, 2, 4, 320), generator=card, device="cuda")

@@ -141,3 +141,122 @@ def test_wrapper_refuses_other_devices():
                for a in _operands(1, 2, 1, 4, 4, 32, 8))
     with pytest.raises(ValueError, match="unsupported device"):
         tflash.flash_attention(q, k, v)
+
+
+# -- why the tensor-core kernel feeds p to p.v as three bf16 terms --------
+def _plain_before(q, k, v, *, causal, softmax_scale=None):
+    """``flash_attention_plain`` as the CUDA-core kernel's plain version
+    was first written, op for op: the plain version of both kernels must
+    stay bitwise this."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = (softmax_scale if softmax_scale is not None
+             else float(1.0 / np.sqrt(d)))
+    qf = q.reshape(b, hkv, hq // hkv, sq, d).to(torch.float32) * scale
+    qpos = (skv - sq) + torch.arange(sq)[:, None]
+    m = torch.full((b, hkv, hq // hkv, sq, 1), -1e30, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, sq, v.shape[-1]),
+                      dtype=torch.float32)
+    for k0 in range(0, skv, 64):
+        kt = k[:, :, k0:k0 + 64].to(torch.float32)
+        vt = v[:, :, k0:k0 + 64].to(torch.float32)
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt)
+        if causal:
+            mask = qpos >= k0 + torch.arange(kt.shape[2])
+            logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhgqk,bhkd->bhgqd", p, vt)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,causal", [(29, 130, True), (130, 29, True),
+                                           (64, 64, False)])
+def test_plain_version_is_bitwise_unchanged(dtype, sq, skv, causal):
+    """The tensor-core kernel keeps the plain version's arithmetic, so the
+    plain version (the f32 and bf16 lanes', every CPU route's) is bitwise
+    what it was."""
+    q, k, v = (torch.tensor(a, dtype=getattr(torch, dtype))
+               for a in _operands(2, 4, 2, sq, skv, 32, seed=11))
+    assert torch.equal(flash_attention_plain(q, k, v, causal=causal),
+                       _plain_before(q, k, v, causal=causal))
+
+
+def _terms(p: torch.Tensor, n: int) -> torch.Tensor:
+    """p as the sum of ``n`` bf16 terms, each the bf16 rounding of what
+    the earlier ones left (the kernel's split of p, n = 3)."""
+    out, rest = torch.zeros_like(p), p
+    for _ in range(n):
+        t = rest.to(torch.bfloat16).to(torch.float32)
+        out, rest = out + t, rest - t
+    return out
+
+
+def test_three_bf16_terms_carry_p_exactly():
+    """hi + mi + lo = p bit for bit over the softmax's range of p (1 down
+    to 2^-100, across exponents), so P.V on the tensor cores multiplies
+    the plain version's f32 p; one term keeps 8 bits, two keep 16."""
+    rs = np.random.RandomState(1)
+    p = torch.tensor(np.exp2(-rs.uniform(0, 100, 200000)), dtype=torch.float32)
+    assert torch.equal(_terms(p, 3), p)
+    rel = ((_terms(p, 2) - p) / p).abs().max().item()
+    assert 0 < rel <= 2.0 ** -17
+    assert ((_terms(p, 1) - p) / p).abs().max().item() > 2.0 ** -10
+
+
+def _online(q, k, v, logits_fn, n_terms):
+    """The online softmax over 64-row tiles with the logits from
+    ``logits_fn``, p entering p.v as ``n_terms`` bf16 terms."""
+    qf = q.float() * q.shape[-1] ** -0.5
+    b, h, sq, d = q.shape
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, k.shape[2], 64):
+        kt, vt = k[:, :, k0:k0 + 64].float(), v[:, :, k0:k0 + 64].float()
+        s = logits_fn(qf, kt)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd",
+                                         _terms(p, n_terms), vt)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def test_one_bf16_term_of_p_follows_the_logits_summation_order():
+    """Two summation orders of the same logits (f32 and f64 sums,
+    whisper-encoder rows of 1500 keys at D 64) move a single bf16 rounding
+    of p across rounding boundaries and outputs by up to ~7e-5, beyond
+    the kernel's gate of one bf16 output ulp + 2e-5 at outputs near 0;
+    with the kernel's three terms the two orders stay at f32 noise and
+    inside the gate everywhere."""
+    rs = np.random.RandomState(0)
+    q, k, v = (torch.tensor(rs.randn(1, 2, 1500, 64), dtype=torch.bfloat16)
+               for _ in range(3))
+
+    def f32(qf, kt):
+        return torch.einsum("bhqd,bhkd->bhqk", qf, kt)
+
+    def f64(qf, kt):
+        return torch.einsum("bhqd,bhkd->bhqk", qf.double(),
+                            kt.double()).float()
+
+    delta = {}
+    for n in (1, 3):
+        a, b = _online(q, k, v, f32, n), _online(q, k, v, f64, n)
+        delta[n] = (a - b).abs().max().item()
+        if n == 3:
+            _close(b.bfloat16().float().numpy(),
+                   a.bfloat16().float().numpy(), "bfloat16")
+    assert delta[3] < 2e-6
+    assert delta[1] > 2e-5 and delta[1] > 10 * delta[3]

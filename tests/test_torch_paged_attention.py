@@ -245,3 +245,111 @@ def test_cost_constants_round_trip():
         tfa.set_cost_constants()
         jfa.set_cost_constants()
     assert tfa.get_cost_constants() == jfa.get_cost_constants()
+
+
+# -- the unsplit CUDA kernel's schedule, modelled in torch -----------------
+def _unsplit_schedule(q, kp, vp, bt, qpos, *, warps=8, rows_per_block=8):
+    """The unsplit kernel's schedule (csrc/paged_attention.cu) in f32: per
+    (batch, KV head, 8-row tile), the table entries up to the last visible
+    position dealt round-robin to ``warps`` warps; each warp runs its own
+    online softmax page by page (rows past the last visible position of
+    any row of the block never read, out-of-range page ids skipped, a p of
+    0 multiplies nothing); then the warps merge with ``combine_splits``."""
+    b, hq, s, d = q.shape
+    n_pages, hkv, ps, _ = kp.shape
+    qf = tref._fold(q, hkv).to(torch.float32) * float(1.0 / np.sqrt(d))
+    rows = qf.shape[2]
+    out = torch.zeros_like(qf)
+    for bi in range(b):
+        last = int(qpos[bi]) + s - 1
+        npages = min(bt.shape[1], last // ps + 1)
+        qp = int(qpos[bi]) + torch.arange(rows) % s
+        for h in range(hkv):
+            for r0 in range(0, rows, rows_per_block):
+                qt, qpt = qf[bi, h, r0:r0 + rows_per_block], \
+                    qp[r0:r0 + rows_per_block, None]
+                states = []
+                for w in range(warps):
+                    m = torch.full((qt.shape[0], 1), -1e30)
+                    l = torch.zeros_like(m)
+                    acc = torch.zeros_like(qt)
+                    for e in range(w, npages, warps):
+                        pg = int(bt[bi, e])
+                        if not 0 <= pg < n_pages:
+                            continue
+                        nc = min(ps, last - e * ps + 1)
+                        kk = kp[pg, h, :nc].to(torch.float32)
+                        vv = vp[pg, h, :nc].to(torch.float32)
+                        vis = e * ps + torch.arange(nc)[None] <= qpt
+                        logits = torch.where(vis, qt @ kk.T, -1e30)
+                        m_new = torch.maximum(m, logits.amax(-1,
+                                                             keepdim=True))
+                        p = torch.where(vis, torch.exp(logits - m_new), 0.0)
+                        alpha = torch.exp(m - m_new)
+                        l = alpha * l + p.sum(-1, keepdim=True)
+                        pv = torch.where(p[..., None] != 0,
+                                         p[..., None] * vv[None], 0.0)
+                        acc = alpha * acc + pv.sum(1)
+                        m = m_new
+                    states.append((acc, m, l))
+                acc_s, m_s, l_s = (torch.stack(x) for x in zip(*states))
+                a, _, l_star = tref.combine_splits(acc_s, m_s, l_s)
+                out[bi, h, r0:r0 + rows_per_block] = \
+                    a / torch.clamp_min(l_star, 1e-30)
+    return out.reshape(b, hkv, hq // hkv, s, d).reshape(b, hq, s, d) \
+        .to(q.dtype)
+
+
+def _schedule_vs_references(q, kp, vp, bt, qpos, **kw):
+    got = _unsplit_schedule(*_t(q, kp, vp, bt, qpos), **kw).numpy()
+    want = tref.paged_attention_ref(*_t(q, kp, vp, bt, qpos)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    pal = np.asarray(jfa._paged_attention_unsplit(*_j(q, kp, vp, bt, qpos),
+                                                  interpret=True))
+    np.testing.assert_allclose(got, pal, **TOL)
+    return got
+
+
+@pytest.mark.parametrize("warps", [8, 3])
+@pytest.mark.parametrize("geom", GEOMS,
+                         ids=lambda g: f"b{g[0]}h{g[1]}/{g[2]}s{g[3]}")
+def test_unsplit_schedule_matches_reference_and_pallas(geom, warps):
+    """Tables of 4-8 entries on 8 warps leave warps with no page (they
+    must weigh 0); on 3 warps some warps take two or three pages."""
+    b, hq, hkv, s, d, ps, npg, w, qpos = geom
+    q, kp, vp, bt = _case(b, hq, hkv, s, d, ps, npg, w, seed=sum(geom[:8]))
+    _schedule_vs_references(q, kp, vp, bt, np.asarray(qpos, np.int32),
+                            warps=warps)
+
+
+def test_unsplit_schedule_long_table_rows_beyond_one_block():
+    """20 entries over 8 warps (two or three pages each), 16 folded rows
+    (two row tiles), qpos at the end of the table and near its start."""
+    q, kp, vp, bt = _case(2, 8, 2, 4, 16, 4, 45, 20, seed=21)
+    _schedule_vs_references(q, kp, vp, bt, np.asarray([76, 6], np.int32))
+
+
+def test_unsplit_schedule_one_page_table():
+    q, kp, vp, bt = _case(3, 4, 1, 1, 32, 8, 5, 1, seed=22)
+    _schedule_vs_references(q, kp, vp, bt, np.asarray([0, 3, 7], np.int32))
+
+
+def test_unsplit_schedule_dead_lane_and_poisoned_rows():
+    """A dead lane (all trash, qpos 0) beside a live one, a poisoned trash
+    page and NaN in every row past the live lane's visible prefix: the
+    live lane is unmoved, the dead lane finite, both match Pallas."""
+    ps, width, npg = 4, 6, 13
+    trash = npg - 1
+    q, kp, vp, _ = _case(2, 4, 2, 1, 8, ps, npg, width, seed=23)
+    bt = np.stack([np.arange(width), np.full(width, trash)]).astype(np.int32)
+    qpos = np.asarray([17, 0], np.int32)
+    clean = _schedule_vs_references(q, kp, vp, bt, qpos)
+    kp[trash], vp[trash] = 1e4, -1e4
+    poisoned = _schedule_vs_references(q, kp, vp, bt, qpos)
+    np.testing.assert_array_equal(poisoned[0], clean[0])
+    assert np.isfinite(poisoned[1]).all()
+    for t in range(int(qpos[0]) + 1, width * ps):
+        kp[bt[0, t // ps], :, t % ps] = np.nan
+        vp[bt[0, t // ps], :, t % ps] = np.nan
+    nan_rows = _unsplit_schedule(*_t(q, kp, vp, bt, qpos)).numpy()
+    np.testing.assert_array_equal(nan_rows[0], clean[0])
