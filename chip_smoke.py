@@ -10,7 +10,8 @@ Phases, one line each, any failure raises and the exit code is non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print ``ptxas`` usage, with
-   a summary of the tensor-core flash and unsplit paged instances;
+   a summary of the tensor-core flash, paged (both routes) and tensor-core
+   qmatmul instances;
 2. print the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
 3. hold every kernel against its plain PyTorch version on the card at the
@@ -173,9 +174,19 @@ def check_qmatmul(torch, timer, rows):
         ms = timer(lambda: qmatmul(a, b, sa, sb, bias, out_dtype, **kw))
         plain_ms = timer(lambda: qmatmul_plain(a, b, sa, sb, bias, out_dtype,
                                                **kw), reps=5)
-        lib_ms = None
+        lib_ms = ctx_ms = read_ms = None
         if m > 16 and spec is None:       # torch._int_mm needs M > 16
             lib_ms = yardstick(timer, lambda: torch._int_mm(a, b))
+        elif spec is None:
+            # context, not library columns (other functions): _int_mm on A
+            # zero-padded to 32 rows, what a library call gets from the
+            # same weight stream, and a PyTorch reduction that only reads
+            # the weights (their bytes under this timer's cold L2)
+            a32 = torch.zeros((32, k), dtype=torch.int8, device="cuda")
+            a32[:m] = a
+            ctx_ms = yardstick(timer, lambda: torch._int_mm(a32, b))
+            b32 = b.view(torch.int32)
+            read_ms = timer(lambda: b32.amax())
         out_bytes = 2 if out_dtype == torch.bfloat16 else 4
         nbytes = m * k + k * n + 4 * m + 4 * n + out_bytes * m * n
         if with_bias:
@@ -186,12 +197,16 @@ def check_qmatmul(torch, timer, rows):
         rows.append(dict(kernel="qmatmul", case=f"{name} M={m} K={k} N={n} "
                          f"{str(out_dtype)[6:]}", max_abs_err=err, tol=tol,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         int_mm_m32_ms=ctx_ms, read_weights_ms=read_ms,
                          bound_ms=bnd, bound_by=by))
         log(f"[check] qmatmul {rows[-1]['case']}: max_abs_err={err:.3g} "
             f"(tol {tol:.3g}) kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"library={fmt_ms(lib_ms)} "
             f"kernel/library={over_library(rows[-1])} "
-            f"bound={bnd:.4f}ms ({by})")
+            + (f"(context: _int_mm on A padded to M 32 {ctx_ms:.4f}ms, "
+               f"amax reading B {read_ms:.4f}ms) "
+               if ctx_ms is not None else "")
+            + f"bound={bnd:.4f}ms ({by})")
 
 
 def check_lut(torch, timer, rows):
@@ -636,6 +651,12 @@ def serve_main_path(torch, rows_out, profile: bool):
         r.pop("streams")
     rows_out["serving"] = runs
     rows_out["launches"] = total
+    split_per_path = {label: r["launches"]["paged_attention_split"]
+                      for label, r in runs.items()}
+    rows_out["split_launches_per_path"] = split_per_path
+    log(f"[engine] paged_attention_split launches per path (one launch per "
+        f"layer and model call, the combine inside it): "
+        f"{json.dumps(split_per_path)}")
     log(f"[engine] main-path launches over all paths: {json.dumps(total)}")
 
     if profile:
@@ -1095,9 +1116,12 @@ def profile_block(torch, eng, prompts, gen_len):
 
 
 #: the redesigned kernels, by their names in ptxas's output (their shared
-#: memory is dynamic, sized at launch; ptxas reports the static part)
-PTXAS_KERNELS = ("flash_attention_bf16_kernel",
-                 "paged_attention_unsplit_kernel")
+#: memory is dynamic, sized at launch; ptxas reports the static part): the
+#: tensor-core flash kernel, the paged kernel (both routes, one instance
+#: per head-dim class) and the tensor-core qmatmul (<16, MB> decode,
+#: <128, 1> otherwise)
+PTXAS_KERNELS = ("flash_attention_bf16_kernel", "paged_attention_kernel",
+                 "qmatmul_kernel")
 
 
 def ptxas_summary(build_log) -> dict:
@@ -1115,8 +1139,10 @@ def ptxas_summary(build_log) -> dict:
             hit = fn and next((k for k in PTXAS_KERNELS if k in fn), None)
             if not hit:
                 continue
-            arg = re.search(hit + r"ILi(\d+)E", fn)
-            key = f"{hit}<{arg.group(1) if arg else '?'}>"
+            args = re.search(hit + r"I((?:Li\d+E)+)", fn)
+            key = f"{hit}<" + (",".join(re.findall(r"Li(\d+)E",
+                                                   args.group(1)))
+                               if args else "?") + ">"
             row = out.setdefault(key, {})
             for field, pat in (("registers", r"Used (\d+) registers"),
                                ("spill_stores", r"(\d+) bytes spill stores"),
@@ -1176,6 +1202,12 @@ def kernels_line(rows, counts):
             out[-1]["library_note"] = ("none (no PyTorch call is a table "
                                        "lookup)")
             out[-1]["context_gelu_tanh_ms"] = rep["gelu_tanh_ms"]
+        if name == "qmatmul":
+            out[-1]["library_note"] = ("none at M 8 (torch._int_mm needs M "
+                                       "> 16); context: _int_mm on A padded "
+                                       "to M 32, and amax reading B")
+            out[-1]["context_int_mm_m32_ms"] = rep["int_mm_m32_ms"]
+            out[-1]["context_read_weights_ms"] = rep["read_weights_ms"]
     return {"kernels": out}
 
 

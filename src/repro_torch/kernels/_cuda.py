@@ -65,13 +65,9 @@ SIGNATURES = {
                            _F, _I, _I, _I, _I, _P, _P, _P],
     },
     "paged_attention": {
-        "paged_attention_unsplit_launch": [_P, _P, _P, _P, _P, _P, _I, _I,
-                                           _I, _I, _I, _I, _I, _I, _F, _I,
-                                           _P],
-        "paged_attention_split_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                         _F, _I, _P],
-        "combine_splits_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _P],
     },
     "lut_activation": {
         "lut_activation_launch": [_P, _P, _P, _L, _I, _F, _F, _I, _I, _I,

@@ -1,38 +1,37 @@
 // Paged attention over a block-table-indexed KV page pool, for Hopper
-// (sm_90a): the unsplit kernel, the split-KV partition kernel and the
-// log-sum-exp combine.
+// (sm_90a): one kernel serves the unsplit and the split-KV (flash
+// decoding) routes.
 //
 // Replaces:
 //  * src/repro/kernels/flash_attention.py:217 _paged_attention_unsplit
-//    (Pallas body _paged_kernel :154) -> paged_attention_unsplit_kernel;
+//    (Pallas body _paged_kernel :154): one partition, normalised in place;
 //  * src/repro/kernels/flash_attention.py:514 paged_attention_pallas
-//    (Pallas body _paged_split_kernel :274) -> paged_attention_split_kernel,
-//    then combine_splits (:353) -> combine_splits_kernel.
+//    (Pallas body _paged_split_kernel :274, then combine_splits :353):
+//    kv_split partitions whose partials the last block of each (batch, KV
+//    head, row tile) merges by the combine_splits formula.
 // Contract (as the reference): q (B, Hq, S, D) folded group-major onto its
 // KV head as (B, Hkv, rows = group*S, D), f32 or bf16; pages
 // (P, Hkv, ps, D) f32; block table (B, NP) int32; qpos (B,) int32.  Row r
 // is query position qpos[b] + r % S and sees kv positions <= that
-// (write-before-attend).  Masked logits are -1e30 and weigh exactly 0;
-// tiles wholly past the last visible position are skipped and leave the
-// online-softmax state untouched; a row that sees nothing outputs 0 (the
-// max(l, 1e-30) guard).  The output has q's dtype.
+// (write-before-attend).  Masked logits weigh exactly 0; pages wholly past
+// the last visible position are skipped; a row that sees nothing outputs
+// 0 (the max(l, 1e-30) guard).  The output has q's dtype.
 //
 // What bounds it on the H100: bytes.  Decode reads every visible K and V
 // row once (f32, 2 * D * 4 = 2 KB per token and KV head) for ~4 * rows * D
 // flops per token -- 8 rows at gemma-2b's MQA decode, ~4 flops per byte,
 // far below the f32 roofline's ~20 (67 TFLOP/s over 3.35 TB/s).  A
 // chunked-prefill call (rows = 8 * 16) is denser but still moves more
-// bytes than it can hide at these context lengths.
+// bytes than it can hide at these context lengths.  So the design keeps
+// many pages in flight and nothing but the output (and, split, the small
+// partials) in device memory.
 //
-// The unsplit kernel (kv_split = 1: one launch, no partials in device
-// memory, no combine launch):
-//  * one block of 8 warps per (batch, KV head, 8-row tile) -- the 8 rows
-//    of gemma-2b's MQA decode in one block; the block reads its own block
-//    table, and warp w walks entries w, w + 8, ... with its own online
-//    softmax state (m, l and the 8 rows' f32 accumulator in registers,
-//    64 a lane at D 256), so a block streams 8 pages at a time instead
-//    of one; at the end the warps merge with the combine_splits formula
-//    through shared memory, and a warp that saw no page weighs 0;
+// The walk (one device function for both routes):
+//  * grid (8-row tiles, partitions, B * Hkv), one block of 8 warps each:
+//    the block reads its own block table, and warp w walks its
+//    partition's entries e0 + w, e0 + w + 8, ... with its own online
+//    softmax state (m, l and the 8 rows' f32 accumulator in registers, 64
+//    a lane at D 256), so a block streams 8 pages at a time;
 //  * K/V rows go straight to registers as 16-byte loads, each lane owning
 //    4 columns per 128, four rows at a time with the next four in flight
 //    (V's first rows load during the softmax); no __syncthreads in the
@@ -42,26 +41,24 @@
 //    shuffles), which leaves each lane one logit; the quad that holds a
 //    row updates its softmax state and hands p to the warp through a
 //    per-warp shared buffer;
-//  * entries past the last visible position, and pages whose id is out
-//    of range, are never dereferenced; a p of 0 multiplies nothing, so
-//    NaN in unwritten page rows cannot leak.
-// The split kernel (paged_attention_split_kernel, walk below):
-//  * pages are fetched through the block table by the block itself
-//    (float4 loads of one contiguous 16 x D page), each visible page read
-//    once per (batch, KV head, row tile); pages past the last visible
-//    position and split-padding entries are never read;
-//  * the query tile, the running (m, l) and the f32 accumulator stay in
-//    shared memory for the whole walk: 16 rows x 256 x 4 B = 16 KB each,
-//    so rows beyond 16 (group 8 x S 16 = 128 at prefill) are spread over
-//    row-tile blocks instead of one 128 KB accumulator;
-//  * it cuts the table into kv_split partitions run by separate blocks
-//    (flash decoding), so a long context is not one serial page chain on
-//    one SM; its partials (acc, m, l) go to HBM and a second tiny kernel
-//    applies the combine formula.  A multi-page tile (pages_per_step)
-//    computes its logits page by page into shared memory and updates the
-//    softmax state once per tile, as the reference does.
-//    Not yet done (a later change): async double-buffered page fetches
-//    and register-resident state, as in the unsplit kernel.
+//  * the warps merge with the combine_splits formula through shared
+//    memory (a warp that saw no page weighs 0);
+//  * entries past the last visible position, split padding (e >= NP) and
+//    page ids out of range are never dereferenced; a p of 0 multiplies
+//    nothing, so NaN in unwritten page rows cannot leak.
+// Output modes: with one partition the block normalises in place (no
+// partials, one launch).  With kv_split partitions, partition sp covers
+// the reference's entries [sp * nt * t, (sp + 1) * nt * t); its block
+// writes the raw partial (acc, m, l) -- a dead partition keeps m = -1e30,
+// l = 0 and weighs exactly 0 -- then takes a ticket after a fence; the
+// last block of the (batch, KV head, row tile) applies combine_splits and
+// writes the output, and leaves its ticket zeroed for the next launch.
+// So the split route is one launch too.  Inside a partition the state is
+// updated per warp and page, not once per pages_per_step tile: the
+// kernel rounds differently from paged_attention_split_ref, within the
+// gates stated beside its checks.  The ticket buffer is shared by all
+// launches on one device, so launches must not run concurrently on two
+// streams (the engine uses one).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,6 +68,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
+constexpr int RT = 8;    // query rows per block
 constexpr float NEG = -1e30f;
 
 struct Geometry {
@@ -80,202 +78,32 @@ struct Geometry {
   const int* bt;         // (B, NP)
   const int* qpos;       // (B,)
   int B, Hkv, rows, D, S, ps, P, NP;
-  int t;                 // pages per tile
-  int nt;                // tiles per partition
-  int rt;                // query rows per block
+  int span;              // table entries per partition (nt * t)
   float scale;
   int q_bf16;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// The split route's scratch: raw partials (split, B, Hkv, rows[, D]) and
+// one ticket per (batch, KV head, row tile), zero on entry and on exit.
+struct Partials {
+  float* acc;
+  float* m;
+  float* l;
+  unsigned* tickets;
+};
 
 __device__ __forceinline__ float load_q(const void* q, size_t i, int bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
               : static_cast<const float*>(q)[i];
 }
 
-// One (page, KV head) block of ps x D floats into shared memory with row
-// stride D + 1 (conflict-free column walks in the dot products).
-__device__ __forceinline__ void load_page(const float* pages, int pg, int h,
-                                          const Geometry& g, float* dst) {
-  const int D = g.D, ld = D + 1, n = g.ps * D;
-  const float* src = pages + ((size_t)pg * g.Hkv + h) * n;
-  if (D % 4 == 0) {
-    for (int i = threadIdx.x; i < n / 4; i += THREADS) {
-      const float4 v = reinterpret_cast<const float4*>(src)[i];
-      const int c = (4 * i) / D, d = (4 * i) % D;
-      float* o = dst + c * ld + d;
-      o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-    }
-  } else {
-    for (int i = threadIdx.x; i < n; i += THREADS)
-      dst[(i / D) * ld + i % D] = src[i];
-  }
-}
-
-// Shared-memory floats the walk needs (page-id ints ride at the end).
-__host__ __device__ inline size_t smem_floats(int rt, int D, int ps, int t) {
-  return 3 * (size_t)rt * D + (size_t)ps * (D + 1) + (size_t)rt * t * ps
-         + 3 * (size_t)rt + t;
-}
-
-// Online-softmax walk of partition `sp` for (b, h, rows r0 .. r0+rt),
-// writing the raw partials (acc, m, l) of this partition.
-__device__ void walk(const Geometry& g, int b, int h, int r0, int sp,
-                     float* acc_o, float* m_o, float* l_o) {
-  extern __shared__ float smem[];
-  const int D = g.D, ps = g.ps, rt = g.rt, ld = D + 1;
-  const int TC = g.t * ps;                 // columns of one tile
-  float* q_s = smem;                       // rt x D, q * scale
-  float* acc_s = q_s + rt * D;             // rt x D
-  float* pv_s = acc_s + rt * D;            // rt x D, this tile's p @ V
-  float* kv_s = pv_s + rt * D;             // ps x (D + 1), one K or V page
-  float* p_s = kv_s + ps * ld;             // rt x TC, logits then p
-  float* m_s = p_s + rt * TC;              // rt
-  float* l_s = m_s + rt;                   // rt
-  float* al_s = l_s + rt;                  // rt, this tile's alpha
-  int* pg_s = reinterpret_cast<int*>(al_s + rt);   // t page ids (-1: none)
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int nr = min(rt, g.rows - r0);
-  const size_t qbase = ((size_t)(b * g.Hkv + h) * g.rows + r0) * D;
-  for (int i = tid; i < rt * D; i += THREADS) {
-    // q.astype(f32) * scale, as _paged_kernel:181
-    q_s[i] = (i / D < nr) ? load_q(g.q, qbase + i, g.q_bf16) * g.scale : 0.f;
-    acc_s[i] = 0.f;
-  }
-  for (int r = tid; r < rt; r += THREADS) {
-    m_s[r] = NEG;
-    l_s[r] = 0.f;
-  }
-  const int qpos0 = g.qpos[b];
-  const int last = qpos0 + g.S - 1;        // last position any row sees
-  const int* btb = g.bt + (size_t)b * g.NP;
-  __syncthreads();
-
-  for (int it = 0; it < g.nt; ++it) {
-    const int base = (sp * g.nt + it) * g.t;   // first table entry of the tile
-    // tiles wholly past the last visible position are skipped (and so is
-    // every later one): the state stays untouched, as in the reference
-    if (base * ps > last) break;
-    // the tile's page ids; split-padding entries (>= NP), pages wholly
-    // past `last` and out-of-range ids are never dereferenced -- all their
-    // columns are masked anyway
-    for (int j = tid; j < g.t; j += THREADS) {
-      const int e = base + j;
-      int pg = -1;
-      if (e < g.NP && e * ps <= last) {
-        pg = btb[e];
-        if (pg < 0 || pg >= g.P) pg = -1;
-      }
-      pg_s[j] = pg;
-    }
-    __syncthreads();
-
-    // 1. logits of the tile, page by page
-    for (int j = 0; j < g.t; ++j) {
-      const int pg = pg_s[j];
-      if (pg >= 0) {
-        load_page(g.k_pages, pg, h, g, kv_s);
-        __syncthreads();
-      }
-      for (int i = tid; i < rt * ps; i += THREADS) {
-        const int r = i / ps, c = i % ps;
-        const int kvpos = (base + j) * ps + c;
-        float logit = NEG;
-        if (pg >= 0 && kvpos <= qpos0 + (r0 + r) % g.S) {
-          const float* qr = q_s + r * D;
-          const float* kr = kv_s + c * ld;
-          float s = 0.f;
-          for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-          logit = s;
-        }
-        p_s[r * TC + j * ps + c] = logit;
-      }
-      __syncthreads();
-    }
-
-    // 2. online-softmax update, one warp per row
-    for (int r = warp; r < rt; r += NWARPS) {
-      const int qp = qpos0 + (r0 + r) % g.S;
-      float* pr = p_s + r * TC;
-      float mx = NEG;
-      for (int c = lane; c < TC; c += 32) mx = fmaxf(mx, pr[c]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = lane; c < TC; c += 32) {
-        const bool vis = pg_s[c / ps] >= 0 && base * ps + c <= qp;
-        const float p = vis ? expf(pr[c] - m_new) : 0.f;
-        pr[c] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        al_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    for (int i = tid; i < rt * D; i += THREADS) pv_s[i] = 0.f;
-    __syncthreads();
-
-    // 3. p @ V of the tile, page by page; masked columns (p == 0) are not
-    //    multiplied, so garbage in unwritten or recycled rows cannot leak
-    for (int j = 0; j < g.t; ++j) {
-      const int pg = pg_s[j];
-      if (pg < 0) continue;                 // uniform across the block
-      load_page(g.v_pages, pg, h, g, kv_s);
-      __syncthreads();
-      for (int i = tid; i < rt * D; i += THREADS) {
-        const int r = i / D, d = i % D;
-        const float* pr = p_s + r * TC + j * ps;
-        float s = pv_s[i];
-        for (int c = 0; c < ps; ++c) {
-          const float p = pr[c];
-          if (p != 0.f) s = fmaf(p, kv_s[c * ld + d], s);
-        }
-        pv_s[i] = s;
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < rt * D; i += THREADS)
-      acc_s[i] = al_s[i / D] * acc_s[i] + pv_s[i];
-    __syncthreads();
-  }
-
-  const size_t row0 = ((size_t)(sp * g.B + b) * g.Hkv + h) * g.rows + r0;
-  for (int i = tid; i < nr * D; i += THREADS) acc_o[row0 * D + i] = acc_s[i];
-  for (int r = tid; r < nr; r += THREADS) {
-    m_o[row0 + r] = m_s[r];
-    l_o[row0 + r] = l_s[r];
-  }
-}
-
-// ---- the unsplit kernel: one block per (batch, KV head, 8-row tile), the
-// table's pages dealt round-robin to its warps ---------------------------
-
-constexpr int URT = 8;   // query rows per unsplit block
-
-// Shared-memory floats of the unsplit kernel: q (URT x D); per warp the
-// page's logits (URT x ps), its p (ps x URT) and alpha (URT); the warps'
-// states for the merge (NWARPS x URT x D acc, NWARPS x URT m and l), the
-// merge weights (NWARPS x URT) and the merged l (URT)
-__host__ __device__ inline size_t unsplit_smem_floats(int D, int ps) {
-  return (size_t)URT * D + (size_t)NWARPS * (2 * URT * ps + URT) +
-         (size_t)NWARPS * URT * D + 3 * (size_t)NWARPS * URT + URT;
+// Shared-memory floats: q (RT x D); per warp the page's logits (RT x ps),
+// its p (ps x RT) and alpha (RT); the warps' states for the merge
+// (NWARPS x RT x D acc, NWARPS x RT m and l), the merge weights
+// (NWARPS x RT) and the merged l (RT)
+__host__ __device__ inline size_t smem_floats(int D, int ps) {
+  return (size_t)RT * D + (size_t)NWARPS * (2 * RT * ps + RT) +
+         (size_t)NWARPS * RT * D + 3 * (size_t)NWARPS * RT + RT;
 }
 
 // One step of a reduce-scatter over the warp: lanes that differ in bit N
@@ -330,52 +158,34 @@ __device__ __forceinline__ void axpy4(float p, float4 v, float4& acc) {
   acc.w = fmaf(p, v.w, acc.w);
 }
 
-// grid (row tiles, 1, B * Hkv), NWARPS warps: warp w walks table entries
-// w, w + NWARPS, ... with its own online-softmax state, then the warps
-// merge with the combine_splits formula.  NV: float4 columns per lane
-// (D <= 128 * NV, D % 4 == 0).
+
+// Warp `warp` of the block walks table entries e0 + warp, e0 + warp +
+// NWARPS, ... below e1 with its own online softmax: on return acc (the
+// lane's columns of all RT rows), m_r and l_r (row lane / 4) hold its
+// state.  NV: float4 columns per lane (D <= 128 * NV, D % 4 == 0).
 template <int NV>
-__global__ void __launch_bounds__(THREADS, 1)
-paged_attention_unsplit_kernel(Geometry g, void* out) {
-  extern __shared__ __align__(16) float us_smem[];
+__device__ __forceinline__ void walk(const Geometry& g, int b, int h, int e0,
+                                     int e1, const float* q_s, float* s_w,
+                                     float* p_w, float* a_w,
+                                     float4 (&acc)[RT][NV], float& m_r,
+                                     float& l_r) {
   const int D = g.D, ps = g.ps;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.z / g.Hkv, h = blockIdx.z % g.Hkv;
-  const int r0 = blockIdx.x * URT;
-  float* q_s = us_smem;                                       // URT x D
-  float* s_w = q_s + URT * D + warp * (2 * URT * ps + URT);   // URT x ps
-  float* p_w = s_w + URT * ps;                                // ps x URT
-  float* a_w = p_w + URT * ps;                                // URT
-  float* acc_m = q_s + URT * D + NWARPS * (2 * URT * ps + URT);
-  float* m_m = acc_m + NWARPS * URT * D;                      // NWARPS x URT
-  float* l_m = m_m + NWARPS * URT;
-  float* w_m = l_m + NWARPS * URT;
-  float* l_star = w_m + NWARPS * URT;                         // URT
-
-  const int nr = min(URT, g.rows - r0);
-  const size_t qbase = ((size_t)(b * g.Hkv + h) * g.rows + r0) * D;
-  for (int i = threadIdx.x; i < URT * D; i += THREADS)
-    // q.astype(f32) * scale, as _paged_kernel:181
-    q_s[i] = (i / D < nr) ? load_q(g.q, qbase + i, g.q_bf16) * g.scale : 0.f;
-  __syncthreads();
-
   const int qpos0 = g.qpos[b];
   const int last = qpos0 + g.S - 1;        // last position any row sees
   const int* btb = g.bt + (size_t)b * g.NP;
-  // entries past the last visible position are never read
-  const int npages = min(g.NP, last / ps + 1);
   // after the reduce-scatter lane l holds row l / 4, key 4 i + l % 4 of
   // each group of four keys; a quad of lanes shares one row's state
   const int my_r = lane >> 2, my_c = lane & 3;
-  const int my_qp = qpos0 + (r0 + my_r) % g.S;
-  float m_r = NEG, l_r = 0.f;
-  float4 acc[URT][NV];
+  const int my_qp = qpos0 + (blockIdx.x * RT + my_r) % g.S;
+  m_r = NEG;
+  l_r = 0.f;
 #pragma unroll
-  for (int r = 0; r < URT; ++r)
+  for (int r = 0; r < RT; ++r)
 #pragma unroll
     for (int u = 0; u < NV; ++u) acc[r][u] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int e = warp; e < npages; e += NWARPS) {
+  for (int e = e0 + warp; e < e1; e += NWARPS) {
     const int pg = btb[e];
     // an out-of-range id is never dereferenced: all its columns would be
     // masked, an exact no-op of the online update
@@ -403,7 +213,7 @@ paged_attention_unsplit_kernel(Geometry g, void* out) {
         load_rows<NV>(buf, vp, 0, nc, D, lane);
       float part[32];
 #pragma unroll
-      for (int r = 0; r < URT; ++r) {
+      for (int r = 0; r < RT; ++r) {
         float4 qv[NV];
 #pragma unroll
         for (int u = 0; u < NV; ++u) {
@@ -434,7 +244,7 @@ paged_attention_unsplit_kernel(Geometry g, void* out) {
     float sum = 0.f;
     for (int c = my_c; c < nc; c += 4) {
       const float p = base + c <= my_qp ? expf(s_w[my_r * ps + c] - mx) : 0.f;
-      p_w[c * URT + my_r] = p;
+      p_w[c * RT + my_r] = p;
       sum += p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -449,7 +259,7 @@ paged_attention_unsplit_kernel(Geometry g, void* out) {
     //    or underflowed) multiplies nothing, so NaN in unwritten or
     //    recycled rows cannot leak
 #pragma unroll
-    for (int r = 0; r < URT; ++r) {
+    for (int r = 0; r < RT; ++r) {
       const float a = a_w[r];
 #pragma unroll
       for (int u = 0; u < NV; ++u) {
@@ -470,11 +280,11 @@ paged_attention_unsplit_kernel(Geometry g, void* out) {
       for (int j = 0; j < 4; ++j) {
         const int c = 4 * ci + j;
         if (c >= nc) continue;
-        const float4 pa = *reinterpret_cast<const float4*>(p_w + c * URT);
-        const float4 pb = *reinterpret_cast<const float4*>(p_w + c * URT + 4);
-        const float pr[URT] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+        const float4 pa = *reinterpret_cast<const float4*>(p_w + c * RT);
+        const float4 pb = *reinterpret_cast<const float4*>(p_w + c * RT + 4);
+        const float pr[RT] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
-        for (int r = 0; r < URT; ++r) {
+        for (int r = 0; r < RT; ++r) {
           if (pr[r] == 0.f) continue;
 #pragma unroll
           for (int u = 0; u < NV; ++u) axpy4(pr[r], cur[j][u], acc[r][u]);
@@ -483,104 +293,146 @@ paged_attention_unsplit_kernel(Geometry g, void* out) {
     }
     __syncwarp();                // s_w, p_w and a_w are the next page's
   }
+}
 
-  // merge the warps' states: out = sum_w alpha_w acc_w / max(sum_w alpha_w
-  // l_w, 1e-30), alpha_w = exp(m_w - max_w m_w); a warp that saw no page
-  // (m = -1e30, l = 0) weighs exactly 0
+__device__ __forceinline__ void store_out(void* out, size_t i, float y,
+                                          int bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(y);
+  else
+    static_cast<float*>(out)[i] = y;
+}
+
+// grid (row tiles, partitions, B * Hkv), NWARPS warps: the walk over this
+// block's partition, the warps' merge, then the output mode (above).
+template <int NV>
+__global__ void __launch_bounds__(THREADS, 1)
+paged_attention_kernel(Geometry g, void* out, Partials part) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = g.D, ps = g.ps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.z / g.Hkv, h = blockIdx.z % g.Hkv;
+  const int r0 = blockIdx.x * RT;
+  const int sp = blockIdx.y, split = gridDim.y;
+  float* q_s = smem;                                         // RT x D
+  float* s_w = q_s + RT * D + warp * (2 * RT * ps + RT);    // RT x ps
+  float* p_w = s_w + RT * ps;                                // ps x RT
+  float* a_w = p_w + RT * ps;                                // RT
+  float* acc_m = q_s + RT * D + NWARPS * (2 * RT * ps + RT);
+  float* m_m = acc_m + NWARPS * RT * D;                      // NWARPS x RT
+  float* l_m = m_m + NWARPS * RT;
+  float* w_m = l_m + NWARPS * RT;
+  float* l_star = w_m + NWARPS * RT;                         // RT
+
+  const int nr = min(RT, g.rows - r0);
+  const size_t qbase = ((size_t)(b * g.Hkv + h) * g.rows + r0) * D;
+  for (int i = threadIdx.x; i < RT * D; i += THREADS)
+    // q.astype(f32) * scale, as _paged_kernel:181
+    q_s[i] = (i / D < nr) ? load_q(g.q, qbase + i, g.q_bf16) * g.scale : 0.f;
+  __syncthreads();
+
+  // this partition's entries, up to the last visible position
+  const int last = g.qpos[b] + g.S - 1;
+  const int e0 = sp * g.span;
+  const int e1 = min(min(g.NP, last / g.ps + 1), e0 + g.span);
+  float4 acc[RT][NV];
+  float m_r, l_r;
+  walk<NV>(g, b, h, e0, e1, q_s, s_w, p_w, a_w, acc, m_r, l_r);
+
+  // merge the warps' states: acc_p = sum_w alpha_w acc_w, l_p = sum_w
+  // alpha_w l_w, alpha_w = exp(m_w - m_p), m_p = max_w m_w; a warp that
+  // saw no page (m = -1e30, l = 0) weighs exactly 0
 #pragma unroll
-  for (int r = 0; r < URT; ++r)
+  for (int r = 0; r < RT; ++r)
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
       const int col = 4 * (lane + 32 * u);
       if (col < D)
-        *reinterpret_cast<float4*>(acc_m + (warp * URT + r) * D + col) =
+        *reinterpret_cast<float4*>(acc_m + (warp * RT + r) * D + col) =
             acc[r][u];
     }
-  if (my_c == 0) {
-    m_m[warp * URT + my_r] = m_r;
-    l_m[warp * URT + my_r] = l_r;
+  if ((lane & 3) == 0) {
+    m_m[warp * RT + (lane >> 2)] = m_r;
+    l_m[warp * RT + (lane >> 2)] = l_r;
   }
   __syncthreads();
-  if (threadIdx.x < URT) {
+  if (threadIdx.x < RT) {
     const int r = threadIdx.x;
     float ms = NEG;
-    for (int w = 0; w < NWARPS; ++w) ms = fmaxf(ms, m_m[w * URT + r]);
+    for (int w = 0; w < NWARPS; ++w) ms = fmaxf(ms, m_m[w * RT + r]);
     float ls = 0.f;
     for (int w = 0; w < NWARPS; ++w) {
-      const float wt = expf(m_m[w * URT + r] - ms);
-      w_m[w * URT + r] = wt;
-      ls += wt * l_m[w * URT + r];
+      const float wt = expf(m_m[w * RT + r] - ms);
+      w_m[w * RT + r] = wt;
+      ls += wt * l_m[w * RT + r];
     }
-    l_star[r] = fmaxf(ls, 1e-30f);
+    l_star[r] = ls;
+    m_m[r] = ms;     // row r's m_p (warp 0's m is read above, by this thread)
+  }
+  __syncthreads();
+
+  if (split == 1) {     // one partition: normalise in place
+    for (int i = threadIdx.x; i < nr * D; i += THREADS) {
+      const int r = i / D;
+      float a = 0.f;
+      for (int w = 0; w < NWARPS; ++w)
+        a += w_m[w * RT + r] * acc_m[(size_t)w * RT * D + i];
+      store_out(out, qbase + i, a / fmaxf(l_star[r], 1e-30f), g.q_bf16);
+    }
+    return;
+  }
+
+  // the partition's raw partial, then the ticket
+  const size_t nrows = (size_t)g.B * g.Hkv * g.rows;
+  const size_t prow = (size_t)(b * g.Hkv + h) * g.rows + r0;   // row index
+  for (int i = threadIdx.x; i < nr * D; i += THREADS) {
+    const int r = i / D;
+    float a = 0.f;
+    for (int w = 0; w < NWARPS; ++w)
+      a += w_m[w * RT + r] * acc_m[(size_t)w * RT * D + i];
+    part.acc[(sp * nrows + prow) * D + i] = a;
+  }
+  if (threadIdx.x < nr) {
+    part.m[sp * nrows + prow + threadIdx.x] = m_m[threadIdx.x];
+    part.l[sp * nrows + prow + threadIdx.x] = l_star[threadIdx.x];
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ bool last_block;
+  const unsigned tile = blockIdx.z * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    last_block = atomicAdd(part.tickets + tile, 1u) == (unsigned)(split - 1);
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+
+  // out = sum_s alpha_s acc_s / max(sum_s alpha_s l_s, 1e-30),
+  // alpha_s = exp(m_s - max_s m_s): the combine_splits formula; the
+  // partials of other blocks are read past L1 (__ldcg)
+  float* m_star = w_m;          // RT
+  float* ls_star = w_m + RT;    // RT
+  if (threadIdx.x < nr) {
+    const size_t row = prow + threadIdx.x;
+    float ms = __ldcg(part.m + row);
+    for (int s = 1; s < split; ++s)
+      ms = fmaxf(ms, __ldcg(part.m + s * nrows + row));
+    float ls = 0.f;
+    for (int s = 0; s < split; ++s)
+      ls += expf(__ldcg(part.m + s * nrows + row) - ms) *
+            __ldcg(part.l + s * nrows + row);
+    m_star[threadIdx.x] = ms;
+    ls_star[threadIdx.x] = ls;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < nr * D; i += THREADS) {
     const int r = i / D;
     float a = 0.f;
-    for (int w = 0; w < NWARPS; ++w)
-      a += w_m[w * URT + r] * acc_m[(size_t)w * URT * D + i];
-    const float y = a / l_star[r];
-    if (g.q_bf16)
-      static_cast<__nv_bfloat16*>(out)[qbase + i] = __float2bfloat16_rn(y);
-    else
-      static_cast<float*>(out)[qbase + i] = y;
+    for (int s = 0; s < split; ++s)
+      a += expf(__ldcg(part.m + s * nrows + prow + r) - m_star[r]) *
+           __ldcg(part.acc + (s * nrows + prow) * D + i);
+    store_out(out, qbase + i, a / fmaxf(ls_star[r], 1e-30f), g.q_bf16);
   }
-}
-
-// grid (row tiles, kv_split, B * Hkv): one partition per block
-__global__ void __launch_bounds__(THREADS)
-paged_attention_split_kernel(Geometry g, float* acc_o, float* m_o,
-                             float* l_o) {
-  const int bh = blockIdx.z;
-  walk(g, bh / g.Hkv, bh % g.Hkv, blockIdx.x * g.rt, blockIdx.y, acc_o, m_o,
-       l_o);
-}
-
-// out = sum_s alpha_s acc_s / max(sum_s alpha_s l_s, 1e-30),
-// alpha_s = exp(m_s - max_s m_s): the combine_splits formula
-__global__ void combine_splits_kernel(const float* __restrict__ acc,
-                                      const float* __restrict__ m,
-                                      const float* __restrict__ l,
-                                      void* __restrict__ out, int split,
-                                      int nrows, int D, int out_bf16) {
-  const size_t n = (size_t)nrows * D;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t row = i / D;
-    float m_star = m[row];
-    for (int s = 1; s < split; ++s) m_star = fmaxf(m_star, m[s * (size_t)nrows + row]);
-    float l_star = 0.f, a_star = 0.f;
-    for (int s = 0; s < split; ++s) {
-      const float alpha = expf(m[s * (size_t)nrows + row] - m_star);
-      l_star += alpha * l[s * (size_t)nrows + row];
-      a_star += alpha * acc[s * n + i];
-    }
-    const float y = a_star / fmaxf(l_star, 1e-30f);
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(y);
-    else
-      static_cast<float*>(out)[i] = y;
-  }
-}
-
-Geometry make_geometry(const void* q, const void* k, const void* v,
-                       const void* bt, const void* qpos, int B, int Hkv,
-                       int rows, int D, int S, int ps, int P, int NP, int t,
-                       int split, float scale, int q_bf16) {
-  Geometry g;
-  g.q = q;
-  g.k_pages = static_cast<const float*>(k);
-  g.v_pages = static_cast<const float*>(v);
-  g.bt = static_cast<const int*>(bt);
-  g.qpos = static_cast<const int*>(qpos);
-  g.B = B; g.Hkv = Hkv; g.rows = rows; g.D = D; g.S = S; g.ps = ps;
-  g.P = P; g.NP = NP; g.t = t;
-  const int tiles = (NP + t - 1) / t;
-  g.nt = (tiles + split - 1) / split;
-  g.rt = rows <= 8 ? 8 : 16;
-  g.scale = scale;
-  g.q_bf16 = q_bf16;
-  return g;
+  if (threadIdx.x == 0) part.tickets[tile] = 0u;
 }
 
 template <typename Kernel>
@@ -596,61 +448,45 @@ extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The unsplit kernel takes D % 4 == 0 and D <= 256 (the wrapper checks).
-extern "C" int paged_attention_unsplit_launch(
+// D % 4 == 0 and D <= 256 (the wrappers check).  split == 1 writes the
+// output directly and takes no scratch (acc, m, l, tickets may be null);
+// split > 1 needs acc (split, B, Hkv, rows, D), m and l (split, B, Hkv,
+// rows) f32 and tickets (B * Hkv * row tiles, zero; left zero).  span:
+// table entries per partition.
+extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* bt,
-    const void* qpos, void* out, int B, int Hkv, int rows, int D, int S,
-    int ps, int P, int NP, float scale, int q_bf16, void* stream) {
-  if (D % 4 != 0 || D < 4 || D > 256 || rows < 1 || ps < 1)
+    const void* qpos, void* out, void* acc, void* m, void* l, void* tickets,
+    int B, int Hkv, int rows, int D, int S, int ps, int P, int NP, int span,
+    int split, float scale, int q_bf16, void* stream) {
+  if (D % 4 != 0 || D < 4 || D > 256 || rows < 1 || ps < 1 || split < 1 ||
+      span < 1 || (split > 1 && (!acc || !m || !l || !tickets)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry g = make_geometry(q, k_pages, v_pages, bt, qpos, B, Hkv,
-                                   rows, D, S, ps, P, NP, 1, 1, scale,
-                                   q_bf16);
-  const size_t bytes = unsplit_smem_floats(D, ps) * sizeof(float);
-  const dim3 grid((rows + URT - 1) / URT, 1, B * Hkv);
+  Geometry g;
+  g.q = q;
+  g.k_pages = static_cast<const float*>(k_pages);
+  g.v_pages = static_cast<const float*>(v_pages);
+  g.bt = static_cast<const int*>(bt);
+  g.qpos = static_cast<const int*>(qpos);
+  g.B = B; g.Hkv = Hkv; g.rows = rows; g.D = D; g.S = S; g.ps = ps;
+  g.P = P; g.NP = NP; g.span = span;
+  g.scale = scale;
+  g.q_bf16 = q_bf16;
+  const Partials part = {static_cast<float*>(acc), static_cast<float*>(m),
+                         static_cast<float*>(l),
+                         static_cast<unsigned*>(tickets)};
+  const size_t bytes = smem_floats(D, ps) * sizeof(float);
+  const dim3 grid((rows + RT - 1) / RT, split, B * Hkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D <= 128) {
-    err = prepare(paged_attention_unsplit_kernel<1>, bytes);
+    err = prepare(paged_attention_kernel<1>, bytes);
     if (err == cudaSuccess)
-      paged_attention_unsplit_kernel<1><<<grid, THREADS, bytes, s>>>(g, out);
+      paged_attention_kernel<1><<<grid, THREADS, bytes, s>>>(g, out, part);
   } else {
-    err = prepare(paged_attention_unsplit_kernel<2>, bytes);
+    err = prepare(paged_attention_kernel<2>, bytes);
     if (err == cudaSuccess)
-      paged_attention_unsplit_kernel<2><<<grid, THREADS, bytes, s>>>(g, out);
+      paged_attention_kernel<2><<<grid, THREADS, bytes, s>>>(g, out, part);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int paged_attention_split_launch(
-    const void* q, const void* k_pages, const void* v_pages, const void* bt,
-    const void* qpos, void* acc_o, void* m_o, void* l_o, int B, int Hkv,
-    int rows, int D, int S, int ps, int P, int NP, int t, int split,
-    float scale, int q_bf16, void* stream) {
-  const Geometry g = make_geometry(q, k_pages, v_pages, bt, qpos, B, Hkv,
-                                   rows, D, S, ps, P, NP, t, split, scale,
-                                   q_bf16);
-  const size_t bytes = smem_floats(g.rt, D, ps, t) * sizeof(float);
-  cudaError_t err = prepare(paged_attention_split_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((rows + g.rt - 1) / g.rt, split, B * Hkv);
-  paged_attention_split_kernel<<<grid, THREADS, bytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      g, static_cast<float*>(acc_o), static_cast<float*>(m_o),
-      static_cast<float*>(l_o));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int combine_splits_launch(const void* acc, const void* m,
-                                     const void* l, void* out, int split,
-                                     int nrows, int D, int out_bf16,
-                                     void* stream) {
-  const size_t n = (size_t)nrows * D;
-  const int blocks = (int)((n + THREADS - 1) / THREADS);
-  combine_splits_kernel<<<blocks > 0 ? blocks : 1, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(acc), static_cast<const float*>(m),
-      static_cast<const float*>(l), out, split, nrows, D, out_bf16);
   return static_cast<int>(cudaGetLastError());
 }

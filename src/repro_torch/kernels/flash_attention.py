@@ -7,13 +7,13 @@ Port of ``repro.kernels.flash_attention``:
   cache-free forward (the whisper encoder, ``lm.forward`` without a
   cache); Hopper kernel ``csrc/flash_attention.cu``, plain version
   :func:`repro_torch.kernels.ref.flash_attention_plain`;
-* the paged kernels over a block-table-indexed KV page pool: the
-  one-page-per-step kernel (TPU ``_paged_attention_unsplit``) and the
-  split-KV flash-decoding kernel with its log-sum-exp combine (TPU
+* paged attention over a block-table-indexed KV page pool: the unsplit
+  route (TPU ``_paged_attention_unsplit``) and the split-KV
+  flash-decoding route with its log-sum-exp combine (TPU
   ``paged_attention_pallas`` + ``combine_splits``), with the pure-Python
   knob resolvers, which must pick exactly the reference's
-  ``(pages_per_step, kv_split)``.  Hopper kernels in
-  ``csrc/paged_attention.cu``; plain versions
+  ``(pages_per_step, kv_split)``.  One Hopper kernel serves both routes
+  (``csrc/paged_attention.cu``, one launch each); plain versions
   :func:`repro_torch.kernels.ref.paged_attention_ref` (unsplit) and
   :func:`~repro_torch.kernels.ref.paged_attention_split_ref` (split).
 
@@ -215,71 +215,88 @@ def _scale(softmax_scale, d) -> float:
             else float(1.0 / np.sqrt(d)))
 
 
-def paged_attention_unsplit(q, k_pages, v_pages, block_tables, qpos, *,
-                            softmax_scale: Optional[float] = None):
-    """The whole table in one launch (knobs ``(1, 1)``): each block's
-    warps take its pages in turn and merge at the end.  The kernel takes
-    head dims that are multiples of 4 up to 256."""
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, qpos,
-                                   softmax_scale=softmax_scale)
+#: per device: the split route's tickets, one per (batch, KV head, 8-row
+#: tile).  The kernel leaves them zeroed after every launch, so they are
+#: allocated (zeroed) once and grown when a larger grid needs them.
+_TICKETS: dict = {}
+_ROW_TILE = 8
+
+
+def _tickets(dev, n: int) -> torch.Tensor:
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < n:
+        t = _TICKETS[dev] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return t
+
+
+def _launch_paged(q, k_pages, v_pages, block_tables, qpos, softmax_scale,
+                  what: str, kv_split: int, pages_per_step: int):
+    """One launch of the paged kernel over the reference's partitions:
+    ``kv_split`` of ``nt`` tiles of ``pages_per_step`` entries, clamped
+    to the table (one partition: normalised in place, no scratch)."""
     q = q.contiguous()
     b, hq, s, d, p_, hkv, ps, np_ = _check(q, k_pages, v_pages,
                                            block_tables, qpos)
     if d % 4 or d > MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention_unsplit: head dim {d} is not a "
-                         f"multiple of 4 up to {MAX_HEAD_DIM}")
+        raise ValueError(f"{what}: head dim {d} is not a multiple of 4 up "
+                         f"to {MAX_HEAD_DIM}")
+    t = max(1, min(int(pages_per_step), np_))
+    tiles = -(-np_ // t)
+    split = max(1, min(int(kv_split), tiles))
+    span = max(1, -(-tiles // split) * t)       # table entries a partition
+    rows = hq // hkv * s
     out = torch.empty_like(q)
+    scratch = [None] * 4
+    if split > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        acc = torch.empty((split, b, hkv, rows, d), **f32)
+        m = torch.empty((split, b, hkv, rows), **f32)
+        l = torch.empty((split, b, hkv, rows), **f32)
+        tickets = _tickets(q.device, b * hkv * -(-rows // _ROW_TILE))
+        scratch = [x.data_ptr() for x in (acc, m, l, tickets)]
     lib = _cuda.library("paged_attention")
-    err = lib.paged_attention_unsplit_launch(
+    err = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(), b, hkv,
-        hq // hkv * s, d, s, ps, p_, np_, _scale(softmax_scale, d),
-        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
-    _cuda.check(lib, err, "paged_attention_unsplit")
-    _cuda.LAUNCHES["paged_attention_unsplit"] += 1
+        block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(), *scratch,
+        b, hkv, rows, d, s, ps, p_, np_, span, split,
+        _scale(softmax_scale, d), int(q.dtype == torch.bfloat16),
+        _cuda.stream_of(q))
+    _cuda.check(lib, err, what)
+    _cuda.LAUNCHES[what] += 1
     return out
+
+
+def paged_attention_unsplit(q, k_pages, v_pages, block_tables, qpos, *,
+                            softmax_scale: Optional[float] = None):
+    """The whole table in one partition (knobs ``(1, 1)``): each block's
+    warps take its pages in turn, merge and normalise.  The kernel takes
+    head dims that are multiples of 4 up to 256."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, qpos,
+                                   softmax_scale=softmax_scale)
+    return _launch_paged(q, k_pages, v_pages, block_tables, qpos,
+                         softmax_scale, "paged_attention_unsplit", 1, 1)
 
 
 def paged_attention_split(q, k_pages, v_pages, block_tables, qpos, *,
                           softmax_scale: Optional[float] = None,
                           kv_split: int = 1, pages_per_step: int = 1):
-    """Split-KV flash decoding: partition kernel, then the combine kernel.
+    """Split-KV flash decoding in one launch: the reference's ``kv_split``
+    partitions of ``nt`` tiles of ``pages_per_step`` entries, each walked
+    by its own block; the last block of each row tile combines them.
 
     ``kv_split``/``pages_per_step`` are used as given (clamped to the
-    table); :func:`paged_attention` resolves auto values first.
+    table); :func:`paged_attention` resolves auto values first.  Head
+    dims as :func:`paged_attention_unsplit`.
     """
     if q.device.type == "cpu":
         return paged_attention_split_ref(
             q, k_pages, v_pages, block_tables, qpos,
             softmax_scale=softmax_scale, kv_split=kv_split,
             pages_per_step=pages_per_step)
-    q = q.contiguous()
-    b, hq, s, d, p_, hkv, ps, np_ = _check(q, k_pages, v_pages,
-                                           block_tables, qpos)
-    t = max(1, min(int(pages_per_step), np_))
-    split = max(1, min(int(kv_split), -(-np_ // t)))
-    rows = hq // hkv * s
-    f32 = dict(dtype=torch.float32, device=q.device)
-    acc = torch.empty((split, b, hkv, rows, d), **f32)
-    m = torch.empty((split, b, hkv, rows), **f32)
-    l = torch.empty((split, b, hkv, rows), **f32)
-    out = torch.empty_like(q)
-    stream = _cuda.stream_of(q)
-    lib = _cuda.library("paged_attention")
-    err = lib.paged_attention_split_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), qpos.data_ptr(), acc.data_ptr(),
-        m.data_ptr(), l.data_ptr(), b, hkv, rows, d, s, ps, p_, np_, t,
-        split, _scale(softmax_scale, d), int(q.dtype == torch.bfloat16),
-        stream)
-    _cuda.check(lib, err, "paged_attention_split")
-    err = lib.combine_splits_launch(
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(), split,
-        b * hkv * rows, d, int(q.dtype == torch.bfloat16), stream)
-    _cuda.check(lib, err, "combine_splits")
-    _cuda.LAUNCHES["paged_attention_split"] += 1
-    return out
+    return _launch_paged(q, k_pages, v_pages, block_tables, qpos,
+                         softmax_scale, "paged_attention_split", kv_split,
+                         pages_per_step)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, qpos, *,

@@ -24,8 +24,9 @@ __all__ = ["qmatmul", "qmatmul_plain", "MAX_TABLE"]
 
 #: longest activation table the kernel keeps in shared memory
 MAX_TABLE = 8192
-#: the kernel's output tile (columns) and K tile (bytes)
-_BN, _BK = 64, 64
+#: the kernel's output tile (columns) and K stage (bytes): decode (M <= 16)
+#: and the 128-row tiling
+_BN, _BK_DECODE, _BK = 128, 128, 64
 
 #: per device: (int32 split-K workspace, tile tickets).  The kernel
 #: leaves both buffers zeroed after every launch, so they are allocated
@@ -34,14 +35,28 @@ _SPLITK: dict = {}
 
 
 def _splitk_plan(m: int, n: int, k: int, sms: int) -> int:
-    """How many blocks share one output tile's K range: enough to put ~2
-    blocks on every SM when the tile grid alone cannot (decode's N=2048
-    projections give 32 tiles), keeping >= 2 K tiles per block."""
-    bm = 16 if m <= 16 else 64
-    tiles = -(-n // _BN) * -(-m // bm)
-    if tiles >= sms:
+    """How many blocks share one output tile's K range (measured on the
+    H100, PERF.md section 6).
+
+    Decode (M <= 16, bound by the weight stream and, for the small
+    projections, by latency): ~1 block per SM when fewer tiles than half
+    the SMs exist, down to one K stage per block; a K of <= 4 stages is
+    not split.  M > 16 (128 x 128 tiles, whose 16K int32 atomics per
+    block cost more than a short K saves): only a long K (>= 128 stages)
+    on fewer tiles than half the SMs, ~1 block per SM with >= 32 stages
+    each.
+    """
+    tiles = -(-n // _BN)
+    if m <= 16:
+        stages = -(-k // _BK_DECODE)
+        if 2 * tiles >= sms or stages <= 4:
+            return 1
+        return max(1, min(-(-sms // tiles), stages))
+    tiles *= -(-m // 128)
+    stages = -(-k // _BK)
+    if 2 * tiles >= sms or stages < 128:
         return 1
-    return max(1, min(-(-2 * sms // tiles), -(-k // _BK) // 2))
+    return max(1, min(-(-sms // tiles), stages // 32))
 
 
 def _workspace(dev, m: int, n: int):

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..core.device import resolve_device
 from ..core.precision import PrecisionPolicy
 from ..core.qtypes import FixedPointType
 from ..core.quantize import ptq_params
@@ -72,22 +73,6 @@ from .paging import PageAllocator
 
 __all__ = ["Engine", "resolve_device", "quantize_for_serving",
            "prepare_params", "build_ctx", "main"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names a device; never a silent CPU run."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port serves on the GPU; pass "
-                "device='cpu' (CLI: --device cpu) to run the plain kernel "
-                "versions on the CPU")
-        return torch.device("cuda")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           f"available")
-    return device
 
 
 def _refuse_encdec(cfg) -> None:

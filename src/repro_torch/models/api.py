@@ -7,6 +7,7 @@ from types import ModuleType
 
 import torch
 
+from ..core.device import resolve_device
 from . import encdec, lm
 
 __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
@@ -43,20 +44,22 @@ def decode_fn(params, tokens, cache, pos, cfg, ctx):
 
 
 def init_cache_fn(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-                  device="cpu"):
-    """Family-dispatched dense serving cache."""
-    return get_family(cfg).init_cache(cfg, batch, max_len, dtype, device)
+                  device=None):
+    """Family-dispatched dense serving cache, on ``device`` (None: the GPU,
+    :func:`~repro_torch.core.device.resolve_device`)."""
+    return get_family(cfg).init_cache(cfg, batch, max_len, dtype,
+                                      resolve_device(device))
 
 
 def init_paged_cache_fn(cfg, batch: int, num_pages: int, page_size: int,
-                        table_width: int, dtype=torch.float32, device="cpu"):
+                        table_width: int, dtype=torch.float32, device=None):
     fam = get_family(cfg)
     if not hasattr(fam, "init_paged_cache"):
         raise NotImplementedError(
             f"family {cfg.family!r} has no paged serving cache; serve it "
             f"with a dense cache (paged=False)")
     return fam.init_paged_cache(cfg, batch, num_pages, page_size,
-                                            table_width, dtype, device)
+                                table_width, dtype, resolve_device(device))
 
 
 def set_block_table(cache, bt: torch.Tensor):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import resolve_device
 from ..nn.attention import gqa_apply, gqa_cache_spec, gqa_init, gqa_project_kv
 from ..nn.blocks import (dense_block_apply, dense_block_init, layer_slice,
                          mlp_apply, mlp_init, norm_apply, norm_init,
@@ -62,9 +63,11 @@ def _dec_block_apply(p, x, enc, cfg, ctx, *, cache=None, cache_pos=None,
     return x + m, new_c
 
 
-def init(gen: torch.Generator, cfg, *, dtype=torch.float32, device="cpu"):
+def init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
     """Random parameters from ``gen`` with the reference's distributions
-    (not its values: JAX's and torch's generators differ)."""
+    (not its values: JAX's and torch's generators differ).  ``device``
+    None is the GPU (:func:`resolve_device`)."""
+    device = resolve_device(device)
     pos = torch.randn((cfg.max_position, cfg.d_model), generator=gen,
                       dtype=torch.float32, device=device) * 0.01
     return {
@@ -130,15 +133,17 @@ def forward(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
-               device="cpu"):
+               device=None):
     """Dense self-attention rows per decoder layer, and cross K/V buffers
     of ``min(enc_len_cap, max_len)`` rows (the reference's shapes;
-    :func:`prefill` replaces them).  Every leaf is (L, B, Hkv, rows, Dh)."""
+    :func:`prefill` replaces them).  Every leaf is (L, B, Hkv, rows, Dh).
+    ``device`` None is the GPU."""
     if dtype == torch.int8:
         raise NotImplementedError(
             "an int8 KV cache for the encdec family (whisper) is refused: "
             "the reference casts float cross K/V to int8 without scales "
             "(ROADMAP.md section 3); serve whisper on a float cache")
+    device = resolve_device(device)
     dims = cfg.attn_dims()
     enc_len = min(cfg.enc_len_cap, max_len)
 

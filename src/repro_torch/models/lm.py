@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..core.device import resolve_device
 from ..nn.attention import gqa_cache_spec, gqa_paged_cache_spec
 from ..nn.blocks import (dense_block_apply, dense_block_init, norm_apply,
                          norm_init, scan_apply, stack_init)
@@ -35,11 +36,13 @@ def _check_dense(cfg) -> None:
             f"(ROADMAP.md queue 1)")
 
 
-def init(gen: torch.Generator, cfg, *, dtype=torch.float32, device="cpu"):
+def init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
     """Random parameters from ``gen``, with the reference's distributions
     (normal * fan_in**-0.5 for matmul weights and the embedding, ones for
-    norm scales) -- not its values: JAX's and torch's generators differ."""
+    norm scales) -- not its values: JAX's and torch's generators differ.
+    ``device`` None is the GPU (:func:`resolve_device`)."""
     _check_dense(cfg)
+    device = resolve_device(device)
     return {"embed": embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dtype,
                                     device=device),
             "final_norm": norm_init(cfg, device=device),
@@ -73,22 +76,23 @@ def _stack_layers(tree, n: int):
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cpu"):
+               device=None):
     """Per-layer dense KV rows (stacked over L); ``torch.int8`` adds the
-    bf16 scale rows."""
+    bf16 scale rows.  ``device`` None is the GPU."""
     _check_dense(cfg)
     return {"dense": _stack_layers(gqa_cache_spec(
-        cfg.attn_dims(), batch, max_len, dtype, device), cfg.n_layers)}
+        cfg.attn_dims(), batch, max_len, dtype, resolve_device(device)),
+        cfg.n_layers)}
 
 
 def init_paged_cache(cfg, batch: int, num_pages: int, page_size: int,
-                     table_width: int, dtype=torch.float32, device="cpu"):
+                     table_width: int, dtype=torch.float32, device=None):
     """Per-layer KV page pools + per-layer block tables (stacked over L);
-    ``torch.int8`` adds the bf16 scale pages."""
+    ``torch.int8`` adds the bf16 scale pages.  ``device`` None is the GPU."""
     _check_dense(cfg)
     return {"dense": _stack_layers(gqa_paged_cache_spec(
         cfg.attn_dims(), batch, num_pages, page_size, table_width, dtype,
-        device), cfg.n_layers)}
+        resolve_device(device)), cfg.n_layers)}
 
 
 def prefill(params, tokens: torch.Tensor, cache, cfg,

@@ -410,3 +410,155 @@ def test_flash_attention_kernel_refuses(card):
         flash_attention(y, y.bfloat16(), y)
     with pytest.raises(ValueError, match="Hq % Hkv"):
         flash_attention(torch.randn((1, 3, 4, 64), device="cuda"), y, y)
+
+
+# -- the tensor-core qmatmul at its tilings' edges ---------------------------
+# M: decode's one and two n8 token tiles (1, 8 / 15, 16), the first 128-row
+# tile (17, 127) and a ragged second one (129); K: one mma step, a K that
+# is not a multiple of 16 (byte-staged rows), gemma's 2048 and 16384; N: one
+# n8 tile, a ragged 12, whisper/gemma's 256 and an odd 2049 (byte-staged B)
+QMM_M = [1, 8, 15, 16, 17, 127, 129]
+QMM_K = [32, 36, 2048, 16384]
+QMM_N = [8, 12, 256, 2049]
+
+
+def _qmm_operands(card, m, k, n):
+    a = torch.randint(-128, 128, (m, k), generator=card, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=card, device="cuda",
+                      dtype=torch.int8)
+    sa = (torch.rand((m, 1), generator=card, device="cuda") + 0.1) * 1e-3
+    sb = (torch.rand((1, n), generator=card, device="cuda") + 0.1) * 1e-3
+    return a, b, sa, sb
+
+
+@pytest.mark.parametrize("n", QMM_N)
+@pytest.mark.parametrize("k", QMM_K)
+@pytest.mark.parametrize("m", QMM_M)
+def test_qmatmul_tiling_edges_bitwise(card, m, k, n):
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    a, b, sa, sb = _qmm_operands(card, m, k, n)
+    bias = torch.randn((n,), generator=card, device="cuda")
+    dt = torch.bfloat16 if (m + k + n) % 2 else torch.float32
+    before = _cuda.LAUNCHES["qmatmul"]
+    got = qmatmul(a, b, sa, sb, bias if m % 2 else None, dt)
+    want = qmatmul_plain(a, b, sa, sb, bias if m % 2 else None, dt)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["qmatmul"] == before + 1
+    assert got.dtype == dt and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [8, 16, 128])
+@pytest.mark.parametrize("value", [-128, 127])
+def test_qmatmul_extreme_operands_exact(card, m, value):
+    """All -128 (or all 127) at K 16384: every sum is 128^2 (127^2) x
+    16384, exact in int32; an f32 output of scales 1 shows it."""
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    k, n = 16384, 256
+    a = torch.full((m, k), value, dtype=torch.int8, device="cuda")
+    b = torch.full((k, n), value, dtype=torch.int8, device="cuda")
+    got = qmatmul(a, b, 1.0, 1.0)
+    assert torch.equal(got, qmatmul_plain(a, b, 1.0, 1.0))
+    assert (got == float(value * value * k)).all()
+
+
+@pytest.mark.parametrize("mkn", [(8, 2048, 256), (8, 16384, 2048),
+                                 (16, 2048, 2048), (128, 16384, 2048)])
+def test_qmatmul_split_k_twice_leaves_workspace_zeroed(card, mkn):
+    """Split-K shapes (decode's N 256 and 2048, the down projection, a
+    128-row chunk of the down projection) run twice in a row: the second
+    launch finds the workspace and tickets zeroed, so both are bitwise the
+    plain version."""
+    from repro_torch.kernels import qmatmul as qmod
+    m, k, n = mkn
+    assert qmod._splitk_plan(m, n, k, torch.cuda.get_device_properties(
+        0).multi_processor_count) > 1
+    a, b, sa, sb = _qmm_operands(card, m, k, n)
+    want = qmod.qmatmul_plain(a, b, sa, sb, out_dtype=torch.bfloat16)
+    for _ in range(2):
+        assert torch.equal(qmod.qmatmul(a, b, sa, sb,
+                                        out_dtype=torch.bfloat16), want)
+    ws, tickets = qmod._SPLITK[a.device]
+    torch.cuda.synchronize()
+    assert not ws.any() and not tickets.any()
+
+
+@pytest.mark.parametrize("m", [8, 128])
+def test_qmatmul_unaligned_view_of_a(card, m):
+    """A view of A one byte into its buffer is not 16-byte aligned: its
+    rows stage with byte loads, with the same result."""
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    k, n = 2048, 256
+    a, b, sa, sb = _qmm_operands(card, m, k, n)
+    flat = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")
+    view = flat[1:].view(m, k)
+    view.copy_(a)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    got = qmatmul(view, b, sa, sb)
+    assert torch.equal(got, qmatmul_plain(a, b, sa, sb))
+    assert torch.equal(got, qmatmul(a, b, sa, sb))
+
+
+# -- the split route of the paged kernel -------------------------------------
+@pytest.mark.parametrize("split", [2, 4, 8])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("visible_pages", [1, 5, 9, 257])
+def test_paged_split_kernel_pages(card, visible_pages, q_dtype, split):
+    """The split route against its plain version at 1, 5, 9 and 257
+    visible pages (a table two entries wider), so some partitions see no
+    page; the dead lane on the poisoned trash page stays finite, NaN in
+    every unwritten row never leaks, and a second launch (tickets left
+    zeroed) is identical."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import paged_attention_split
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    q, kp, vp, bt, qpos = _unsplit_case(card, visible_pages,
+                                        getattr(torch, q_dtype))
+    before = _cuda.LAUNCHES["paged_attention_split"]
+    got = paged_attention_split(q, kp, vp, bt, qpos, kv_split=split)
+    want = paged_attention_split_ref(q, kp, vp, bt, qpos, kv_split=split)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["paged_attention_split"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _unsplit_close(got[:2], want[:2])
+    assert torch.isfinite(got[2].float()).all()
+    kp2, vp2 = kp.clone(), vp.clone()
+    ps = kp.shape[2]
+    for lane in range(2):
+        for t in range(int(qpos[lane]) + 1, bt.shape[1] * ps):
+            pg = int(bt[lane, t // ps])
+            kp2[pg, :, t % ps] = float("nan")
+            vp2[pg, :, t % ps] = float("nan")
+    again = paged_attention_split(q, kp2, vp2, bt, qpos, kv_split=split)
+    assert torch.equal(again[:2], got[:2])
+    assert torch.equal(paged_attention_split(q, kp, vp, bt, qpos,
+                                             kv_split=split), got)
+
+
+@pytest.mark.parametrize("knobs", [(2, 1), (4, 2), (8, 8)])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_paged_split_kernel_prefill_chunk(card, knobs, q_dtype):
+    """A 16-row prefill chunk (128 folded rows, 16 row tiles, each with
+    its own tickets) on the split route, tiles of 1, 2 and 8 pages."""
+    from repro_torch.kernels.flash_attention import paged_attention_split
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    split, tile = knobs
+    q, kp, vp, bt, qpos = _unsplit_case(card, 9, getattr(torch, q_dtype),
+                                        s=16)
+    kw = dict(kv_split=split, pages_per_step=tile)
+    got = paged_attention_split(q, kp, vp, bt, qpos, **kw)
+    _unsplit_close(got[:2],
+                   paged_attention_split_ref(q, kp, vp, bt, qpos, **kw)[:2])
+    assert torch.isfinite(got[2].float()).all()
+
+
+def test_paged_split_kernel_refuses(card):
+    from repro_torch.kernels.flash_attention import paged_attention_split
+    q = torch.randn((1, 2, 1, 30), device="cuda")
+    kp = torch.randn((3, 1, 4, 30), device="cuda")
+    bt = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    qpos = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention_split(q, kp, kp, bt, qpos, kv_split=2)

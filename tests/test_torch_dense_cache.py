@@ -102,7 +102,7 @@ def test_invalidate_zeroes_one_slot(dtype):
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     jc = jlm.init_cache(cfg, 3, 8, jdt)
     jc = jax.tree_util.tree_map(lambda a: jnp.ones_like(a), jc)
-    tc = tlm.init_cache(cfg, 3, 8, tdt)
+    tc = tlm.init_cache(cfg, 3, 8, tdt, device="cpu")
     for leaf in tc["dense"].values():
         leaf.fill_(1)
     want = japi.invalidate_fn(jc, jnp.int32(1), cfg)
@@ -110,7 +110,7 @@ def test_invalidate_zeroes_one_slot(dtype):
     assert set(got["dense"]) == set(want["dense"])
     for name, leaf in got["dense"].items():
         _assert_bitwise(leaf, want["dense"][name])
-    paged = tlm.init_paged_cache(cfg, 3, 4, 4, 2, tdt)
+    paged = tlm.init_paged_cache(cfg, 3, 4, 4, 2, tdt, device="cpu")
     before = {k: v.clone() for k, v in paged["dense"]["pages"].items()}
     tapi.invalidate_fn(paged, 1, cfg)
     for k, v in paged["dense"]["pages"].items():
@@ -120,7 +120,8 @@ def test_invalidate_zeroes_one_slot(dtype):
 # -- model parity on the dense cache ----------------------------------------------
 def _dense_caches(cfg, kv_bits):
     jc = jlm.init_cache(cfg, B, ROWS, jnp.int8 if kv_bits else jnp.float32)
-    tc = tlm.init_cache(cfg, B, ROWS, torch.int8 if kv_bits else torch.float32)
+    tc = tlm.init_cache(cfg, B, ROWS, torch.int8 if kv_bits else torch.float32,
+                        device="cpu")
     return jc, tc
 
 

@@ -191,7 +191,7 @@ def test_prefill_and_decode_steps_match_reference(mode):
     jctx, tctx = contexts(mode)
     jb, tb = _batch(cfg)
     jcache = jenc.init_cache(jcfg, B, MAX_LEN, jnp.float32)
-    tcache = tenc.init_cache(cfg, B, MAX_LEN, torch.float32)
+    tcache = tenc.init_cache(cfg, B, MAX_LEN, torch.float32, device="cpu")
     assert tuple(tcache["cross_kv"]["k"].shape) == jcache["cross_kv"][0].shape
     jl, jcache = jenc.prefill(jp, jb, jcache, jcfg, jctx, full_logits=True)
     tl, tcache = tenc.prefill(tp, tb, tcache, cfg, tctx, full_logits=True)
@@ -248,7 +248,7 @@ def _streams_jax(cfg, ctx, params, batch):
 def _streams_torch(cfg, ctx, params, batch):
     prefill = tstep.build_prefill_step(cfg, ctx)
     loop = tstep.build_decode_loop(cfg, ctx, STEPS)
-    cache = tapi.init_cache_fn(cfg, B, MAX_LEN, torch.float32)
+    cache = tapi.init_cache_fn(cfg, B, MAX_LEN, torch.float32, device="cpu")
     logits, cache = prefill(params, batch, cache)
     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     pos = torch.full((B,), PLEN, dtype=torch.int32)
@@ -289,7 +289,7 @@ def test_flash_path_runs_once_per_encoder_layer(monkeypatch):
         return plain(*a, **kw)
 
     monkeypatch.setattr(tflash, "flash_attention_plain", counted)
-    cache = tenc.init_cache(cfg, B, MAX_LEN, torch.float32)
+    cache = tenc.init_cache(cfg, B, MAX_LEN, torch.float32, device="cpu")
     _, cache = tenc.prefill(tp, tb, cache, cfg, tctx)
     assert calls == [False] * cfg.enc_layers
     tenc.decode_step(tp, tb["tokens"][:, :1], cache,
@@ -330,6 +330,6 @@ def test_engine_and_cli_refuse_whisper(capsys):
 def test_int8_kv_cache_refused_for_encdec():
     cfg = get_config("whisper-base").smoke()
     with pytest.raises(NotImplementedError, match="int8"):
-        tenc.init_cache(cfg, 2, 16, torch.int8)
+        tenc.init_cache(cfg, 2, 16, torch.int8, device="cpu")
     with pytest.raises(NotImplementedError, match="paged"):
         tapi.init_paged_cache_fn(cfg, 2, 8, 4, 4)

@@ -52,7 +52,7 @@ def _caches(cfg, kv_bits=None):
     jc = {"dense": {"pages": jc["dense"]["pages"],
                     "block_table": jnp.broadcast_to(
                         jnp.asarray(bt), jc["dense"]["block_table"].shape)}}
-    tc = tlm.init_paged_cache(cfg, B, NUM_PAGES, PS, WIDTH, tdt)
+    tc = tlm.init_paged_cache(cfg, B, NUM_PAGES, PS, WIDTH, tdt, device="cpu")
     tc["dense"]["block_table"].copy_(torch.from_numpy(bt))
     return jc, tc
 

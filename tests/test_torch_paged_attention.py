@@ -247,57 +247,79 @@ def test_cost_constants_round_trip():
     assert tfa.get_cost_constants() == jfa.get_cost_constants()
 
 
-# -- the unsplit CUDA kernel's schedule, modelled in torch -----------------
-def _unsplit_schedule(q, kp, vp, bt, qpos, *, warps=8, rows_per_block=8):
-    """The unsplit kernel's schedule (csrc/paged_attention.cu) in f32: per
-    (batch, KV head, 8-row tile), the table entries up to the last visible
-    position dealt round-robin to ``warps`` warps; each warp runs its own
-    online softmax page by page (rows past the last visible position of
-    any row of the block never read, out-of-range page ids skipped, a p of
-    0 multiplies nothing); then the warps merge with ``combine_splits``."""
+# -- the CUDA kernel's schedule, modelled in torch --------------------------
+def _warp_schedule(q, kp, vp, bt, qpos, *, warps=8, rows_per_block=8,
+                   kv_split=1, pages_per_step=1):
+    """The paged kernel's schedule (csrc/paged_attention.cu) in f32: per
+    (batch, KV head, 8-row tile) and partition -- the reference's entries
+    ``[sp * nt * t, (sp + 1) * nt * t)`` -- the partition's entries up to
+    the last visible position dealt round-robin to ``warps`` warps; each
+    warp runs its own online softmax page by page (rows past the last
+    visible position of any row of the block never read, out-of-range
+    page ids skipped, a p of 0 multiplies nothing); the warps merge with
+    ``combine_splits`` into the partition's (acc, m, l), and the
+    partitions merge with ``combine_splits`` again.  One partition
+    (``kv_split=1``) is the unsplit route."""
     b, hq, s, d = q.shape
     n_pages, hkv, ps, _ = kp.shape
+    np_ = bt.shape[1]
+    t = max(1, min(pages_per_step, np_))
+    tiles = -(-np_ // t)
+    split = max(1, min(kv_split, tiles))
+    span = -(-tiles // split) * t
     qf = tref._fold(q, hkv).to(torch.float32) * float(1.0 / np.sqrt(d))
     rows = qf.shape[2]
     out = torch.zeros_like(qf)
     for bi in range(b):
         last = int(qpos[bi]) + s - 1
-        npages = min(bt.shape[1], last // ps + 1)
+        npages = min(np_, last // ps + 1)
         qp = int(qpos[bi]) + torch.arange(rows) % s
         for h in range(hkv):
             for r0 in range(0, rows, rows_per_block):
                 qt, qpt = qf[bi, h, r0:r0 + rows_per_block], \
                     qp[r0:r0 + rows_per_block, None]
-                states = []
-                for w in range(warps):
-                    m = torch.full((qt.shape[0], 1), -1e30)
-                    l = torch.zeros_like(m)
-                    acc = torch.zeros_like(qt)
-                    for e in range(w, npages, warps):
-                        pg = int(bt[bi, e])
-                        if not 0 <= pg < n_pages:
-                            continue
-                        nc = min(ps, last - e * ps + 1)
-                        kk = kp[pg, h, :nc].to(torch.float32)
-                        vv = vp[pg, h, :nc].to(torch.float32)
-                        vis = e * ps + torch.arange(nc)[None] <= qpt
-                        logits = torch.where(vis, qt @ kk.T, -1e30)
-                        m_new = torch.maximum(m, logits.amax(-1,
-                                                             keepdim=True))
-                        p = torch.where(vis, torch.exp(logits - m_new), 0.0)
-                        alpha = torch.exp(m - m_new)
-                        l = alpha * l + p.sum(-1, keepdim=True)
-                        pv = torch.where(p[..., None] != 0,
-                                         p[..., None] * vv[None], 0.0)
-                        acc = alpha * acc + pv.sum(1)
-                        m = m_new
-                    states.append((acc, m, l))
-                acc_s, m_s, l_s = (torch.stack(x) for x in zip(*states))
-                a, _, l_star = tref.combine_splits(acc_s, m_s, l_s)
+                parts = []
+                for sp in range(split):
+                    e1 = min(npages, (sp + 1) * span)
+                    states = []
+                    for w in range(warps):
+                        m = torch.full((qt.shape[0], 1), -1e30)
+                        l = torch.zeros_like(m)
+                        acc = torch.zeros_like(qt)
+                        for e in range(sp * span + w, e1, warps):
+                            pg = int(bt[bi, e])
+                            if not 0 <= pg < n_pages:
+                                continue
+                            nc = min(ps, last - e * ps + 1)
+                            kk = kp[pg, h, :nc].to(torch.float32)
+                            vv = vp[pg, h, :nc].to(torch.float32)
+                            vis = e * ps + torch.arange(nc)[None] <= qpt
+                            logits = torch.where(vis, qt @ kk.T, -1e30)
+                            m_new = torch.maximum(
+                                m, logits.amax(-1, keepdim=True))
+                            p = torch.where(vis, torch.exp(logits - m_new),
+                                            0.0)
+                            alpha = torch.exp(m - m_new)
+                            l = alpha * l + p.sum(-1, keepdim=True)
+                            pv = torch.where(p[..., None] != 0,
+                                             p[..., None] * vv[None], 0.0)
+                            acc = alpha * acc + pv.sum(1)
+                            m = m_new
+                        states.append((acc, m, l))
+                    parts.append(tref.combine_splits(
+                        *(torch.stack(x) for x in zip(*states))))
+                a, _, l_star = tref.combine_splits(
+                    *(torch.stack(x) for x in zip(*parts)))
                 out[bi, h, r0:r0 + rows_per_block] = \
                     a / torch.clamp_min(l_star, 1e-30)
     return out.reshape(b, hkv, hq // hkv, s, d).reshape(b, hq, s, d) \
         .to(q.dtype)
+
+
+def _unsplit_schedule(q, kp, vp, bt, qpos, *, warps=8, rows_per_block=8):
+    """The unsplit route: the whole table as one partition."""
+    return _warp_schedule(q, kp, vp, bt, qpos, warps=warps,
+                          rows_per_block=rows_per_block)
 
 
 def _schedule_vs_references(q, kp, vp, bt, qpos, **kw):
@@ -353,3 +375,83 @@ def test_unsplit_schedule_dead_lane_and_poisoned_rows():
         vp[bt[0, t // ps], :, t % ps] = np.nan
     nan_rows = _unsplit_schedule(*_t(q, kp, vp, bt, qpos)).numpy()
     np.testing.assert_array_equal(nan_rows[0], clean[0])
+
+
+# -- the split route: partitions walked by 8 warps each, then combined -----
+def _split_vs_references(q, kp, vp, bt, qpos, kv_split, pages_per_step):
+    knobs = dict(kv_split=kv_split, pages_per_step=pages_per_step)
+    got = _warp_schedule(*_t(q, kp, vp, bt, qpos), **knobs).numpy()
+    want = tref.paged_attention_split_ref(*_t(q, kp, vp, bt, qpos),
+                                          **knobs).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    pal = np.asarray(jfa.paged_attention_pallas(*_j(q, kp, vp, bt, qpos),
+                                                interpret=True, **knobs))
+    np.testing.assert_allclose(got, pal, **TOL)
+    return got
+
+
+# (b, hq, hkv, s, d, ps, num_pages, width, qpos): group 1 and 8, S 1 and
+# 16 (a prefill chunk: 128 folded rows, 16 row tiles at group 8), tables
+# of 36 entries, so 8 partitions of 1-8 tiles each; qpos from the start
+# of the table (later partitions see nothing) to its end
+SPLIT_GEOMS = [
+    (2, 2, 2, 1, 16, 4, 40, 36, [70, 141]),     # group 1, decode
+    (2, 8, 1, 1, 16, 4, 40, 36, [3, 130]),      # group 8 (MQA), decode
+    (2, 8, 1, 16, 16, 4, 40, 36, [0, 120]),     # group 8, prefill chunk
+    (2, 2, 2, 16, 16, 4, 40, 36, [50, 128]),    # group 1, S 16
+]
+
+
+@pytest.mark.parametrize("tile", [1, 2, 8])
+@pytest.mark.parametrize("split", [2, 4, 8])
+@pytest.mark.parametrize("geom", SPLIT_GEOMS,
+                         ids=lambda g: f"b{g[0]}h{g[1]}/{g[2]}s{g[3]}")
+def test_split_schedule_matches_reference_and_pallas(geom, split, tile):
+    b, hq, hkv, s, d, ps, npg, w, qpos = geom
+    q, kp, vp, bt = _case(b, hq, hkv, s, d, ps, npg, w,
+                          seed=sum(geom[:8]) + 10 * split + tile)
+    _split_vs_references(q, kp, vp, bt, np.asarray(qpos, np.int32), split,
+                         tile)
+
+
+def test_split_schedule_partition_without_a_page():
+    """qpos 5 at 4-row pages: two visible pages, both in partition 0 of
+    four (nine entries each); partitions 1-3 see nothing and weigh 0."""
+    q, kp, vp, bt = _case(2, 8, 1, 1, 16, 4, 40, 36, seed=31)
+    qpos = np.asarray([5, 140], np.int32)
+    got = _split_vs_references(q, kp, vp, bt, qpos, 4, 1)
+    unsplit = tref.paged_attention_ref(*_t(q, kp, vp, bt, qpos)).numpy()
+    np.testing.assert_allclose(got, unsplit, **TOL)
+
+
+def test_split_schedule_one_page_partitions():
+    """Eight partitions of one page each (table of 8), and a last
+    partition holding a single visible page of a longer table."""
+    q, kp, vp, bt = _case(2, 8, 1, 1, 16, 4, 12, 8, seed=32)
+    _split_vs_references(q, kp, vp, bt, np.asarray([31, 17], np.int32), 8, 1)
+    q, kp, vp, bt = _case(2, 4, 2, 1, 16, 4, 20, 9, seed=33)
+    _split_vs_references(q, kp, vp, bt, np.asarray([33, 32], np.int32), 2, 4)
+
+
+def test_split_schedule_dead_lane_and_poisoned_rows():
+    """The split route with a dead lane (all trash, qpos 0) on a poisoned
+    trash page and NaN in every row past the live lane's visible prefix:
+    the live lane is unmoved, the dead lane finite, both match Pallas."""
+    ps, width, npg = 4, 12, 19
+    trash = npg - 1
+    q, kp, vp, _ = _case(2, 8, 1, 1, 8, ps, npg, width, seed=34)
+    bt = np.stack([np.arange(width), np.full(width, trash)]).astype(np.int32)
+    qpos = np.asarray([25, 0], np.int32)
+    for split, tile in ((2, 1), (4, 2), (8, 1)):
+        kp_, vp_ = kp.copy(), vp.copy()
+        clean = _split_vs_references(q, kp_, vp_, bt, qpos, split, tile)
+        kp_[trash], vp_[trash] = 1e4, -1e4
+        poisoned = _split_vs_references(q, kp_, vp_, bt, qpos, split, tile)
+        np.testing.assert_array_equal(poisoned[0], clean[0])
+        assert np.isfinite(poisoned[1]).all()
+        for t in range(int(qpos[0]) + 1, width * ps):
+            kp_[bt[0, t // ps], :, t % ps] = np.nan
+            vp_[bt[0, t // ps], :, t % ps] = np.nan
+        nan_rows = _warp_schedule(*_t(q, kp_, vp_, bt, qpos), kv_split=split,
+                                  pages_per_step=tile).numpy()
+        np.testing.assert_array_equal(nan_rows[0], clean[0])
