@@ -10,8 +10,8 @@ Phases, one line each, any failure raises and the exit code is non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print ``ptxas`` usage, with
-   a summary of the tensor-core flash, paged (both routes) and tensor-core
-   qmatmul instances;
+   a summary of the tensor-core flash, paged (both routes), tensor-core
+   qmatmul, table and quantizer instances;
 2. print the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
 3. hold every kernel against its plain PyTorch version on the card at the
@@ -20,7 +20,11 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    12000 with and without a bias, all bitwise; paged attention at decode and prefill, unsplit
    and split, plus a ~4096-token decode, lut_activation on one layer's
    gate activations at decode and prefill with every indexing and the
-   gelu, silu and softmax-exp tables; flash_attention at the whisper
+   gelu, silu and softmax-exp tables; lut_gated_mul (the gated MLP's
+   table pass) on the same shapes, bitwise, beside the unfused chain it
+   replaces; quantize_rows at gemma-2b's decode and prefill rows and
+   whisper-base's 12000 encoder rows, bitwise with zero, half-way and NaN
+   rows; flash_attention at the whisper
    encoder's shape, gemma-2b's cache-free prefill, ragged Sq/Skv and the
    MLA width, bf16 and f32), with the kernel's, the plain version's and a
    library call's device time (median of cold-L2 launches, CUDA events)
@@ -31,15 +35,18 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    read just after, failing if a kernel of the path never launched:
    int8 weights on the paged f32 KV cache (16 requests at the auto knobs,
    then 8 at ``kv_split=1``); ``--lut --paged`` with bf16 weights (every
-   gated GELU through the lut_activation kernel, 18 launches per model
-   call); ``--quant int8 --lut --kv-bits 8`` on the dense cache (the
-   fused table epilogue, int8 KV rows, the table softmax).  Logits of one
+   gated GELU and its product with up through the lut_gated_mul kernel,
+   18 launches per model call, lut_activation none); ``--quant int8 --lut
+   --kv-bits 8`` on the dense cache (the fused table epilogue, int8 KV
+   rows, the table softmax); every int8 path launches one quantize_rows
+   per qmatmul.  Logits of one
    prefill chunk and 4 decode steps through the kernels are compared with
    the plain versions' on the int8 paged and the LUT paged configurations;
    then path 5: full-width whisper-base through the serving step builders
    (batch 8, 1500 encoder frames, prompt 16, 32 greedy tokens in blocks
    of 8, the f32 dense cache), with bf16 and with int8 weights: the
-   encoder runs the flash kernel, 6 launches per prefill, checked, and
+   encoder runs the flash kernel, 6 launches per prefill, checked (and
+   int8 one quantize_rows per qmatmul), and
    the logits are held against the plain versions' at path 5's own gates,
    which two planted faults (a causal encoder, zeroed cross K/V) must
    fail;
@@ -235,12 +242,11 @@ def check_lut(torch, timer, rows):
                     want = lut_activation_plain(x, spec)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
-                    # f32 exact: the same single-rounded operations; bf16
-                    # within one rounding of the output type at the largest
-                    # value
-                    tol = (want.float().abs().max().item() * 2.0 ** -8
-                           if dt == torch.bfloat16 else 0.0)
-                    if not (err <= tol and torch.isfinite(got).all().item()):
+                    # the same single-rounded operations, then one rounding
+                    # to the output type: bitwise in f32 and bf16
+                    tol = 0.0
+                    if not (torch.equal(got, want)
+                            and torch.isfinite(got).all().item()):
                         raise AssertionError(
                             f"lut_activation {fn} {indexing} {m}x16384 {dt}: "
                             f"max_abs_err {err} > tol {tol}")
@@ -264,6 +270,124 @@ def check_lut(torch, timer, rows):
                         f"library=none kernel/library={over_library(rows[-1])}"
                         f" (context: F.gelu tanh "
                         f"{gelu_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
+
+
+def check_lut_gated(torch, timer, rows):
+    """lut_gated_mul (the gated MLP's table pass) against its plain
+    version on one layer's gate and up activations, (tokens, d_ff) = (8,
+    16384) at decode and (128, 16384) for a prefill chunk, bf16 and f32,
+    every indexing, the gated GELU table (the main path's) and silu's gate
+    table (a step that is not a power of two): bitwise.  Context beside
+    the kernel: the unfused chain it replaces on the card (the
+    lut_activation kernel, then the two PyTorch products), timed alike."""
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels.lut_activation import (lut_activation,
+                                                    lut_gated_mul,
+                                                    lut_gated_mul_plain)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for fn, lo, hi in (("gelu_gate", -8.0, 8.0), ("silu_gate", -10.0, 10.0)):
+        for indexing in ("trunc", "nearest", "interp"):
+            spec = TableSpec(fn, 1024, lo, hi, None, indexing)
+            for m in (8, 128):
+                for dt in (torch.bfloat16, torch.float32):
+                    x = (torch.randn((m, 16384), generator=g, device="cuda")
+                         * 4).to(dt)
+                    up = (torch.randn((m, 16384), generator=g,
+                                      device="cuda") * 2).to(dt)
+                    got = lut_gated_mul(x, up, spec)
+                    want = lut_gated_mul_plain(x, up, spec)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    # the same single-rounded operations in the same order
+                    tol = 0.0
+                    if not (torch.equal(got, want)
+                            and torch.isfinite(got).all().item()):
+                        raise AssertionError(
+                            f"lut_gated_mul {fn} {indexing} {m}x16384 {dt}: "
+                            f"max_abs_err {err}, not bitwise")
+                    ms = timer(lambda: lut_gated_mul(x, up, spec))
+                    plain_ms = timer(lambda: lut_gated_mul_plain(x, up, spec),
+                                     reps=5)
+                    unfused_ms = timer(
+                        lambda: (x * lut_activation(x, spec)).to(dt) * up)
+                    nbytes = 3 * x.numel() * x.element_size() + 4 * spec.n
+                    # a gather or two and ~12 f32 operations per element
+                    bnd, by = bound_ms(nbytes, 12.0 * x.numel(),
+                                       F32_FLOP_PER_S)
+                    rows.append(dict(
+                        kernel="lut_gated_mul",
+                        case=f"{fn} {indexing} {m}x16384 {str(dt)[6:]}",
+                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                        library_ms=None, unfused_chain_ms=unfused_ms,
+                        bound_ms=bnd, bound_by=by))
+                    log(f"[check] lut_gated_mul {rows[-1]['case']}: "
+                        f"bitwise (max_abs_err={err:.3g}) kernel={ms:.4f}ms "
+                        f"plain={plain_ms:.4f}ms library=none "
+                        f"kernel/library={over_library(rows[-1])} (context: "
+                        f"unfused chain lut_activation + 2 products "
+                        f"{unfused_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
+
+
+def same_bits(torch, a, b) -> bool:
+    """f32 tensors equal bit for bit, NaN where the other has NaN (its
+    payload aside)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(torch.int32),
+                                b[~nan].view(torch.int32)))
+
+
+#: quantize_rows' cases: gemma-2b's decode rows (K 2048 for wq/wk/wv/up/
+#: gate, 16384 for down), a 128-row prefill chunk, whisper-base's encoder
+#: (8 x 1500 rows, K 512 and 2048)
+QUANT_CASES = [(8, 2048), (8, 16384), (128, 2048), (128, 16384),
+               (12000, 512), (12000, 2048)]
+
+
+def check_quantize_rows(torch, timer, rows):
+    """quantize_rows against its plain version (the eager chain the card
+    ran before: cast, abs, amax, clamp, divide, round, clamp, cast):
+    bitwise, bf16 at every case and f32 at decode, with a zero row, a row
+    of half-way values and a NaN row planted.  Context beside the kernel:
+    ``torch.amax(x.abs(), 1)``, a PyTorch reduction that reads the same
+    bytes (not the same function: no library call quantizes)."""
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.kernels.quantize_rows import (quantize_rows,
+                                                   quantize_rows_plain)
+    qt = FixedPointType(8, 4)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [(m, k, torch.bfloat16) for m, k in QUANT_CASES]
+    cases += [(8, 2048, torch.float32), (8, 16384, torch.float32)]
+    for m, k, dt in cases:
+        x = torch.randn((m, k), generator=g, device="cuda") * 3
+        x[0] = 0.0
+        x[1] = torch.randint(-126, 126, (k,), generator=g,
+                             device="cuda").float() + 0.5
+        x[1, 0] = 127.0                       # scale 1: x / s lands on k + 0.5
+        x[2, k // 3] = float("nan")
+        x = x.to(dt)
+        q, sc = quantize_rows(x, qt)
+        wq, ws = quantize_rows_plain(x, qt)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, wq) and same_bits(torch, sc, ws)):
+            bad = (q != wq).sum().item()
+            raise AssertionError(f"quantize_rows {m}x{k} {dt}: {bad} int8 "
+                                 f"values differ from the plain version")
+        ms = timer(lambda: quantize_rows(x, qt))
+        plain_ms = timer(lambda: quantize_rows_plain(x, qt), reps=5)
+        read_ms = timer(lambda: torch.amax(x.abs(), 1))
+        nbytes = m * k * x.element_size() + m * k + 4 * m
+        # |x|, max, one division, round, clamp per element
+        bnd, by = bound_ms(nbytes, 6.0 * m * k, F32_FLOP_PER_S)
+        rows.append(dict(kernel="quantize_rows",
+                         case=f"{m}x{k} {str(dt)[6:]}", max_abs_err=0.0,
+                         tol=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         amax_abs_ms=read_ms, bound_ms=bnd, bound_by=by))
+        log(f"[check] quantize_rows {rows[-1]['case']}: bitwise (zero, "
+            f"half-way and NaN rows) kernel={ms:.4f}ms plain={plain_ms:.4f}ms"
+            f" library=none kernel/library={over_library(rows[-1])} "
+            f"(context: torch.amax(x.abs(), 1) {read_ms:.4f}ms) "
+            f"bound={bnd:.5f}ms ({by})")
 
 
 def _attention_case(torch, g, b, s, tokens, dead_lane, width_tokens,
@@ -556,6 +680,14 @@ def run_path(torch, label, eng, prompts, gen_len, expect):
     return run, counts
 
 
+def one_quantizer_per_qmatmul(label, counts) -> None:
+    """Every int8 projection quantizes its activation in one launch."""
+    if counts["quantize_rows"] != counts["qmatmul"]:
+        raise AssertionError(f"{label}: quantize_rows launched "
+                             f"{counts['quantize_rows']} times for "
+                             f"{counts['qmatmul']} qmatmul launches")
+
+
 def serve_main_path(torch, rows_out, profile: bool):
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy
@@ -602,7 +734,10 @@ def serve_main_path(torch, rows_out, profile: bool):
              prompts[:batch], ("qmatmul", "paged_attention_unsplit"))):
         eng = Engine(cfg, int8, params, paged=True, **geometry, **knobs)
         engines[label] = eng
-        record(label, *run_path(torch, label, eng, reqs, gen_len, expect))
+        run, counts = run_path(torch, label, eng, reqs, gen_len,
+                               expect + ("quantize_rows",))
+        one_quantizer_per_qmatmul(label, counts)
+        record(label, run, counts)
     first_diff = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                        None)
                   for a, b in zip(runs["int8 paged, auto knobs"]["streams"],
@@ -617,13 +752,15 @@ def serve_main_path(torch, rows_out, profile: bool):
     lut8 = dataclasses.replace(int8, use_lut=True)
     eng = engines[label] = Engine(cfg, lut8, params, kv_bits=8, **geometry)
     run, counts = run_path(torch, label, eng, prompts[:batch], gen_len,
-                           ("qmatmul",))
-    if counts["lut_activation"] != 0:
+                           ("qmatmul", "quantize_rows"))
+    one_quantizer_per_qmatmul(label, counts)
+    if counts["lut_activation"] != 0 or counts["lut_gated_mul"] != 0:
         raise AssertionError(f"{label}: the table belongs in qmatmul's "
-                             f"epilogue, yet lut_activation launched")
+                             f"epilogue, yet a table kernel launched "
+                             f"({counts})")
     record(label, run, counts)
 
-    # -- regime (a): bf16 weights, every gated GELU through lut_activation -
+    # -- regime (a): bf16 weights, every gated GELU through lut_gated_mul --
     lutf = QuantContext(mode="none", use_lut=True,
                         compute_dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -637,14 +774,16 @@ def serve_main_path(torch, rows_out, profile: bool):
     label = "--lut --paged, bf16 weights"
     eng = engines[label] = Engine(cfg, lutf, bf16, paged=True, **geometry)
     run, counts = run_path(torch, label, eng, prompts[:batch], gen_len,
-                           ("lut_activation", "paged_attention_split"))
+                           ("lut_gated_mul", "paged_attention_split"))
     want = cfg.n_layers * (run["decode_steps"] + run["prefill_chunks"])
-    if counts["lut_activation"] != want or counts["qmatmul"] != 0:
+    stray = {k: counts[k] for k in ("lut_activation", "qmatmul",
+                                    "quantize_rows") if counts[k]}
+    if counts["lut_gated_mul"] != want or stray:
         raise AssertionError(
-            f"{label}: lut_activation launched {counts['lut_activation']} "
+            f"{label}: lut_gated_mul launched {counts['lut_gated_mul']} "
             f"times, expected {cfg.n_layers} layers x ({run['decode_steps']} "
             f"decode steps + {run['prefill_chunks']} prefill chunks) = {want}"
-            f"; qmatmul {counts['qmatmul']} (expected 0)")
+            f"; expected no {sorted(stray)} launches ({stray})")
     record(label, run, counts)
 
     for r in runs.values():
@@ -760,13 +899,15 @@ def serve_whisper(torch, report, profile: bool):
         want_q = counts["qmatmul"] > 0 if mode == "int8" \
             else counts["qmatmul"] == 0
         others = {k: v for k, v in counts.items()
-                  if k not in ("flash_attention", "qmatmul") and v}
+                  if k not in ("flash_attention", "qmatmul", "quantize_rows")
+                  and v}
         if counts["flash_attention"] != cfg.enc_layers or not want_q \
-                or others:
+                or counts["quantize_rows"] != counts["qmatmul"] or others:
             raise AssertionError(
                 f"whisper {label}: launches {counts}; expected "
                 f"flash_attention = {cfg.enc_layers} (one prefill), qmatmul "
-                f"{'> 0' if mode == 'int8' else '0'}, nothing else")
+                f"{'> 0' if mode == 'int8' else '0'}, quantize_rows as many "
+                f"as qmatmul, nothing else")
         encode_ms = event_ms(torch, lambda: encdec.encode(
             params, batch["enc_input"], cfg, ctx))
         run = dict(weights=label, prefill_s=prefill_s, encode_ms=encode_ms,
@@ -927,11 +1068,14 @@ def profile_whisper(torch, cfg, ctx, params, batch, prefill_step, loop):
             wall = time.perf_counter() - t0
         rows = device_rows(prof)
         busy = sum(r[1] for r in rows)
+        launches = sum(r[2] for r in rows)
         log(f"[profile] whisper {ctx.mode} {what}: wall {wall * 1e3:.2f} ms, "
-            f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+            f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+            f"{launches} device kernels and copies")
         for k, ms, n in rows[:10]:
             log(f"[profile]   {ms:9.3f} ms  x{n:<5d} {k[:90]}")
         out[what] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                         device_launches=launches,
                          top=[dict(kernel=k, ms=ms, count=n)
                               for k, ms, n in rows[:25]])
     return out
@@ -1104,11 +1248,15 @@ def profile_block(torch, eng, prompts, gen_len):
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
     log(f"[profile] one 8-step decode block: wall {wall * 1e3:.2f} ms, "
-        f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%)")
+        f"device busy {busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+        f"{launches} device kernels and copies ({launches / 8:.1f} per "
+        f"decode step)")
     for k, ms, n in rows[:12]:
         log(f"[profile]   {ms:9.3f} ms  x{n:<5d} {k[:90]}")
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                device_launches=launches,
                 top=[dict(kernel=k, ms=ms, count=n) for k, ms, n in rows[:25]],
                 host_wall_ms=host_wall * 1e3,
                 host_top=[dict(function=k, self_ms=ms, calls=n)
@@ -1118,10 +1266,20 @@ def profile_block(torch, eng, prompts, gen_len):
 #: the redesigned kernels, by their names in ptxas's output (their shared
 #: memory is dynamic, sized at launch; ptxas reports the static part): the
 #: tensor-core flash kernel, the paged kernel (both routes, one instance
-#: per head-dim class) and the tensor-core qmatmul (<16, MB> decode,
-#: <128, 1> otherwise)
+#: per head-dim class), the tensor-core qmatmul (<16, MB> decode, <128, 1>
+#: otherwise), the table kernel (<dtype, gated>) and the quantizer's
+#: register path (<dtype, threads a row>)
 PTXAS_KERNELS = ("flash_attention_bf16_kernel", "paged_attention_kernel",
-                 "qmatmul_kernel")
+                 "qmatmul_kernel", "lut_kernel", "quantize_rows_vec_kernel")
+
+
+def template_args(mangled: str):
+    """A kernel's template arguments from their mangled form: ints
+    (``Li16E``), bools (``Lb1E``), ``f`` (f32) and ``13__nv_bfloat16``."""
+    return [m.group(1) or {"0": "false", "1": "true"}.get(m.group(2))
+            or ("bf16" if m.group(0).startswith("13") else "f32")
+            for m in re.finditer(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f",
+                                 mangled)]
 
 
 def ptxas_summary(build_log) -> dict:
@@ -1139,9 +1297,8 @@ def ptxas_summary(build_log) -> dict:
             hit = fn and next((k for k in PTXAS_KERNELS if k in fn), None)
             if not hit:
                 continue
-            args = re.search(hit + r"I((?:Li\d+E)+)", fn)
-            key = f"{hit}<" + (",".join(re.findall(r"Li(\d+)E",
-                                                   args.group(1)))
+            args = re.search(hit + r"I(.+?E)E", fn)
+            key = f"{hit}<" + (",".join(template_args(args.group(1)))
                                if args else "?") + ">"
             row = out.setdefault(key, {})
             for field, pat in (("registers", r"Used (\d+) registers"),
@@ -1167,7 +1324,9 @@ def kernels_line(rows, counts):
             "paged_attention_split": "decode B=8 S=1 tokens~150",
             "lut_activation": "gelu_gate interp 8x16384 bfloat16",
             "flash_attention": "a whisper-encoder B=8 H=8/8 Sq=1500 "
-                               "Skv=1500 D=64 causal=False bf16"}
+                               "Skv=1500 D=64 causal=False bf16",
+            "lut_gated_mul": "gelu_gate interp 8x16384 bfloat16",
+            "quantize_rows": "8x2048 bfloat16"}
     source = {"qmatmul": "src/repro_torch/kernels/csrc/qmatmul.cu",
               "paged_attention_unsplit":
                   "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1176,14 +1335,23 @@ def kernels_line(rows, counts):
               "lut_activation":
                   "src/repro_torch/kernels/csrc/lut_activation.cu",
               "flash_attention":
-                  "src/repro_torch/kernels/csrc/flash_attention.cu"}
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "lut_gated_mul":
+                  "src/repro_torch/kernels/csrc/lut_activation.cu",
+              "quantize_rows":
+                  "src/repro_torch/kernels/csrc/quantize_rows.cu"}
     replaces = {"qmatmul": "src/repro/kernels/qmatmul.py:104",
                 "paged_attention_unsplit":
                     "src/repro/kernels/flash_attention.py:217",
                 "paged_attention_split":
                     "src/repro/kernels/flash_attention.py:514",
                 "lut_activation": "src/repro/kernels/lut_activation.py:74",
-                "flash_attention": "src/repro/kernels/flash_attention.py:101"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:101",
+                # the TPU table kernel and the two products XLA applies
+                # after it (activations.py:41, blocks.py:72)
+                "lut_gated_mul": "src/repro/kernels/lut_activation.py:74",
+                # no Pallas kernel: the XLA fusion before every int8 matmul
+                "quantize_rows": "src/repro/nn/linear.py:88"}
     out = []
     for name in pick:
         mine = [r for r in rows if r["kernel"] == name]
@@ -1202,6 +1370,16 @@ def kernels_line(rows, counts):
             out[-1]["library_note"] = ("none (no PyTorch call is a table "
                                        "lookup)")
             out[-1]["context_gelu_tanh_ms"] = rep["gelu_tanh_ms"]
+        if name == "lut_gated_mul":
+            out[-1]["library_note"] = ("none (no PyTorch call is a table "
+                                       "lookup); context: the unfused chain "
+                                       "it replaces")
+            out[-1]["context_unfused_chain_ms"] = rep["unfused_chain_ms"]
+        if name == "quantize_rows":
+            out[-1]["library_note"] = ("none (no PyTorch call quantizes); "
+                                       "context: torch.amax(x.abs(), 1) on "
+                                       "the same bytes")
+            out[-1]["context_amax_abs_ms"] = rep["amax_abs_ms"]
         if name == "qmatmul":
             out[-1]["library_note"] = ("none at M 8 (torch._int_mm needs M "
                                        "> 16); context: _int_mm on A padded "
@@ -1264,6 +1442,10 @@ def main(argv=None) -> int:
     check_attention(torch, timer, rows)
     torch.cuda.synchronize()
     check_lut(torch, timer, rows)
+    torch.cuda.synchronize()
+    check_lut_gated(torch, timer, rows)
+    torch.cuda.synchronize()
+    check_quantize_rows(torch, timer, rows)
     torch.cuda.synchronize()
     check_flash(torch, timer, rows)
     torch.cuda.synchronize()

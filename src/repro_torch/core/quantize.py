@@ -27,7 +27,10 @@ def calibrate_scale(x: torch.Tensor, qtype: FixedPointType,
     amax = torch.amax(torch.abs(x), dim=reduce_axes, keepdim=True) \
         if reduce_axes else torch.abs(x)
     amax = torch.clamp_min(amax, 1e-12)
-    return (amax / qtype.int_max).to(torch.float32)
+    # the divisor as a tensor: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, an ulp away from the reference's
+    # (and the CPU's) correctly rounded quotient
+    return (amax / torch.full_like(amax, qtype.int_max)).to(torch.float32)
 
 
 def quantize_dynamic(x: torch.Tensor, qtype: FixedPointType,

@@ -16,6 +16,11 @@ much shared memory, too many threads) never runs and a later
 ``LAUNCHES`` counts launches per kernel wrapper: each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
 the main path went through the kernels.
+
+:func:`zeroed_scratch` hands out the int32 buffers that a kernel leaves
+zeroed after every launch (split-K workspaces, split tickets), one per
+(device, stream), so that the wrappers are safe on several streams and
+under CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -34,13 +39,15 @@ from typing import Dict, Iterable, List
 import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "launch_counts", "reset_launch_counts",
-           "build", "library", "check", "stream_of", "sm_count", "BUILD_LOG"]
+           "build", "library", "check", "stream_of", "sm_count", "BUILD_LOG",
+           "zeroed_scratch", "SCRATCH"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmatmul": CSRC / "qmatmul.cu",
            "paged_attention": CSRC / "paged_attention.cu",
            "lut_activation": CSRC / "lut_activation.cu",
-           "flash_attention": CSRC / "flash_attention.cu"}
+           "flash_attention": CSRC / "flash_attention.cu",
+           "quantize_rows": CSRC / "quantize_rows.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,7 +56,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel wrapper name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
                             "paged_attention_split": 0, "lut_activation": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "lut_gated_mul": 0,
+                            "quantize_rows": 0}
 #: source name -> {"seconds", "ptxas"} of the builds made or reused by this
 #: process (a reused build's ptxas lines come from the log beside it)
 BUILD_LOG: Dict[str, dict] = {}
@@ -72,10 +80,16 @@ SIGNATURES = {
     "lut_activation": {
         "lut_activation_launch": [_P, _P, _P, _L, _I, _F, _F, _I, _I, _I,
                                   _P],
+        "lut_gated_mul_launch": [_P, _P, _P, _P, _L, _I, _F, _F, _I, _I, _I,
+                                 _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _F, _I, _I, _P],
+    },
+    "quantize_rows": {
+        "quantize_rows_launch": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I,
+                                 _P],
     },
 }
 
@@ -179,3 +193,32 @@ def stream_of(tensor) -> int:
 def sm_count(device: torch.device) -> int:
     """The number of SMs of a CUDA device (asked once per device)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+#: (name, device, stream address) -> int32 buffer of zeros that the
+#: kernels leave zeroed after every launch; grown, never shrunk
+SCRATCH: Dict[tuple, torch.Tensor] = {}
+#: buffers handed out under CUDA-graph capture: a graph keeps their
+#: addresses, so they are held for the life of the process
+_CAPTURED: List[torch.Tensor] = []
+
+
+def zeroed_scratch(name: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros for a kernel that leaves them zeroed.
+
+    Eager calls share one buffer per ``(name, device, current stream)``:
+    launches on one stream run in order, and two streams never share.
+    Under CUDA-graph capture every call gets a buffer of its own, zeroed
+    inside the graph, that no eager call touches and that is never freed,
+    since a replay writes to it long after the capture returned (and
+    after eager calls may have grown and dropped the stream's buffer).
+    """
+    if torch.cuda.is_current_stream_capturing():
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _CAPTURED.append(buf)
+        return buf
+    key = (name, device, torch.cuda.current_stream(device).cuda_stream)
+    buf = SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = SCRATCH[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf

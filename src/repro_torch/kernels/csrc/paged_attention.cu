@@ -56,9 +56,10 @@
 // So the split route is one launch too.  Inside a partition the state is
 // updated per warp and page, not once per pages_per_step tile: the
 // kernel rounds differently from paged_attention_split_ref, within the
-// gates stated beside its checks.  The ticket buffer is shared by all
-// launches on one device, so launches must not run concurrently on two
-// streams (the engine uses one).
+// gates stated beside its checks.  The wrapper hands every stream its
+// own ticket buffer (and every CUDA-graph capture a buffer of its own,
+// kept for the life of the process), so launches on two streams, or a
+// replay beside eager launches, never share tickets.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

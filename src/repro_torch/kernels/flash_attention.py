@@ -215,18 +215,8 @@ def _scale(softmax_scale, d) -> float:
             else float(1.0 / np.sqrt(d)))
 
 
-#: per device: the split route's tickets, one per (batch, KV head, 8-row
-#: tile).  The kernel leaves them zeroed after every launch, so they are
-#: allocated (zeroed) once and grown when a larger grid needs them.
-_TICKETS: dict = {}
+#: query rows a block of the paged kernel takes (one ticket per tile)
 _ROW_TILE = 8
-
-
-def _tickets(dev, n: int) -> torch.Tensor:
-    t = _TICKETS.get(dev)
-    if t is None or t.numel() < n:
-        t = _TICKETS[dev] = torch.zeros(n, dtype=torch.int32, device=dev)
-    return t
 
 
 def _launch_paged(q, k_pages, v_pages, block_tables, qpos, softmax_scale,
@@ -252,7 +242,9 @@ def _launch_paged(q, k_pages, v_pages, block_tables, qpos, softmax_scale,
         acc = torch.empty((split, b, hkv, rows, d), **f32)
         m = torch.empty((split, b, hkv, rows), **f32)
         l = torch.empty((split, b, hkv, rows), **f32)
-        tickets = _tickets(q.device, b * hkv * -(-rows // _ROW_TILE))
+        # one per (batch, KV head, row tile), left zeroed by the kernel
+        tickets = _cuda.zeroed_scratch("paged_attention_tickets", q.device,
+                                       b * hkv * -(-rows // _ROW_TILE))
         scratch = [x.data_ptr() for x in (acc, m, l, tickets)]
     lib = _cuda.library("paged_attention")
     err = lib.paged_attention_launch(

@@ -19,13 +19,22 @@ from . import ref as _ref
 from .flash_attention import flash_attention as _flash_attention_cuda
 from .flash_attention import paged_attention as _paged_attention_cuda
 from .lut_activation import lut_activation as _lut_activation_cuda
+from .lut_activation import lut_gated_mul as _lut_gated_mul_cuda
 from .qmatmul import qmatmul as _qmatmul_cuda
+from .quantize_rows import quantize_rows as _quantize_rows_cuda
 
-__all__ = ["lut_activation", "qmatmul", "attention", "paged_attention",
-           "sample_tokens"]
+__all__ = ["lut_activation", "lut_gated_mul", "quantize_rows", "qmatmul",
+           "attention", "paged_attention", "sample_tokens"]
 
 register_op("lut_activation", "ref")(_ref.lut_activation_ref)
 register_op("lut_activation", "cuda")(_lut_activation_cuda)
+# the gated MLP's table pass and the int8 activation quantizer: the
+# reference leaves both to XLA fusions (no Pallas kernel); the port runs
+# each as one hand-written kernel
+register_op("lut_gated_mul", "ref")(_ref.lut_gated_mul_ref)
+register_op("lut_gated_mul", "cuda")(_lut_gated_mul_cuda)
+register_op("quantize_rows", "ref")(_ref.quantize_rows_ref)
+register_op("quantize_rows", "cuda")(_quantize_rows_cuda)
 register_op("qmatmul", "ref")(_ref.qmatmul_ref)
 register_op("qmatmul", "cuda")(_qmatmul_cuda)
 register_op("attention", "ref")(_ref.flash_attention_ref)
@@ -42,6 +51,19 @@ def lut_activation(x: torch.Tensor, spec: TableSpec, *,
                    backend: Optional[str] = None, **kw) -> torch.Tensor:
     """Elementwise table lookup of ``x`` through ``spec``'s table."""
     return get_impl("lut_activation", backend)(x, spec, **kw)
+
+
+def lut_gated_mul(g: torch.Tensor, up: torch.Tensor, spec: TableSpec, *,
+                  backend: Optional[str] = None) -> torch.Tensor:
+    """The gated MLP's table pass: ``((g * T(g)).to(g.dtype)) * up`` with
+    ``spec``'s (gated-form) table ``T``."""
+    return get_impl("lut_gated_mul", backend)(g, up, spec)
+
+
+def quantize_rows(x: torch.Tensor, qtype, *, backend: Optional[str] = None):
+    """Per-row dynamic quantization of ``x`` (T, K): ``(q, s)`` with ``s``
+    (T, 1) f32 and ``q = clamp(round(x / s))`` in ``qtype``'s storage."""
+    return get_impl("quantize_rows", backend)(x, qtype)
 
 
 def qmatmul(a_data, b_data, a_scale, b_scale, *, bias=None,

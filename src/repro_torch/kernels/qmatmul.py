@@ -28,11 +28,6 @@ MAX_TABLE = 8192
 #: and the 128-row tiling
 _BN, _BK_DECODE, _BK = 128, 128, 64
 
-#: per device: (int32 split-K workspace, tile tickets).  The kernel
-#: leaves both buffers zeroed after every launch, so they are allocated
-#: (zeroed) once and grown when a larger output needs them.
-_SPLITK: dict = {}
-
 
 def _splitk_plan(m: int, n: int, k: int, sms: int) -> int:
     """How many blocks share one output tile's K range (measured on the
@@ -59,15 +54,16 @@ def _splitk_plan(m: int, n: int, k: int, sms: int) -> int:
     return max(1, min(-(-sms // tiles), stages // 32))
 
 
-def _workspace(dev, m: int, n: int):
-    ws, tickets = _SPLITK.get(dev, (None, None))
+def _workspace(dev, m: int, n: int, splitk: int):
+    """Null pointers for an unsplit launch; else the int32 M x N workspace
+    and one ticket per output tile, zeroed, which the kernel leaves
+    zeroed (:func:`~repro_torch.kernels._cuda.zeroed_scratch`: one pair
+    per device and stream, or per call under graph capture)."""
+    if splitk == 1:
+        return None, None
     tiles = -(-n // _BN) * -(-m // 16)
-    if ws is None or ws.numel() < m * n:
-        ws = torch.zeros(m * n, dtype=torch.int32, device=dev)
-    if tickets is None or tickets.numel() < tiles:
-        tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
-    _SPLITK[dev] = (ws, tickets)
-    return _cuda.sm_count(dev), ws, tickets
+    return (_cuda.zeroed_scratch("qmatmul_workspace", dev, m * n).data_ptr(),
+            _cuda.zeroed_scratch("qmatmul_tickets", dev, tiles).data_ptr())
 
 
 def _vector(s, n: int, what: str, device) -> torch.Tensor:
@@ -127,14 +123,15 @@ def qmatmul(a_data: torch.Tensor, b_data: torch.Tensor, a_scale, b_scale,
     if m == 0 or n == 0:
         return out
     lib = _cuda.library("qmatmul")
-    sms, ws, tickets = _workspace(dev, m, n)
+    splitk = _splitk_plan(m, n, k, _cuda.sm_count(dev))
+    ws, tickets = _workspace(dev, m, n, splitk)
     err = lib.qmatmul_launch(
         a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
         None if bias_t is None else bias_t.data_ptr(),
         None if table is None else table.data_ptr(), out.data_ptr(),
         m, n, k, table_n, lo, step_inv, indexing, int(bool(act_gated)),
-        int(out_dtype == torch.bfloat16), _splitk_plan(m, n, k, sms),
-        ws.data_ptr(), tickets.data_ptr(), _cuda.stream_of(out))
+        int(out_dtype == torch.bfloat16), splitk, ws, tickets,
+        _cuda.stream_of(out))
     _cuda.check(lib, err, "qmatmul")
     _cuda.LAUNCHES["qmatmul"] += 1
     return out

@@ -23,9 +23,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.qtypes import FixedPointType
+from ..core.quantize import calibrate_scale
 from ..core.tables import TableSpec, get_table, table_lookup
 
 __all__ = ["lut_activation_ref", "apply_table", "lut_activation_plain",
+           "lut_gated_mul_ref", "lut_gated_mul_plain", "quantize_rows_ref",
            "qmatmul_ref", "flash_attention_ref", "flash_attention_plain",
            "paged_attention_ref",
            "paged_attention_split_ref", "combine_splits",
@@ -95,6 +98,35 @@ def lut_activation_plain(x: torch.Tensor, spec: TableSpec) -> torch.Tensor:
                     lo=spec.lo, step_inv=1.0 / spec.step,
                     indexing=spec.indexing)
     return z.to(x.dtype)
+
+
+def lut_gated_mul_ref(g: torch.Tensor, up: torch.Tensor,
+                      spec: TableSpec) -> torch.Tensor:
+    """The gated MLP's table pass as the reference computes it: its
+    ``act_fn`` (``x * lut_activation_ref(x)`` cast to ``x``'s dtype), then
+    the product with ``up`` (``repro.nn.blocks.mlp_apply``)."""
+    return (g * lut_activation_ref(g, spec)).to(g.dtype) * up
+
+
+def lut_gated_mul_plain(g: torch.Tensor, up: torch.Tensor,
+                        spec: TableSpec) -> torch.Tensor:
+    """The plain version of the ``lut_gated_mul`` kernel: the chain the
+    card ran before the kernel existed, :func:`lut_activation_plain` (the
+    table in ``g``'s dtype), ``g * T(g)`` cast to ``g``'s dtype, ``* up``;
+    each product one rounding in that dtype."""
+    return (g * lut_activation_plain(g, spec)).to(g.dtype) * up
+
+
+def quantize_rows_ref(x: torch.Tensor, qtype: FixedPointType):
+    """Per-row dynamic quantization of ``x`` (T, K), as the reference's
+    ``_int8_matmul`` does it: in f32, ``calibrate_scale`` over each row,
+    then ``clamp(round(x / s))`` cast to the storage type.  Returns
+    ``(q, s)`` with ``s`` of shape (T, 1).  Also the plain version of the
+    ``quantize_rows`` kernel."""
+    x2 = x.to(torch.float32)
+    s = calibrate_scale(x2, qtype, channel_axes=(0,))
+    q = torch.clamp(torch.round(x2 / s), qtype.int_min, qtype.int_max)
+    return q.to(qtype.dtype), s
 
 
 def int8_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

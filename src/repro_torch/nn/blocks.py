@@ -12,9 +12,10 @@ from typing import Callable, Optional
 import torch
 
 from ..core.qtypes import QTensor
+from ..core.tables import GATED_FORMS
 from .attention import gqa_apply, gqa_init
 from .context import DEFAULT_CTX, QuantContext
-from .linear import linear, linear_init
+from .linear import act_table, int8_qtype, linear, linear_init
 from .norms import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 
 __all__ = ["norm_init", "norm_apply", "mlp_init", "mlp_apply",
@@ -46,12 +47,27 @@ def mlp_init(gen, d_model: int, d_ff: int, *, gated: bool = True,
 
 def mlp_apply(p, x, act: str, ctx: QuantContext = DEFAULT_CTX, *,
               path: str = "mlp"):
-    """Gated MLP: ``down(act(gate(x)) * up(x))``, or plain ``down(act(up(x)))``."""
+    """Gated MLP: ``down(act(gate(x)) * up(x))``, or plain ``down(act(up(x)))``.
+
+    Under ``ctx.use_lut`` a gated GELU or SiLU on a float gate projection
+    runs ``act(g) * up`` as one table pass (``ops.lut_gated_mul``: the
+    lookup and both products, the ``lut_gated_mul`` kernel on the card),
+    with the table ``act_fn`` would pick; an int8 gate keeps the table in
+    qmatmul's epilogue, and every other activation goes through
+    ``linear``'s ``act_fn``.
+    """
     if "gate" in p:
         up = linear(p["up"], x, ctx, path=f"{path}/up")
-        g = linear(p["gate"], x, ctx, path=f"{path}/gate", act=act,
-                   act_path=f"{path}/act")
-        h = g * up
+        if ctx.use_lut and act in GATED_FORMS \
+                and int8_qtype(p["gate"], ctx, f"{path}/gate") is None:
+            from ..kernels.ops import lut_gated_mul
+            g = linear(p["gate"], x, ctx, path=f"{path}/gate")
+            spec, _ = act_table(act, ctx, f"{path}/act")
+            h = lut_gated_mul(g, up, spec, backend=ctx.backend)
+        else:
+            g = linear(p["gate"], x, ctx, path=f"{path}/gate", act=act,
+                       act_path=f"{path}/act")
+            h = g * up
     else:
         h = linear(p["up"], x, ctx, path=f"{path}/up", act=act,
                    act_path=f"{path}/act")

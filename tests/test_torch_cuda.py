@@ -7,6 +7,7 @@ elsewhere.  Run them on the GPU machine with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -480,9 +481,18 @@ def test_qmatmul_split_k_twice_leaves_workspace_zeroed(card, mkn):
     for _ in range(2):
         assert torch.equal(qmod.qmatmul(a, b, sa, sb,
                                         out_dtype=torch.bfloat16), want)
-    ws, tickets = qmod._SPLITK[a.device]
+    ws, tickets = (_stream_scratch(name, a.device) for name in (
+        "qmatmul_workspace", "qmatmul_tickets"))
     torch.cuda.synchronize()
     assert not ws.any() and not tickets.any()
+
+
+def _stream_scratch(name, device):
+    """The current stream's zeroed scratch buffer ``name`` (None before
+    its first split launch)."""
+    from repro_torch.kernels import _cuda
+    return _cuda.SCRATCH.get((name, device,
+                              torch.cuda.current_stream(device).cuda_stream))
 
 
 @pytest.mark.parametrize("m", [8, 128])
@@ -562,3 +572,363 @@ def test_paged_split_kernel_refuses(card):
     qpos = torch.zeros((1,), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         paged_attention_split(q, kp, kp, bt, qpos, kv_split=2)
+
+
+# -- the per-row int8 activation quantizer -----------------------------------
+def _quantize_input(card, rows, k, dtype, kind):
+    """f32 rows over many decades, then: zero rows, half-way rows (a row
+    max of 127 makes the scale exactly 1 and x / s = x), or a NaN row."""
+    decades = 10.0 ** (torch.rand((rows, 1), generator=card,
+                                  device="cuda") * 8 - 4)
+    x = torch.randn((rows, k), generator=card, device="cuda") * decades
+    if kind == "zero rows":
+        x[::3] = 0.0
+    elif kind == "half-way":
+        x = torch.randint(-126, 126, (rows, k), generator=card,
+                          device="cuda").float() + 0.5
+        x[:, 0] = 127.0
+        x[1::2, 0] = -127.0
+    elif kind == "nan row":
+        x[1, k // 2] = float("nan")
+    return x.to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("kind", ["random", "zero rows", "half-way",
+                                  "nan row"])
+@pytest.mark.parametrize("rows,k", [(8, 2048), (8, 16384), (300, 512),
+                                    (37, 2048), (5, 1001), (3, 40000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_kernel_matches_plain(card, rows, k, dtype, kind):
+    """Bitwise: the same f32 max, one correctly rounded division for the
+    scale and one per element, half-to-even rounding, NaN through the
+    clamp and torch's cast.  Rows of a warp (K 512, 2048 bf16), of a
+    block (K 16384, 2048 f32), a K that is no multiple of 8 and one past
+    the registers (scalar loads), a ragged last block (300, 37 rows)."""
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.quantize_rows import (quantize_rows,
+                                                   quantize_rows_plain)
+    qt = FixedPointType(8, 4)
+    x = _quantize_input(card, rows, k, dtype, kind)
+    before = _cuda.LAUNCHES["quantize_rows"]
+    q, s = quantize_rows(x, qt)
+    wq, ws = quantize_rows_plain(x, qt)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["quantize_rows"] == before + 1
+    assert q.dtype == torch.int8 and s.shape == (rows, 1)
+    assert torch.equal(q, wq)
+    nan = torch.isnan(ws)             # NaN where the plain version has it
+    assert torch.equal(torch.isnan(s), nan)
+    assert torch.equal(s[~nan].view(torch.int32), ws[~nan].view(torch.int32))
+    if kind == "nan row":
+        assert torch.isnan(s[1]).all() and not torch.isnan(s[0]).any()
+    if kind == "half-way":
+        assert (s == 1.0).all()
+        assert torch.equal(q.float(), torch.round(x.float()).clamp(-128, 127))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_kernel_unaligned_view(card, dtype):
+    """A view one element into its buffer is not 16-byte aligned: scalar
+    loads, the same result."""
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.kernels.quantize_rows import (quantize_rows,
+                                                   quantize_rows_plain)
+    qt = FixedPointType(8, 4)
+    x = _quantize_input(card, 8, 2048, dtype, "random")
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    q, s = quantize_rows(view, qt)
+    wq, ws = quantize_rows_plain(x, qt)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    assert torch.equal(q, quantize_rows(x, qt)[0])
+    q2, _ = quantize_rows(x[:, :1001], qt)      # a strided view: copied
+    assert torch.equal(q2, quantize_rows_plain(x[:, :1001], qt)[0])
+
+
+def test_quantize_rows_kernel_refuses(card):
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.kernels.quantize_rows import quantize_rows
+    x = torch.randn((4, 8), device="cuda")
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        quantize_rows(x.half(), FixedPointType(8, 4))
+    with pytest.raises(TypeError, match="signed int8"):
+        quantize_rows(x, FixedPointType(8, 4, signed=False))
+    with pytest.raises(ValueError, match=r"\(T, K >= 1\)"):
+        quantize_rows(x[None], FixedPointType(8, 4))
+
+
+# -- the gated MLP's table pass ------------------------------------------------
+@pytest.mark.parametrize("shape", [(8, 16384), (128, 16384), (3, 1001),
+                                   (7,)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("indexing", ["trunc", "nearest", "interp"])
+@pytest.mark.parametrize("table", [("gelu_gate", -8.0, 8.0),
+                                   ("silu_gate", -10.0, 10.0)])
+def test_lut_gated_mul_kernel_matches_plain(card, shape, dtype, indexing,
+                                            table):
+    """Bitwise: the table in f32 rounded once to dt, each product one
+    rounding in dt, as the three-launch chain; a scalar tail ((3, 1001),
+    (7,)) and views at offset 1 (not 16-byte aligned, scalar path)."""
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.lut_activation import (lut_gated_mul,
+                                                    lut_gated_mul_plain)
+    dt = getattr(torch, dtype)
+    spec = TableSpec(table[0], 1024, table[1], table[2], None, indexing)
+    g = (torch.randn(shape, generator=card, device="cuda") * 6).to(dt)
+    up = (torch.randn(shape, generator=card, device="cuda") * 3).to(dt)
+    before = _cuda.LAUNCHES["lut_gated_mul"]
+    got = lut_gated_mul(g, up, spec)
+    want = lut_gated_mul_plain(g, up, spec)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["lut_gated_mul"] == before + 1
+    assert got.dtype == dt and got.shape == g.shape
+    assert torch.equal(got, want)
+    fg, fu = g.reshape(-1), up.reshape(-1)
+    if fg.numel() > 1:
+        assert torch.equal(lut_gated_mul(fg[1:], fu[1:], spec),
+                           lut_gated_mul_plain(fg[1:], fu[1:], spec))
+        assert torch.equal(lut_gated_mul(fg[1:], fu[:-1], spec),
+                           lut_gated_mul_plain(fg[1:], fu[:-1], spec))
+
+
+def test_lut_gated_mul_kernel_refuses(card):
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels.lut_activation import lut_gated_mul
+    g = torch.randn((4, 8), generator=card, device="cuda")
+    spec = TableSpec("gelu_gate")
+    with pytest.raises(ValueError, match="exceeds"):
+        lut_gated_mul(g, g, TableSpec("gelu_gate", 8192))
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        lut_gated_mul(g.half(), g.half(), spec)
+    with pytest.raises(ValueError, match="is not like g"):
+        lut_gated_mul(g, g.bfloat16(), spec)
+    with pytest.raises(ValueError, match="is not like g"):
+        lut_gated_mul(g, g[:2], spec)
+
+
+# -- split scratch: sized only when split, one per stream, safe to capture ----
+def test_qmatmul_unsplit_call_leaves_workspace_alone(card):
+    """A split decode call sizes the workspace; unsplit calls (whisper's
+    M 12000 projections) keep no memory once their outputs are gone, and
+    neither grow nor replace the workspace."""
+    from repro_torch.kernels import qmatmul as qmod
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m, k, n = 8, 16384, 2048
+    assert qmod._splitk_plan(m, n, k, sms) > 1
+    a, b, sa, sb = _qmm_operands(card, m, k, n)
+    assert torch.equal(qmod.qmatmul(a, b, sa, sb),
+                       qmod.qmatmul_plain(a, b, sa, sb))
+    big = [_qmm_operands(card, 12000, k2, n2)
+           for k2, n2 in ((512, 2048), (2048, 512))]
+    for a2, b2, sa2, sb2 in big:
+        assert qmod._splitk_plan(12000, b2.shape[1], b2.shape[0], sms) == 1
+        want = qmod.qmatmul_plain(a2, b2, sa2, sb2)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        got = qmod.qmatmul(a2, b2, sa2, sb2)
+        assert torch.equal(got, want)
+        del got
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == before
+    ws = _stream_scratch("qmatmul_workspace", a.device)
+    qmod.qmatmul(*big[0])
+    assert _stream_scratch("qmatmul_workspace", a.device) is ws
+
+
+def _split_cases(card, live_pages=None):
+    """A split-K qmatmul (decode's wk/wv projection, 16 K splits of 2
+    tiles: 32 blocks) and a split paged attention (4 partitions of a
+    259-page table, 12 blocks), each with its plain result: grids small
+    enough that two streams' launches run side by side.  ``live_pages``
+    shortens the live lanes' context so that only the first partition
+    sees a page: its blocks take their tickets at once while another
+    launch's blocks still walk."""
+    from repro_torch.kernels.flash_attention import paged_attention_split
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    from repro_torch.kernels.ref import paged_attention_split_ref
+    a, b, sa, sb = _qmm_operands(card, 8, 2048, 256)
+    q, kp, vp, bt, qpos = _unsplit_case(card, 257, torch.float32)
+    if live_pages is not None:
+        qpos[:2] = torch.tensor([live_pages * 16 - 1, live_pages * 16 - 2])
+
+    def qmm():
+        return qmatmul(a, b, sa, sb, out_dtype=torch.bfloat16)
+
+    def attn():
+        return paged_attention_split(q, kp, vp, bt, qpos, kv_split=4)
+
+    return [(qmm, qmatmul_plain(a, b, sa, sb, out_dtype=torch.bfloat16),
+             torch.equal),
+            (attn, paged_attention_split_ref(q, kp, vp, bt, qpos, kv_split=4),
+             lambda got, want: _unsplit_close(got[:2], want[:2]) or True)]
+
+
+#: GPU cycles of the spin that holds the streams (~20 ms): the host
+#: enqueues every launch meanwhile
+_HOLD_CYCLES = 40_000_000
+
+
+def _release_together(streams):
+    """Hold ``streams`` behind one event that a spin on another stream
+    records, so that their next launches start at the same moment and run
+    side by side (fed one by one by the host, launches on two streams
+    start tens of microseconds apart and barely overlap)."""
+    gate = torch.cuda.Stream()
+    gate.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(gate):
+        torch.cuda._sleep(_HOLD_CYCLES)
+    released = torch.cuda.Event()
+    released.record(gate)
+    for st in streams:
+        st.wait_event(released)
+
+
+def test_split_kernels_on_two_streams(card):
+    """Split-K qmatmul, then split paged attention, queued 30 times on
+    each of two streams (on other operands; on the second stream only the
+    first partition sees a page) and released together, so that the
+    streams' launches run side by side: each stream has its own scratch,
+    and every output equals the plain version (a shared workspace or
+    ticket mixes the streams' partials)."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    cases = [_split_cases(card), _split_cases(card, live_pages=60)]
+    for c in range(2):                       # qmatmul, then attention
+        outs = [[], []]
+        torch.cuda.synchronize()
+        _release_together(streams)
+        for _ in range(30):
+            for i, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    outs[i].append(cases[i][c][0]())
+        torch.cuda.synchronize()
+        for i in range(2):
+            _, want, same = cases[i][c]
+            for j, got in enumerate(outs[i]):
+                assert same(got, want), (c, i, j)
+
+
+def test_split_kernels_capture_and_replay(card):
+    """One split-K qmatmul and one split paged attention captured in a
+    CUDA graph: replayed alone; replayed while eager calls of both run on
+    another stream (released together, so they overlap); and replayed
+    after larger eager calls grew (and freed) that stream's scratch and
+    the freed memory was refilled with garbage.  Every replay equals the
+    plain versions: the graph's scratch is its own and is never freed."""
+    (qmm, q_want, q_same), (attn, a_want, a_same) = _split_cases(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm up: build, configure
+        qmm(), attn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q_out, a_out = qmm(), attn()
+
+    def replay():
+        # outputs poisoned first: a launch that finds its tickets or
+        # workspace garbled leaves them unwritten or wrong
+        q_out.fill_(float("nan")), a_out.fill_(float("nan"))
+        graph.replay()
+
+    replay()
+    torch.cuda.synchronize()
+    assert q_same(q_out, q_want) and a_same(a_out, a_want)
+    _release_together([torch.cuda.current_stream(), side])
+    with torch.cuda.stream(side):
+        eager = [(qmm(), q_want, q_same), (attn(), a_want, a_same)]
+    replay()
+    torch.cuda.synchronize()
+    assert q_same(q_out, q_want) and a_same(a_out, a_want)
+    assert all(same(got, want) for got, want, same in eager)
+    from repro_torch.kernels.flash_attention import paged_attention_split
+    from repro_torch.kernels.qmatmul import qmatmul
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            a, b, sa, sb = _qmm_operands(card, 16, 16384, 8192)
+            qmatmul(a, b, sa, sb)
+            q, kp, vp, bt, qpos = _unsplit_case(card, 9, torch.float32,
+                                                s=64)
+            paged_attention_split(q, kp, vp, bt, qpos, kv_split=8)
+        # reuse what the larger calls freed, at every size class
+        junk = [torch.full((1 << i,), -1, dtype=torch.int32, device="cuda")
+                for i in range(4, 22) for _ in range(8)]
+    torch.cuda.synchronize()
+    replay()
+    torch.cuda.synchronize()
+    assert q_same(q_out, q_want) and a_same(a_out, a_want)
+    del junk
+
+
+# -- the card's Engine held against the CPU's ----------------------------------
+#: greedy streams of the card's Engine may part from the CPU's only where
+#: the CPU's top-2 logit margin is below this bound.  In f32 compute
+#: without TF32 the card sums matmuls and attention in other orders, a few
+#: f32 ulps apart (~1e-6 of logits of order 1-10), which can flip an exact
+#: or near tie, and through an int8 rounding step a little more; a wrong
+#: kernel moves logits by order 1.  On the H100 all six cells below gave
+#: identical streams over 16 tokens (PERF.md), so the bound only admits
+#: a flip at a near-tie.
+ENGINE_MARGIN_BOUND = 1e-3
+
+
+def _greedy_streams(cfg, ctx, params, prompts, gen, device, kw):
+    from repro_torch.launch.serve import Engine
+    eng = Engine(cfg, ctx, params, device=device, batch=2, max_len=40,
+                 prefill_chunk=5, **kw)
+    ids = [eng.submit(p, gen_len=gen) for p in prompts]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(4)
+    eng.retire_finished()
+    return [eng.results[i]["tokens"] for i in ids]
+
+
+@pytest.mark.parametrize("cache", ["paged-auto", "paged-unsplit", "dense"])
+@pytest.mark.parametrize("weights", ["f32", "int8"])
+def test_card_engine_streams_match_cpu_engine(card, weights, cache):
+    """gemma-2b smoke, f32 compute, the same weights on both sides: the
+    card's greedy streams equal the CPU Engine's, or first part where the
+    CPU's own top-2 logit margin is below ENGINE_MARGIN_BOUND."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.serve import quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(
+        mode="int8" if weights == "int8" else "none",
+        policy=(PrecisionPolicy.uniform(FixedPointType(8, 4))
+                if weights == "int8" else PrecisionPolicy()),
+        compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if weights == "int8":
+        params = quantize_for_serving(params, ctx)
+    src = SyntheticLM(cfg.vocab, seed=0)
+    prompts = [src.tokens(i, 1, 14)[0, :-1] for i in range(3)]
+    kw = {"paged-auto": dict(paged=True, page_size=4),
+          "paged-unsplit": dict(paged=True, page_size=4, kv_split=1,
+                                pages_per_step=1),
+          "dense": {}}[cache]
+    gen = 16
+    want = _greedy_streams(cfg, ctx, params, prompts, gen, "cpu", kw)
+    got = _greedy_streams(cfg, ctx, params, prompts, gen, "cuda", kw)
+    assert all(len(t) == gen for t in got)
+    for prompt, w, g in zip(prompts, want, got):
+        i = next((i for i, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        if i is None:
+            continue
+        tokens = torch.tensor(np.concatenate([prompt, w[:i]])[None],
+                              dtype=torch.int32)
+        logits, _, _ = lm.forward(params, tokens, cfg, ctx)
+        top2 = logits[0, -1].float().topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"{weights} {cache}: first differing token {i} of {gen}, CPU "
+              f"top-2 margin {margin:.6g}")
+        assert margin < ENGINE_MARGIN_BOUND, (i, margin)

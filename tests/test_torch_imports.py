@@ -15,7 +15,8 @@ PKG = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "chip_ab.py"]
 
 
 def test_import_leaves_jax_out():
