@@ -3,6 +3,7 @@
 NVIDIA GPU, for a same-card comparison of two trees.
 
     python3 chip_ab.py --src SRC_DIR --label NAME [--json OUT]
+                       [--graphs off|on|both]
 
 Imports ``repro_torch`` from ``SRC_DIR`` (a tree's ``src`` directory),
 builds its kernels, and measures, with random weights from a seed:
@@ -14,6 +15,9 @@ builds its kernels, and measures, with random weights from a seed:
   live: one warm 8-step decode block on the host clock (wall per step),
   then one under ``torch.profiler`` (the second of two: device busy per
   step, device kernels and copies per step);
+  ``--graphs`` runs each path's Engine with ``graphs=False``, ``True``
+  or both in turn (off, on); without it the tree's default applies (a
+  tree from before CUDA-graph dispatch takes no ``graphs`` argument);
 * whisper-base, int8 weights, batch 8, 1500 encoder frames: the
   encoder's device time (CUDA events, median of 5 warm calls) and its
   device kernels and copies under the profiler.
@@ -69,7 +73,7 @@ def profiled(torch, fn):
     return wall * 1e3, sum(r[1] for r in rows), sum(r[2] for r in rows)
 
 
-def gemma_paths(torch, out):
+def gemma_paths(torch, out, graphs=None):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.precision import PrecisionPolicy
@@ -101,32 +105,37 @@ def gemma_paths(torch, out):
               dataclasses.replace(int8, use_lut=True), q8, dict(kv_bits=8)),
              ("4 --lut --paged, bf16", lutf, None,
               dict(paged=True, num_pages=pages))]
+    arms = {None: [{}], "off": [{"graphs": False}], "on": [{"graphs": True}],
+            "both": [{"graphs": False}, {"graphs": True}]}[graphs]
     for label, ctx, params, kw in paths:
         if params is None:
             del q8
             params = lm.init(torch.Generator(device="cuda").manual_seed(0),
                              cfg, dtype=torch.bfloat16, device="cuda")
-        eng = Engine(cfg, ctx, params, **geometry, **kw)
-        for p in prompts:
-            eng.submit(p, gen_len=gen)
-        eng.try_admit()
-        eng.step_many(block)                  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.step_many(block)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        _, busy, launches = profiled(torch, lambda: eng.step_many(block))
-        if not eng.live.all():
-            raise AssertionError(f"{label}: a lane finished inside the "
-                                 f"measured blocks")
-        out[label] = dict(wall_ms_per_step=wall / block,
-                          device_busy_ms_per_step=busy / block,
-                          device_launches_per_step=launches / block)
-        log(f"[ab] {label}: wall {wall / block:.3f} ms/step, device busy "
-            f"{busy / block:.3f} ms/step, {launches / block:.1f} device "
-            f"kernels and copies per step")
-        del eng
+        for arm in arms:
+            name = label + "".join(f", graphs {'on' if v else 'off'}"
+                                   for v in arm.values())
+            eng = Engine(cfg, ctx, params, **geometry, **kw, **arm)
+            for p in prompts:
+                eng.submit(p, gen_len=gen)
+            eng.try_admit()
+            eng.step_many(block)              # warm (graphs: + capture)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step_many(block)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            _, busy, launches = profiled(torch, lambda: eng.step_many(block))
+            if not eng.live.all():
+                raise AssertionError(f"{name}: a lane finished inside the "
+                                     f"measured blocks")
+            out[name] = dict(wall_ms_per_step=wall / block,
+                             device_busy_ms_per_step=busy / block,
+                             device_launches_per_step=launches / block)
+            log(f"[ab] {name}: wall {wall / block:.3f} ms/step, device "
+                f"busy {busy / block:.3f} ms/step, {launches / block:.1f} "
+                f"device kernels and copies per step")
+            del eng
     torch.cuda.empty_cache()
 
 
@@ -177,6 +186,9 @@ def main(argv=None) -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="also append the result line to this file")
+    ap.add_argument("--graphs", choices=["off", "on", "both"], default=None,
+                    help="decode blocks eager, as CUDA graphs, or both in "
+                         "turn (default: the tree's own default)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -191,7 +203,7 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     out = {"label": args.label, "src": args.src, "card": smi}
     log(f"[ab] {args.label} ({args.src}) on {smi}")
-    gemma_paths(torch, out)
+    gemma_paths(torch, out, args.graphs)
     whisper_encode(torch, out)
     line = json.dumps(out)
     print(line)

@@ -29,7 +29,10 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    MLA width, bf16 and f32), with the kernel's, the plain version's and a
    library call's device time (median of cold-L2 launches, CUDA events)
    and the kernel/library factor beside the least time the card could
-   take;
+   take; then sampling (PyTorch ops, no kernel of the port) at (8,
+   256000): bitwise its plain version on the card, threefry bits bitwise
+   the CPU's, its device time from a CUDA graph replay and its device
+   kernels per call;
 4. serve full-width gemma-2b, bf16 compute, batch 8, prompt 128, gen 32,
    on four paths, each with the launch counters reset just before it and
    read just after, failing if a kernel of the path never launched:
@@ -39,7 +42,15 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    18 launches per model call, lut_activation none); ``--quant int8 --lut
    --kv-bits 8`` on the dense cache (the fused table epilogue, int8 KV
    rows, the table softmax); every int8 path launches one quantize_rows
-   per qmatmul.  Logits of one
+   per qmatmul.  Every decode block runs as a CUDA graph replay (one
+   graph per block length and greedy/sampled, launch counts added per
+   replay).  The sampled path: int8 paged, half the lanes at
+   temperature 0.8 and top_k 40, served eagerly and graphed (identical
+   streams and counts), and graphed in blocks of 2 + 3 and of 5
+   (identical streams).  The graphs A/B: paths 1, 3 and 4 with graphs
+   off and on, in turns, on the same prompts: identical streams and
+   counts, wall per step (three pairs) and device busy per step of both
+   (path 1 also graphed with every lane sampled).  Logits of one
    prefill chunk and 4 decode steps through the kernels are compared with
    the plain versions' on the int8 paged and the LUT paged configurations;
    then path 5: full-width whisper-base through the serving step builders
@@ -581,6 +592,75 @@ def check_flash(torch, timer, rows):
                 f"bound={bnd:.4f}ms ({by})")
 
 
+def check_sampling(torch, timer, report):
+    """``sample_tokens_fused`` (the ``cuda`` lowering of
+    ``ops.sample_tokens``: PyTorch ops, no kernel of the port, as the
+    reference leaves sampling to XLA) at the decode block's shape, (8,
+    256000) f32 logits, half the slots at temperature 0.8 and top_k 40:
+    bitwise ``sample_tokens_ref`` on the card, its threefry bits bitwise
+    the CPU's; its device time (cold L2) beside the greedy argmax, the
+    plain version's, and the device kernels one call issues."""
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.ref import sample_tokens_ref
+    from repro_torch.kernels.sampling import sample_tokens_fused
+    b, v = 8, 256000
+    g = torch.Generator(device="cuda").manual_seed(5)
+    logits = torch.randn((b, v), generator=g, device="cuda") * 3
+    temp = torch.tensor([t for t, _ in SAMPLING], device="cuda")
+    top_k = torch.tensor([k for _, k in SAMPLING], dtype=torch.int32,
+                         device="cuda")
+    key = prng.fold_in(prng.PRNGKey(SAMPLE_SEED, "cuda"),
+                       torch.tensor(3, dtype=torch.int32, device="cuda"))
+    host_key = prng.fold_in(prng.PRNGKey(SAMPLE_SEED), 3)
+    got = sample_tokens_fused(logits, temp, top_k, key)
+    want = sample_tokens_ref(logits, temp, top_k, key)
+    bits_equal = torch.equal(prng.random_bits(key, (b, v)).cpu(),
+                             prng.random_bits(host_key, (b, v)))
+    if not (torch.equal(got, want) and bits_equal
+            and torch.equal(key.cpu(), host_key)):
+        raise AssertionError(f"sample_tokens_fused {got.tolist()} vs ref "
+                             f"{want.tolist()}; threefry bits equal to the "
+                             f"CPU's: {bits_equal}")
+    # its ~200 small kernels take longer to enqueue than the timer's spin
+    # covers: the device time is a graph replay's, and the busy time the
+    # profiler's sum of its kernels
+    graphs = {}
+    for name, fn in (("sampled", lambda: sample_tokens_fused(
+            logits, temp, top_k, key)),
+            ("greedy", lambda: sample_tokens_fused(logits, temp, top_k)),
+            ("noise", lambda: prng.gumbel(key, (b, v))),
+            ("plain", lambda: sample_tokens_ref(logits, temp, top_k, key))):
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            out = fn()
+        if name == "sampled":
+            graphs[name].replay()
+            if not torch.equal(out, want):
+                raise AssertionError("sample_tokens_fused replayed from a "
+                                     "CUDA graph draws other tokens")
+    ms = {name: timer(g.replay) for name, g in graphs.items()}
+    eager_ms = timer(lambda: sample_tokens_fused(logits, temp, top_k, key))
+    busy, kernels = _profiled_busy(
+        torch, lambda: sample_tokens_fused(logits, temp, top_k, key))
+    del graphs
+    # least bytes: read the logits once, write B ids
+    bound, by = bound_ms(4 * b * v + 4 * b, 0, F32_FLOP_PER_S)
+    row = dict(shape=f"{b}x{v} f32", ms=ms["sampled"],
+               plain_ms=ms["plain"], greedy_argmax_ms=ms["greedy"],
+               gumbel_noise_ms=ms["noise"], eager_ms=eager_ms,
+               device_busy_ms=busy, device_kernels=kernels, bound_ms=bound,
+               bound_by=by, library_ms=None, tokens=got.tolist())
+    report["sampling"] = row
+    log(f"[sampling] sample_tokens_fused {b}x{v} f32 (half the slots at "
+        f"0.8 / top_k 40): bitwise the plain version on the card and from "
+        f"a CUDA graph, threefry bits bitwise the CPU's; graph replay "
+        f"{fmt_ms(ms['sampled'])} (device busy {fmt_ms(busy)}, {kernels} "
+        f"device kernels and copies; the noise alone {fmt_ms(ms['noise'])},"
+        f" greedy argmax alone {fmt_ms(ms['greedy'])}), eager "
+        f"{fmt_ms(eager_ms)}, plain {fmt_ms(ms['plain'])}, bound "
+        f"{fmt_ms(bound)} ({by}); no library call samples")
+
+
 def _sdpa_dense(torch, F, q, k, v, causal):
     """The library yardstick for the flash kernel: SDPA on K/V expanded to
     the query heads, with the bottom-right causal mask (queries the last
@@ -629,19 +709,25 @@ def yardstick(timer, fn):
         return None
 
 
-def run_path(torch, label, eng, prompts, gen_len, expect):
+def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
+             first=()):
     """Drive one path through the engine's entry points: the launch counts
     are set to 0 just before and read just after; every kernel named in
-    ``expect`` must have launched.  Returns (run summary, counts)."""
+    ``expect`` must have launched, and a graphed engine must have run its
+    blocks as CUDA graphs.  ``sampling``: per-prompt (temperature, top_k)
+    (default greedy); blocks of the lengths in ``first``, then of 8
+    steps.  Returns (run summary, counts)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.lifecycle import RequestStatus
+    sampling = sampling or [(0.0, 0)] * len(prompts)
     reset_launch_counts()
     t1 = time.perf_counter()
-    ids = [eng.submit(p, gen_len=gen_len) for p in prompts]
+    ids = [eng.submit(p, gen_len=gen_len, temperature=t, top_k=k)
+           for p, (t, k) in zip(prompts, sampling)]
     eng.try_admit()
     blocks = 0
     while eng.live.any() or eng.waiting:
-        eng.step_many(8)
+        eng.step_many(first[blocks] if blocks < len(first) else 8)
         blocks += 1
     eng.retire_finished()
     torch.cuda.synchronize()
@@ -661,6 +747,8 @@ def run_path(torch, label, eng, prompts, gen_len, expect):
     if missing:
         raise AssertionError(f"{label}: kernels of the path never launched: "
                              f"{missing} ({counts})")
+    if st["graphs"] and st["graph_captures"] == 0:
+        raise AssertionError(f"{label}: no decode block ran as a CUDA graph")
     run = dict(requests=len(ids), paged=eng.paged, kv_bits=eng.kv_bits,
                lut=eng.ctx.use_lut, quant=eng.ctx.mode,
                kv_split=eng.kv_split, pages_per_step=eng.pages_per_step,
@@ -668,7 +756,9 @@ def run_path(torch, label, eng, prompts, gen_len, expect):
                decode_tok_per_s=st["decode_tok_per_s"], decode_s=st["decode_s"],
                gen_tokens=st["gen_tokens"], decode_steps=st["decode_steps"],
                prefill_chunks=st["prefill_chunks"], blocks=blocks,
-               wall_s=wall, launches=counts,
+               wall_s=wall, launches=counts, graphs=st["graphs"],
+               graph_captures=st["graph_captures"],
+               graph_capture_s=st["graph_capture_s"],
                streams=[eng.results[i]["tokens"] for i in ids])
     cache = (f"paged, knobs (pages_per_step={eng.pages_per_step}, "
              f"kv_split={eng.kv_split})" if eng.paged else "dense")
@@ -676,7 +766,10 @@ def run_path(torch, label, eng, prompts, gen_len, expect):
         f"in {wall:.2f}s, {cache}, TTFT mean {st['ttft_mean_s']:.4f}s, "
         f"decode {st['decode_tok_per_s']:.1f} tok/s over {blocks} blocks "
         f"({st['decode_steps']} decode steps, {st['prefill_chunks']} prefill "
-        f"chunks); kernel launches {json.dumps(counts)}")
+        f"chunks), {'CUDA graphs' if st['graphs'] else 'eager'} "
+        f"({st['graph_captures']} captured in "
+        f"{st['graph_capture_s']:.2f}s); kernel launches "
+        f"{json.dumps(counts)}")
     return run, counts
 
 
@@ -747,6 +840,12 @@ def serve_main_path(torch, rows_out, profile: bool):
         f"weights are full of near-ties; association order flips them)")
     rows_out["split_vs_unsplit_first_diff"] = first_diff
 
+    # -- the sampled path: int8 paged, half the lanes sampled, graphed -----
+    rows_out["sampled"] = serve_sampled(
+        torch, cfg, int8, params, prompts[:batch], gen_len, geometry,
+        greedy=runs["int8 paged, auto knobs"]["streams"][:batch],
+        record=record)
+
     # -- regime (c): int8 weights + tables on the dense cache, int8 KV rows
     label = "int8 --lut --kv-bits 8, dense"
     lut8 = dataclasses.replace(int8, use_lut=True)
@@ -786,6 +885,16 @@ def serve_main_path(torch, rows_out, profile: bool):
             f"; expected no {sorted(stray)} launches ({stray})")
     record(label, run, counts)
 
+    # -- graphs off against graphs on, paths 1, 3 and 4, in this process --
+    ab_len = plen + AB_GEN + 1
+    # a page pool that holds every lane's budget: all 8 admitted at once
+    pool = dict(paged=True, num_pages=2 * batch * -(-ab_len // ps))
+    rows_out["graphs_ab"] = graphs_ab(torch, cfg, [
+        ("1 int8 paged, auto", int8, params, pool),
+        ("3 int8 --lut --kv-bits 8, dense", lut8, params, dict(kv_bits=8)),
+        ("4 --lut --paged, bf16", lutf, bf16, pool)],
+        prompts[:batch], dict(geometry, max_len=ab_len))
+
     for r in runs.values():
         r.pop("streams")
     rows_out["serving"] = runs
@@ -810,6 +919,164 @@ def serve_main_path(torch, rows_out, profile: bool):
             except (RuntimeError, AttributeError) as e:
                 log(f"[profile] failed: {e!r}")
     return total
+
+
+#: the sampled path: half the lanes at temperature 0.8 and top_k 40, half
+#: greedy, keyed by this seed
+SAMPLING, SAMPLE_SEED = [(0.8, 40), (0.0, 0)] * 4, 1
+
+
+def serve_sampled(torch, cfg, ctx, params, prompts, gen_len, geometry, *,
+                  greedy, record):
+    """int8 paged gemma-2b at full width, 8 requests, half sampled (0.8,
+    top_k 40), half greedy: served eagerly and through CUDA graphs, whose
+    streams must be identical (tokens in range, every request complete),
+    as must their launch counts; then through graphs in blocks of 2 + 3
+    and of 5 (then 8), whose streams must be identical too: step ``i``
+    of the engine draws ``fold_in(key, i)``, whatever the block split.
+    The graphed run's counts join the main path's.  ``greedy``: path 1's
+    greedy streams of the same prompts, for the log only."""
+    from repro_torch.launch.serve import Engine
+    runs = {}
+    for label, graphs, first in (("eager", False, ()), ("graphs", True, ()),
+                                 ("graphs, blocks 2+3", True, (2, 3)),
+                                 ("graphs, blocks 5", True, (5,))):
+        eng = Engine(cfg, ctx, params, paged=True, seed=SAMPLE_SEED,
+                     graphs=graphs, **geometry)
+        run, counts = run_path(
+            torch, f"sampled int8 paged, {label}", eng, prompts, gen_len,
+            ("qmatmul", "paged_attention_split", "quantize_rows"),
+            sampling=SAMPLING, first=first)
+        one_quantizer_per_qmatmul(label, counts)
+        runs[label] = run
+        del eng
+    if runs["graphs"]["streams"] != runs["eager"]["streams"] \
+            or runs["graphs"]["launches"] != runs["eager"]["launches"]:
+        raise AssertionError("sampled path: graphed streams or launch counts "
+                             "differ from eager ones")
+    if runs["graphs, blocks 2+3"]["streams"] \
+            != runs["graphs, blocks 5"]["streams"]:
+        raise AssertionError("sampled path: blocks of 2 + 3 and of 5 give "
+                             "different streams")
+    streams = runs["graphs"]["streams"]
+    same = [a == b for a, b in zip(streams, greedy)]
+    log(f"[sampled] graphed streams == eager streams, blocks 2+3 == blocks "
+        f"5: yes; equal to path 1's greedy stream of the same prompt: "
+        f"sampled requests {same[0::2]}, greedy requests {same[1::2]}; "
+        f"decode {runs['eager']['decode_tok_per_s']:.1f} tok/s eager, "
+        f"{runs['graphs']['decode_tok_per_s']:.1f} graphed")
+    record("sampled int8 paged, graphs", runs["graphs"],
+           runs["graphs"]["launches"])
+    out = {}
+    for label, r in runs.items():
+        out[label] = {k: v for k, v in r.items() if k != "streams"}
+    out["equal_to_greedy"] = same
+    return out
+
+
+#: the graphs A/B: 8 lanes, 56 tokens each, so that the warm block, three
+#: timed blocks and two profiled ones per arm run with every lane live
+AB_GEN = 56
+
+
+def _profiled_busy(torch, fn):
+    """(device busy ms, device kernels and copies) of ``fn`` under
+    torch.profiler, the second of two traced runs (the first starts the
+    tracer); (None, 0) when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    return (busy if busy > 0 else None), sum(r[2] for r in rows)
+
+
+def graphs_ab(torch, cfg, paths, prompts, geometry):
+    """Each path with graphs off and on, on the same prompts, in turns on
+    this card: 8-step blocks with all lanes live, wall per step on the
+    host clock (upload to download) three times per arm (off, on, on,
+    off, off, on: three pairs), then device busy and device kernels per
+    step under the profiler.  Path 1 adds a third arm, graphs on with
+    every lane sampled (0.8, top_k 40): what sampling costs a step.  The
+    off and on streams and launch counts (whole runs) must be identical."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import Engine
+    out = {}
+    for label, ctx, params, kw in paths:
+        arms = {"off": (False, (0.0, 0)), "on": (True, (0.0, 0))}
+        if label.startswith("1 "):
+            arms["on, sampled"] = (True, (0.8, 40))
+        engs, ids, counts = {}, {}, {}
+
+        def counted(arm, fn):
+            reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            for k, v in launch_counts().items():
+                counts[arm][k] = counts[arm].get(k, 0) + v
+
+        for arm, (graphs, (t, k)) in arms.items():
+            eng = engs[arm] = Engine(cfg, ctx, params, graphs=graphs,
+                                     seed=SAMPLE_SEED, **geometry, **kw)
+            counts[arm] = {}
+            counted(arm, lambda: ids.__setitem__(arm, [
+                eng.submit(p, gen_len=AB_GEN, temperature=t, top_k=k)
+                for p in prompts]))
+            counted(arm, eng.try_admit)
+            counted(arm, lambda: eng.step_many(8))   # warm (on: + capture)
+        walls = {arm: [] for arm in arms}
+        order = list(arms) + list(arms)[::-1] + list(arms)
+        for arm in order:
+            t0 = time.perf_counter()
+            counted(arm, lambda: engs[arm].step_many(8))
+            walls[arm].append((time.perf_counter() - t0) * 1e3 / 8)
+        busy = {}
+        for arm in arms:
+            ms, n = _profiled_busy(
+                torch, lambda: counted(arm, lambda: engs[arm].step_many(8)))
+            busy[arm] = (None if ms is None else ms / 8, n / 8)
+        for arm, eng in engs.items():
+            if not eng.live.all():
+                raise AssertionError(f"graphs A/B {label} {arm}: a lane "
+                                     f"finished inside the measured blocks")
+            while eng.live.any():
+                counted(arm, lambda: eng.step_many(8))
+            eng.retire_finished()
+        streams = {arm: [engs[arm].results[i]["tokens"] for i in ids[arm]]
+                   for arm in arms}
+        if streams["on"] != streams["off"] or counts["on"] != counts["off"]:
+            raise AssertionError(f"graphs A/B {label}: graphed streams or "
+                                 f"launch counts differ from eager ones "
+                                 f"({counts['on']} vs {counts['off']})")
+        if any(len(x) != AB_GEN for x in streams["on"]):
+            raise AssertionError(f"graphs A/B {label}: short streams")
+        row = {}
+        for arm in arms:
+            w = walls[arm]
+            row[arm] = dict(wall_ms_per_step=w,
+                            wall_spread=(max(w) - min(w)) / statistics
+                            .median(w),
+                            device_busy_ms_per_step=busy[arm][0],
+                            device_kernels_per_step=busy[arm][1],
+                            launches=counts[arm],
+                            graph_captures=engs[arm].blocks.captures)
+            log(f"[graphs] path {label}, graphs {arm}: wall per step "
+                f"{' / '.join(f'{x:.3f}' for x in w)} ms (spread "
+                f"{100 * row[arm]['wall_spread']:.1f}%), device busy per "
+                f"step {fmt_ms(busy[arm][0])}, {busy[arm][1]:.1f} device "
+                f"kernels and copies per step")
+        off, on = (statistics.median(walls[a]) for a in ("off", "on"))
+        log(f"[graphs] path {label}: streams and launch counts identical, "
+            f"graphs off/on; wall per step {off:.3f} -> {on:.3f} ms "
+            f"(medians, {off / on:.2f}x)")
+        out[label] = row
+        del engs
+        torch.cuda.synchronize()
+    return out
 
 
 #: path 5: whisper-base, batch 8, 1500 encoder frames (the 30-second
@@ -880,11 +1147,15 @@ def serve_whisper(torch, report, profile: bool):
         pos = torch.full((b,), plen, dtype=torch.int32, device="cuda")
         live = torch.ones((b,), dtype=torch.bool, device="cuda")
         stop = torch.full((b,), plen + gen, dtype=torch.int32, device="cuda")
+        greedy = {"temperature": torch.zeros((b,), device="cuda"),
+                  "top_k": torch.zeros((b,), dtype=torch.int32,
+                                       device="cuda")}
         streams = []
         t1 = time.perf_counter()
-        for _ in range(gen // w["block"]):
-            cache, tok, pos, live, bt, bl, fault = loop(params, cache, tok,
-                                                        pos, live, stop, -1)
+        for i in range(gen // w["block"]):
+            cache, tok, pos, live, bt, bl, fault = loop(
+                params, cache, tok, pos, live, stop, greedy, None,
+                i * w["block"], -1)
             streams.append(bt.cpu())          # the host's one sync a block
             if fault.any().item():
                 raise AssertionError(f"whisper {label}: non-finite logits")
@@ -1063,7 +1334,10 @@ def profile_whisper(torch, cfg, ctx, params, batch, prefill_step, loop):
                 if what == "prefill":
                     prefill_step(params, batch, cache)
                 else:
-                    loop(params, cache, tok, pos, live, stop, -1)
+                    loop(params, cache, tok, pos, live, stop,
+                         {"temperature": torch.zeros((b,), device="cuda"),
+                          "top_k": torch.zeros((b,), dtype=torch.int32,
+                                               device="cuda")}, None, 0, -1)
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = device_rows(prof)
@@ -1448,6 +1722,8 @@ def main(argv=None) -> int:
     check_quantize_rows(torch, timer, rows)
     torch.cuda.synchronize()
     check_flash(torch, timer, rows)
+    torch.cuda.synchronize()
+    check_sampling(torch, timer, report)
     torch.cuda.synchronize()
     report["checks"] = rows
     counts = {}

@@ -15,7 +15,11 @@ much shared memory, too many threads) never runs and a later
 
 ``LAUNCHES`` counts launches per kernel wrapper: each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
-the main path went through the kernels.
+the main path went through the kernels.  Under CUDA-graph capture a
+wrapper records its launch instead of running it:
+:func:`recorded_launches` takes what a capture counted back out, and
+:func:`add_launches` adds it once per replay, so the counts stay the
+launches that ran.
 
 :func:`zeroed_scratch` hands out the int32 buffers that a kernel leaves
 zeroed after every launch (split-K workspaces, split tickets), one per
@@ -25,6 +29,7 @@ under CUDA-graph capture.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -39,6 +44,7 @@ from typing import Dict, Iterable, List
 import torch
 
 __all__ = ["SOURCES", "LAUNCHES", "launch_counts", "reset_launch_counts",
+           "recorded_launches", "add_launches",
            "build", "library", "check", "stream_of", "sm_count", "BUILD_LOG",
            "zeroed_scratch", "SCRATCH"]
 
@@ -101,6 +107,28 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Around a CUDA-graph capture: yields a dict that, on exit, holds the
+    launches the wrappers counted inside the block (recorded into the
+    graph, not run), and puts ``LAUNCHES`` back as it was on entry (also
+    when the capture raised)."""
+    before = dict(LAUNCHES)
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for k in LAUNCHES:
+            recorded[k] = LAUNCHES[k] - before[k]
+            LAUNCHES[k] = before[k]
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count a replay of a graph that recorded ``counts``."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v
 
 
 def _nvcc() -> str:

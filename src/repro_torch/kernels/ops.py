@@ -22,6 +22,7 @@ from .lut_activation import lut_activation as _lut_activation_cuda
 from .lut_activation import lut_gated_mul as _lut_gated_mul_cuda
 from .qmatmul import qmatmul as _qmatmul_cuda
 from .quantize_rows import quantize_rows as _quantize_rows_cuda
+from .sampling import sample_tokens_fused as _sample_tokens_fused
 
 __all__ = ["lut_activation", "lut_gated_mul", "quantize_rows", "qmatmul",
            "attention", "paged_attention", "sample_tokens"]
@@ -41,10 +42,10 @@ register_op("attention", "ref")(_ref.flash_attention_ref)
 register_op("attention", "cuda")(_flash_attention_cuda)
 register_op("paged_attention", "ref")(_ref.paged_attention_ref)
 register_op("paged_attention", "cuda")(_paged_attention_cuda)
-# greedy choice is one argmax over (B, V): a library reduction on either
-# backend, as the reference leaves it to an XLA fusion (no Pallas kernel)
+# sampling: the reference leaves it to XLA (no Pallas kernel), the port to
+# PyTorch ops on the device (argmax, argsort, the threefry noise)
 register_op("sample_tokens", "ref")(_ref.sample_tokens_ref)
-register_op("sample_tokens", "cuda")(_ref.sample_tokens_ref)
+register_op("sample_tokens", "cuda")(_sample_tokens_fused)
 
 
 def lut_activation(x: torch.Tensor, spec: TableSpec, *,
@@ -108,8 +109,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, qpos, *,
         softmax_scale=softmax_scale, **kw)
 
 
-def sample_tokens(logits, temperature=None, top_k=None, generator=None, *,
+def sample_tokens(logits, temperature, top_k, key=None, *,
                   backend: Optional[str] = None) -> torch.Tensor:
-    """Per-slot next token: (B, V) logits -> (B,) int32 (greedy only)."""
+    """Per-slot next-token draw: (B, V) logits -> (B,) int32 ids.
+
+    ``temperature`` (B,) f32 (<= 0 is greedy) and ``top_k`` (B,) int32
+    (<= 0 is unrestricted) are per slot; ``key`` (a
+    :mod:`~repro_torch.kernels.prng` key) may be None only when every
+    slot is greedy.  See :mod:`repro_torch.kernels.sampling`."""
     return get_impl("sample_tokens", backend)(logits, temperature, top_k,
-                                              generator)
+                                              key)

@@ -385,14 +385,32 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, qpos, *,
 
 
 def sample_tokens_ref(logits: torch.Tensor, temperature=None, top_k=None,
-                      generator=None) -> torch.Tensor:
-    """Greedy token choice: (B, V) logits -> (B,) int32 first-argmax ids.
+                      key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-sampling oracle: (B, V) logits -> (B,) int32 ids.
 
-    Sampled streams (temperature > 0) need the reference's threefry
-    noise and are not ported yet (ROADMAP.md queue 1).
+    The reference's ``sample_tokens_ref`` op for op (its ``k_eff`` form):
+    greedy first-argmax when ``key`` is None; else the rank of each logit
+    by two stable argsorts, candidates ``rank < k_eff`` (``k_eff`` the
+    clipped ``top_k``, or V when ``top_k <= 0``), logits over
+    ``max(temperature, 1e-6)`` plus the shared threefry Gumbel noise,
+    and the perturbed argmax where ``temperature > 0``.  It matches
+    :func:`repro_torch.kernels.sampling.sample_tokens_fused` exactly,
+    ties included (both draw the same noise and rank the same way).
     """
-    if generator is not None:
-        raise NotImplementedError(
-            "sampled decoding is not ported yet (ROADMAP.md queue 1, item "
-            "6: threefry fold_in/gumbel parity); only greedy is supported")
-    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+    from .sampling import gumbel_noise, slot_params
+    logits = logits.to(torch.float32)
+    b, v = logits.shape
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if key is None:
+        return greedy
+    temperature, top_k = slot_params(temperature, top_k, b, logits.device)
+    # rank 0 = the largest logit in its row; candidate iff rank < k
+    order = torch.argsort(-logits, dim=-1, stable=True)             # (B, V)
+    ranks = torch.argsort(order, dim=-1, stable=True)               # (B, V)
+    k_eff = torch.where(top_k > 0, torch.clamp(top_k, 1, v), v)
+    candidate = ranks < k_eff[:, None]
+    temp = torch.clamp_min(temperature, 1e-6)[:, None]
+    perturbed = torch.where(candidate, logits / temp, -torch.inf) \
+        + gumbel_noise(key, (b, v))
+    sampled = torch.argmax(perturbed, dim=-1).to(torch.int32)
+    return torch.where(temperature > 0, sampled, greedy)

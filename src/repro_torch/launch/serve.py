@@ -1,6 +1,6 @@
-"""Serving engine: batched chunked prefill, the fused greedy decode block
-and continuous batching over a dense or paged KV cache (port of the core
-of ``repro.launch.serve``).
+"""Serving engine: batched chunked prefill, the fused decode block (greedy
+or sampled) and continuous batching over a dense or paged KV cache (port
+of the core of ``repro.launch.serve``).
 
 * **Weights are quantized once** (``--quant int8``): :func:`quantize_for_serving`
   runs ``ptq_params`` before serving; every projection then runs the
@@ -14,9 +14,17 @@ of ``repro.launch.serve``).
   still generating keep their position; their chunk writes land at or
   past it (never attended before decode overwrites them) or on the trash
   page.
-* **Device-resident decode**: ``step_many(n)`` runs ``n`` greedy steps
-  whose tokens, positions, live mask and fault lane stay on the card,
-  with one host sync per block.
+* **Device-resident decode**: ``step_many(n)`` runs ``n`` steps whose
+  tokens, positions, live mask, fault lane and draws stay on the card,
+  with one host sync per block.  On the card each block is one CUDA
+  graph replay (one graph per block length and greedy/sampled, captured
+  after one eager block; ``graphs=False`` runs it eagerly), the
+  counterpart of the reference's single jitted ``lax.scan``.
+* **Sampled streams**: per-slot ``temperature`` (<= 0 greedy) and
+  ``top_k`` (<= 0 unrestricted), as the reference: step ``i`` of the
+  engine's life draws threefry Gumbel noise from ``fold_in(PRNGKey(seed),
+  i)``, bit for bit ``jax.random``'s, so a block split never changes a
+  stream.  An all-greedy batch skips the sorts and the noise.
 * **Continuous batching**: ``submit`` queues requests; each block
   boundary retires finished lanes and admits the queue head (FIFO) as
   soon as a lane (and, paged, enough free pages) exists.
@@ -27,7 +35,7 @@ of ``repro.launch.serve``).
   either as int8 rows or pages with bf16 scales.  ``stats()`` reports
   the cache, the knob and the kernel launch counts.
 
-Out of this slice (ROADMAP.md): sampled decoding,
+Out of this slice (ROADMAP.md):
 speculative decoding, prefix caching, preemption, priorities, the
 durable journal, the fleet, the autotuner and non-``lm`` families (the
 ``encdec`` family serves through the step builders of
@@ -41,6 +49,9 @@ Usage::
         --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --quant int8 --lut --kv-bits 8 --batch 8 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+        --quant int8 --paged --temperature 0.8 --top-k 40 --seed 1 \\
+        [--no-graphs]
 """
 
 from __future__ import annotations
@@ -63,10 +74,12 @@ from ..core.quantize import ptq_params
 from ..data.pipeline import SyntheticLM
 from ..kernels import launch_counts
 from ..kernels.flash_attention import _resolve_knobs
+from ..kernels.prng import PRNGKey
 from ..models.api import (get_family, init_cache_fn, init_paged_cache_fn,
                           invalidate_fn, set_block_table)
 from ..nn.context import QuantContext
-from ..train.step import build_decode_loop, build_prefill_step
+from ..train.graphs import DecodeBlocks
+from ..train.step import build_prefill_step
 from .lifecycle import RequestStatus, request_row, validate_request
 from .lifecycle import now as _now
 from .paging import PageAllocator
@@ -113,15 +126,19 @@ def quantize_for_serving(params, ctx: QuantContext):
 
 
 class Engine:
-    """Slot-based continuous batching over chunked prefill and fused greedy
-    decode blocks, on a dense (default) or paged KV cache.
+    """Slot-based continuous batching over chunked prefill and fused decode
+    blocks (greedy or sampled per slot), on a dense (default) or paged KV
+    cache.
 
     ``kv_bits``: None (f32 cache) or 8 (int8 rows / pages with bf16
     scales).  ``kv_split`` / ``pages_per_step`` (paged only): ``"auto"``
     (the cost model, as the reference), or explicit integers;
     ``kv_split=1, pages_per_step=1`` is the unsplit kernel.  ``device``:
     None means ``cuda`` (raises without a GPU); pass ``"cpu"`` to run the
-    plain versions on the CPU.
+    plain versions on the CPU.  ``seed`` keys the sampling noise.
+    ``graphs``: each decode block as a CUDA graph replay; None means on
+    for a CUDA device and off (eager) on the CPU, where asking for graphs
+    raises.
     """
 
     def __init__(self, cfg, ctx: QuantContext, params, *, batch: int,
@@ -129,7 +146,7 @@ class Engine:
                  eos_id: int = -1, seed: int = 0, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_split="auto", pages_per_step="auto",
-                 autotune: str = "off", device=None):
+                 autotune: str = "off", device=None, graphs=None):
         if kv_bits not in (None, 8):
             raise ValueError(f"kv_bits must be None or 8, not {kv_bits!r}")
         if autotune != "off":
@@ -184,12 +201,21 @@ class Engine:
                                        cache_dtype, self.device)
         self.ctx = ctx
         self.prefill = build_prefill_step(cfg, self.ctx)
-        self._loops: Dict[int, callable] = {}
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.blocks = DecodeBlocks(cfg, self.ctx, batch, self.device,
+                                   graphs=graphs)
         self.pos = np.zeros((batch,), np.int32)
         self.live = np.zeros((batch,), bool)
         self.tokens = np.zeros((batch, 1), np.int32)
         self.stop_pos = np.full((batch,), max_len, np.int32)
         self.eos_id = int(eos_id)
+        #: per-slot sampling params; temperature <= 0 = greedy, top_k <= 0
+        #: = unrestricted (see repro_torch.kernels.sampling)
+        self.temperature = np.zeros((batch,), np.float32)
+        self.top_k = np.zeros((batch,), np.int32)
+        self._key = PRNGKey(seed, self.device)
+        self._gen_step = 0          # global decode-step counter (PRNG)
         self.outputs: List[Optional[list]] = [None] * batch
         self.done: List[list] = []
         self.waiting: deque = deque()
@@ -204,21 +230,23 @@ class Engine:
 
     # -- admission ------------------------------------------------------------
     def add_requests(self, requests: Dict[int, np.ndarray], *,
-                     gen_len=None, temperature=None, _t_submit=None,
-                     _ids=None):
+                     gen_len=None, temperature=None, top_k=None,
+                     _t_submit=None, _ids=None):
         """Prefill several fresh slots together (batched chunked prefill).
 
         ``gen_len`` (scalar or ``{slot: v}``) bounds generation
-        (``stop_pos = min(prompt_len + gen_len, max_len)``).  Paged: the
+        (``stop_pos = min(prompt_len + gen_len, max_len)``);
+        ``temperature``/``top_k`` (scalar or ``{slot: v}``, default 0)
+        set the slots' sampling (negative values are refused).  Paged: the
         whole token budget's pages are allocated here (MemoryError when
         the pool is short; queue through :meth:`submit` to wait instead).
         An empty prompt is a single pad token (id 0).
         """
         t_call = self.clock()
         reqs = {int(s): validate_request(p, vocab=self.cfg.vocab,
-                                         temperature=temperature)
+                                         temperature=temperature,
+                                         top_k=top_k)
                 for s, p in requests.items()}
-        self._greedy_only(temperature)
         for s, p in reqs.items():
             if p.shape[0] > self.max_len:
                 raise ValueError(
@@ -249,6 +277,8 @@ class Engine:
             self.live[s] = True
             self.outputs[s] = []
             self.tokens[s, 0] = first[s]
+            self.temperature[s] = per_slot(temperature, s, 0.0)
+            self.top_k[s] = per_slot(top_k, s, 0)
             self.stop_pos[s] = stop_of(s, p.shape[0])
             t_sub = (_t_submit or {}).get(s, t_call)
             rid = (_ids or {}).get(s)
@@ -281,15 +311,6 @@ class Engine:
             self.block_tables[s, :len(pages)] = pages
         self._flush_block_tables()
 
-    @staticmethod
-    def _greedy_only(temperature) -> None:
-        vals = (temperature.values() if isinstance(temperature, dict)
-                else [temperature])
-        if any(v is not None and float(v) > 0 for v in vals):
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) is not ported yet "
-                "(ROADMAP.md queue 1, item 6); only greedy is served")
-
     def _flush_block_tables(self):
         """Upload the host block table into every layer's table (one copy
         covering every edit since the last flush)."""
@@ -303,16 +324,18 @@ class Engine:
         return rid
 
     def submit(self, prompt: np.ndarray, *, gen_len: Optional[int] = None,
-               temperature: float = 0.0) -> int:
-        """Queue a request; returns its id (the key of ``results``)."""
+               temperature: float = 0.0, top_k: int = 0) -> int:
+        """Queue a request; returns its id (the key of ``results``).
+        ``temperature > 0`` samples (``top_k > 0`` restricts the draw to
+        the k best logits); 0 is greedy."""
         prompt = validate_request(prompt, vocab=self.cfg.vocab,
-                                  temperature=temperature)
-        self._greedy_only(temperature)
+                                  temperature=temperature, top_k=top_k)
         if prompt.shape[0] > self.max_len:
             raise ValueError(
                 f"prompt of {prompt.shape[0]} tokens does not fit the "
                 f"cache (max_len={self.max_len})")
         req = {"id": self._mint_id(), "prompt": prompt, "gen_len": gen_len,
+               "temperature": temperature, "top_k": top_k,
                "t_submit": self.clock()}
         if self.paged:
             need = self.allocator.pages_for(self._budget(req))
@@ -348,7 +371,8 @@ class Engine:
         free = [s for s in range(self.batch)
                 if self.outputs[s] is None and not self.live[s]]
         admit: Dict[int, np.ndarray] = {}
-        kw = {"gen_len": {}, "_t_submit": {}, "_ids": {}}
+        kw = {"gen_len": {}, "temperature": {}, "top_k": {}, "_t_submit": {},
+              "_ids": {}}
         planned = 0
         while self.waiting and free:
             req = self.waiting[0]
@@ -361,6 +385,8 @@ class Engine:
             s = free.pop(0)
             admit[s] = req["prompt"]
             kw["gen_len"][s] = req["gen_len"]
+            kw["temperature"][s] = req["temperature"]
+            kw["top_k"][s] = req["top_k"]
             kw["_t_submit"][s] = req["t_submit"]
             kw["_ids"][s] = req["id"]
         if admit:
@@ -401,7 +427,7 @@ class Engine:
 
     # -- decode / retire --------------------------------------------------------
     def step_many(self, n: int):
-        """Run ``n`` fused greedy decode steps, sync once.
+        """Run ``n`` fused decode steps, sync once.
 
         Returns ``(block, block_live)``, (n, B) emitted tokens and their
         validity.  Lanes whose logits went non-finite are finished with
@@ -413,6 +439,7 @@ class Engine:
         t0 = self.clock()
         block, block_live, fault = self._block_decode(n)
         t1 = self.clock()
+        self._gen_step += n
         self.counters["decode_s"] += t1 - t0
         self.counters["decode_steps"] += n
         self.counters["gen_tokens"] += int(block_live.sum())
@@ -433,29 +460,19 @@ class Engine:
         return block, block_live
 
     def _block_decode(self, n: int):
-        """One fused decode block: one upload, ``n`` steps, one download."""
-        loop = self._loops.get(n)
-        if loop is None:
-            loop = build_decode_loop(self.cfg, self.ctx, n)
-            self._loops[n] = loop
-        b = self.batch
-        state = torch.from_numpy(np.concatenate([
-            self.tokens[:, 0], self.pos, self.live.astype(np.int32),
-            self.stop_pos]).astype(np.int32)).to(self.device)
-        tokens, pos, live, stop_pos = state.split(b)
-        self.cache, tokens, pos, live, block, block_live, fault = loop(
-            self.params, self.cache, tokens[:, None].contiguous(), pos,
-            live.bool(), stop_pos, self.eos_id)
-        out = torch.cat([block.reshape(-1), block_live.reshape(-1).int(),
-                         tokens.reshape(-1), pos, live.int(),
-                         fault.int()]).cpu().numpy()      # the one host sync
-        block = out[:n * b].reshape(n, b)
-        block_live = out[n * b:2 * n * b].reshape(n, b).astype(bool)
-        rest = out[2 * n * b:].reshape(4, b)
-        self.tokens = rest[0][:, None].astype(np.int32).copy()
-        self.pos = rest[1].astype(np.int32).copy()
-        self.live = rest[2].astype(bool).copy()
-        return block, block_live, rest[3].astype(bool)
+        """One fused decode block: one upload, ``n`` steps (one graph
+        replay on the card), one download.  The cache is written in
+        place."""
+        state = self.blocks.pack(self.tokens, self.pos, self.live,
+                                 self.stop_pos, self.temperature, self.top_k,
+                                 self._gen_step, self.eos_id)
+        # all-greedy batches skip the top-k sorts and the noise (greedy
+        # consumes no PRNG state, so the stream is unaffected)
+        key = self._key if (self.temperature > 0).any() else None
+        out = self.blocks(self.params, self.cache, state, key, n)
+        block, block_live, self.tokens, self.pos, self.live, fault = \
+            self.blocks.unpack(out, n)
+        return block, block_live, fault
 
     def step(self):
         """Per-token decode: the n=1 block."""
@@ -483,6 +500,8 @@ class Engine:
         self.outputs[slot] = None
         self.live[slot] = False
         self.pos[slot] = 0
+        self.temperature[slot] = 0.0
+        self.top_k[slot] = 0
         self.stop_pos[slot] = self.max_len
         self.cache = invalidate_fn(self.cache, slot, self.cfg)
         if self.paged:
@@ -495,8 +514,11 @@ class Engine:
         """Serving telemetry: TTFT (submit -> first token), decode tokens
         per second of block wall time (syncs included), the model calls
         made (decode steps, prefill chunks), the cache, the resolved
-        split-KV knob (None when dense) and the kernel launch counts --
-        ``lut_activation`` among them -- since the last reset."""
+        split-KV knob (None when dense), whether blocks run as CUDA graphs,
+        how many were captured and the seconds that took (inside
+        ``decode_s``), and the kernel launch counts --
+        ``lut_activation`` among them -- since the last reset (a graph
+        replay counts every launch it runs)."""
         c = self.counters
         out = {"requests": len(self.done), "admitted": c["admitted"],
                "peak_live": c["peak_live"], "gen_tokens": c["gen_tokens"],
@@ -509,7 +531,9 @@ class Engine:
                "kv_split": self.kv_split,
                "pages_per_step": self.pages_per_step,
                "queued": len(self.waiting), "failures": c["failures"],
-               "device": str(self.device),
+               "device": str(self.device), "graphs": self.blocks.graphs,
+               "graph_captures": self.blocks.captures,
+               "graph_capture_s": self.blocks.capture_s,
                "kernel_launches": launch_counts()}
         if self.request_log:
             out["ttft_mean_s"] = float(np.mean(
@@ -541,7 +565,7 @@ _REFUSED = {"--spec": "queue 1, item 8", "--prefix-cache": "queue 1, item 11",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Serve a model with the PyTorch/CUDA port (greedy).")
+        description="Serve a model with the PyTorch/CUDA port.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
@@ -565,10 +589,18 @@ def main(argv=None):
     ap.add_argument("--kv-split", default="auto")
     ap.add_argument("--pages-per-step", default="auto")
     ap.add_argument("--autotune", default="off")
-    ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k best logits (0 = off)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weights, prompts and the sampling key")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain versions)")
+    ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="decode blocks as CUDA graph replays (default: on "
+                         "for cuda; --no-graphs runs them eagerly)")
     for flag in _REFUSED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -579,9 +611,6 @@ def main(argv=None):
     if args.autotune != "off":
         ap.error("--autotune other than 'off' is not ported yet "
                  "(ROADMAP.md queue 1, item 9)")
-    if args.temperature > 0:
-        ap.error("temperature > 0 is not ported yet: greedy only "
-                 "(ROADMAP.md queue 1, item 6)")
 
     cfg = get_config(args.arch)
     if cfg.family == "encdec":
@@ -610,13 +639,15 @@ def main(argv=None):
                  kv_bits=args.kv_bits, prefill_chunk=args.prefill_chunk,
                  seed=args.seed, paged=args.paged, page_size=args.page_size,
                  num_pages=args.num_pages, kv_split=knob(args.kv_split),
-                 pages_per_step=knob(args.pages_per_step), device=device)
+                 pages_per_step=knob(args.pages_per_step), device=device,
+                 graphs=args.graphs)
     src = SyntheticLM(cfg.vocab, seed=args.seed)
     prompts = [src.tokens(i, 1, args.prompt_len)[0, :-1]
                for i in range(args.requests)]
     t0 = time.perf_counter()
     for p in prompts:
-        eng.submit(p, gen_len=args.gen_len)
+        eng.submit(p, gen_len=args.gen_len, temperature=args.temperature,
+                   top_k=args.top_k)
     eng.try_admit()
     gen_tokens = 0
     while eng.live.any() or eng.waiting:
@@ -630,7 +661,9 @@ def main(argv=None):
              else "dense")
     print(f"served {len(eng.done)} requests, {gen_tokens} tokens in "
           f"{dt:.2f}s ({gen_tokens / dt:.1f} tok/s), quant={args.quant} "
-          f"lut={args.lut} kv_bits={args.kv_bits} device={device} {cache}")
+          f"lut={args.lut} kv_bits={args.kv_bits} device={device} {cache} "
+          f"temperature={args.temperature} top_k={args.top_k} "
+          f"graphs={eng.blocks.graphs}")
     print(json.dumps(eng.stats(), default=str))
     return eng.done
 

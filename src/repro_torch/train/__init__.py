@@ -1,1 +1,2 @@
-"""Step builders for serving (training is not ported yet)."""
+"""Step builders for serving and the CUDA-graph dispatch of the decode
+block (training is not ported yet)."""

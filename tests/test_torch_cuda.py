@@ -932,3 +932,184 @@ def test_card_engine_streams_match_cpu_engine(card, weights, cache):
         print(f"{weights} {cache}: first differing token {i} of {gen}, CPU "
               f"top-2 margin {margin:.6g}")
         assert margin < ENGINE_MARGIN_BOUND, (i, margin)
+
+
+# -- the decode block as a CUDA graph, and sampling on the card ----------------
+def _smoke_int8(kv_bits=None):
+    """gemma-2b smoke with int8 weights on the card (f32 compute): every
+    projection through qmatmul and quantize_rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.serve import quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(mode="int8",
+                       policy=PrecisionPolicy.uniform(FixedPointType(8, 4)),
+                       compute_dtype=torch.float32)
+    params = quantize_for_serving(
+        lm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                device="cuda"), ctx)
+    src = SyntheticLM(cfg.vocab, seed=0)
+    prompts = [src.tokens(i, 1, 14)[0, :-1] for i in range(4)]
+    return cfg, ctx, params, prompts
+
+
+GRAPH_CACHES = {"paged-auto": dict(paged=True, page_size=4),
+                "paged-unsplit": dict(paged=True, page_size=4, kv_split=1,
+                                      pages_per_step=1),
+                "dense": {}, "int8-kv": dict(kv_bits=8)}
+#: per-request (temperature, top_k): greedy, or sampled beside a greedy one
+GRAPH_SAMPLING = {"greedy": [(0.0, 0)] * 4,
+                  "sampled": [(0.8, 40), (0.0, 0), (1.3, 5), (0.8, 0)]}
+
+
+def _engine_run(cfg, ctx, params, prompts, kw, sampling, *, graphs,
+                gens=(16, 16, 16, 16), block=4):
+    """Streams, launch counts (reset first) and stats of one Engine run:
+    batch 2, so two requests are admitted after the first blocks."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import Engine
+    eng = Engine(cfg, ctx, params, device="cuda", batch=2, max_len=40,
+                 prefill_chunk=5, seed=7, graphs=graphs, **kw)
+    reset_launch_counts()
+    ids = [eng.submit(p, gen_len=g, temperature=t, top_k=k)
+           for p, g, (t, k) in zip(prompts, gens, GRAPH_SAMPLING[sampling])]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(block)
+    eng.retire_finished()
+    torch.cuda.synchronize()
+    return ([eng.results[i]["tokens"] for i in ids], launch_counts(),
+            eng.stats())
+
+
+@pytest.mark.parametrize("sampling", list(GRAPH_SAMPLING))
+@pytest.mark.parametrize("cache", list(GRAPH_CACHES))
+def test_graphed_engine_streams_equal_eager(card, cache, sampling):
+    """The same requests, graphs on and off: identical streams (greedy and
+    sampled from one seed), identical kernel launch counts (a replay
+    counts what it runs), and the graphed engine captured at most one
+    graph per (block length, sampled)."""
+    cfg, ctx, params, prompts = _smoke_int8()
+    kw = GRAPH_CACHES[cache]
+    eager, e_counts, e_st = _engine_run(cfg, ctx, params, prompts, kw,
+                                        sampling, graphs=False)
+    graphed, g_counts, g_st = _engine_run(cfg, ctx, params, prompts, kw,
+                                          sampling, graphs=True)
+    assert all(len(t) == 16 for t in graphed)
+    assert graphed == eager
+    assert g_counts == e_counts and g_counts["qmatmul"] > 0
+    assert g_counts["quantize_rows"] == g_counts["qmatmul"]
+    assert not e_st["graphs"] and e_st["graph_captures"] == 0
+    # greedy: one block length, one graph; sampled: a graph for blocks
+    # with a sampled lane, and one for all-greedy blocks if any occur
+    assert g_st["graphs"] and g_st["graph_captures"] in \
+        ((1, 2) if sampling == "sampled" else (1,))
+
+
+def test_graph_replays_advance_launch_counts(card):
+    """Each replay adds the launches its graph recorded: one block after
+    the capture counts what an eager block of the same batch counts, and
+    two count twice that."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import Engine
+    cfg, ctx, params, prompts = _smoke_int8()
+    counts = {}
+    for graphs in (False, True):
+        eng = Engine(cfg, ctx, params, device="cuda", batch=2, max_len=40,
+                     paged=True, page_size=4, graphs=graphs)
+        eng.add_requests({0: prompts[0], 1: prompts[1]}, gen_len=30)
+        eng.step_many(4)                         # graphed: eager, capture
+        reset_launch_counts()
+        eng.step_many(4)
+        one = launch_counts()
+        eng.step_many(4)
+        two = launch_counts()
+        assert all(two[k] == 2 * one[k] for k in one)
+        assert one["paged_attention_split"] + \
+            one["paged_attention_unsplit"] == 4 * cfg.n_layers
+        counts[graphs] = one
+    assert counts[True] == counts[False]
+
+
+def test_graph_replay_after_admission_equals_eager(card):
+    """Requests of unequal budgets on a batch of 2: lanes retire and new
+    requests are admitted (block tables rewritten in place, retired dense
+    rows zeroed) long after the graph was captured; the graphed streams
+    are the eager ones."""
+    cfg, ctx, params, prompts = _smoke_int8()
+    gens = (5, 19, 11, 16)
+    for kw in (GRAPH_CACHES["paged-auto"], GRAPH_CACHES["dense"]):
+        eager, _, _ = _engine_run(cfg, ctx, params, prompts, kw, "sampled",
+                                  graphs=False, gens=gens, block=3)
+        graphed, _, st = _engine_run(cfg, ctx, params, prompts, kw,
+                                     "sampled", graphs=True, gens=gens,
+                                     block=3)
+        assert [len(t) for t in graphed] == list(gens)
+        assert graphed == eager
+        assert st["admitted"] == 4 and st["graph_captures"] <= 2
+
+
+def test_sample_tokens_on_card_bitwise(card):
+    """At (8, 256000): the card's threefry bits and fold_in are the CPU's,
+    bitwise; ``sample_tokens_fused`` is ``sample_tokens_ref`` on the card
+    (and on the CPU, with the card's logits), for every slot regime."""
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.ref import sample_tokens_ref
+    from repro_torch.kernels.sampling import sample_tokens_fused
+    b, v = 8, 256000
+    for step in (0, 1, 99):
+        kc = prng.fold_in(prng.PRNGKey(5, "cuda"),
+                          torch.tensor(step, dtype=torch.int32,
+                                       device="cuda"))
+        kh = prng.fold_in(prng.PRNGKey(5), step)
+        assert torch.equal(kc.cpu(), kh)
+        assert torch.equal(prng.random_bits(kc, (b, v)).cpu(),
+                           prng.random_bits(kh, (b, v)))
+        assert torch.equal(prng.uniform(kc, (b, v)).cpu(),
+                           prng.uniform(kh, (b, v)))
+        logits = torch.randn((b, v), generator=card, device="cuda") * 3
+        logits[:, 10:20] = logits.max() + 1      # ties at the k-th rank
+        temp = torch.tensor([0.8, 0.0, 1.3, -1.0, 0.8, 50.0, 0.5, 2.0],
+                            device="cuda")
+        top_k = torch.tensor([40, 0, 5, 3, 0, 5, v + 1, 1],
+                             dtype=torch.int32, device="cuda")
+        got = sample_tokens_fused(logits, temp, top_k, kc)
+        want = sample_tokens_ref(logits, temp, top_k, kc)
+        assert torch.equal(got, want)
+        assert got[5].item() in range(10, 15)
+        # the noise: the card's log rounds as it does, within the ulps the
+        # CPU's noise keeps from JAX's (tests/test_torch_sampling.py)
+        gc, gh = prng.gumbel(kc, (b, v)).cpu(), prng.gumbel(kh, (b, v))
+        bound = 4 * torch.finfo(torch.float32).eps * gh.abs().clamp_min(1.0)
+        assert ((gc - gh).abs() <= bound).all()
+
+
+def test_graphs_follow_replaced_params(card):
+    """The graphs hold the params' addresses: after the engine's params are
+    replaced by other weights, the next block captures anew and serves the
+    new weights, as an eager engine given the same swap does."""
+    from repro_torch.launch.serve import (Engine, prepare_params,
+                                         quantize_for_serving)
+    from repro_torch.models import lm
+    cfg, ctx, params, prompts = _smoke_int8()
+    other = quantize_for_serving(
+        lm.init(torch.Generator(device="cuda").manual_seed(1), cfg,
+                device="cuda"), ctx)
+    streams = {}
+    for graphs in (False, True):
+        eng = Engine(cfg, ctx, params, device="cuda", batch=2, max_len=40,
+                     paged=True, page_size=4, graphs=graphs)
+        eng.add_requests({0: prompts[0], 1: prompts[1]}, gen_len=20)
+        eng.step_many(4)
+        eng.step_many(4)                  # graphed: a replay
+        eng.params = prepare_params(other, ctx, "cuda")
+        while eng.live.any():
+            eng.step_many(4)
+        streams[graphs] = [list(o) for o in eng.outputs]
+        if graphs:
+            assert eng.stats()["graph_captures"] == 2
+    assert streams[True] == streams[False]

@@ -254,10 +254,13 @@ def _streams_torch(cfg, ctx, params, batch):
     pos = torch.full((B,), PLEN, dtype=torch.int32)
     live = torch.ones((B,), dtype=torch.bool)
     stop = torch.full((B,), PLEN + STEPS * BLOCKS, dtype=torch.int32)
+    sp = {"temperature": torch.zeros((B,), dtype=torch.float32),
+          "top_k": torch.zeros((B,), dtype=torch.int32)}
     out = []
-    for _ in range(BLOCKS):
+    for i in range(BLOCKS):
         cache, tok, pos, live, bt, _, fault = loop(params, cache, tok, pos,
-                                                   live, stop, -1)
+                                                   live, stop, sp, None,
+                                                   i * STEPS, -1)
         assert not fault.any()
         out.append(bt.numpy())
     return np.concatenate(out).T
