@@ -16,8 +16,10 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    name and power limit);
 3. hold every kernel against its plain PyTorch version on the card at the
    main path's shapes (gemma-2b at full width: qmatmul at M = 8 and 128
-   over every projection, and over whisper-base's at M = 8, 128 and
-   12000 with and without a bias, all bitwise; paged attention at decode and prefill, unsplit
+   over every projection and at a verify pass's M = 40, over
+   whisper-base's at M = 8, 128 and 12000 with and without a bias, and
+   over the jet MLP's four layers at M = 1, 128 and 16384, all bitwise;
+   paged attention at decode, verify (S = 5) and prefill, unsplit
    and split, plus a ~4096-token decode, lut_activation on one layer's
    gate activations at decode and prefill with every indexing and the
    gelu, silu and softmax-exp tables; lut_gated_mul (the gated MLP's
@@ -32,7 +34,8 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    take; then sampling (PyTorch ops, no kernel of the port) at (8,
    256000): bitwise its plain version on the card, threefry bits bitwise
    the CPU's, its device time from a CUDA graph replay and its device
-   kernels per call;
+   kernels per call; likewise ``verify_tokens_fused`` (speculative
+   decoding's acceptance rule) at (8, 5, 256000);
 4. serve full-width gemma-2b, bf16 compute, batch 8, prompt 128, gen 32,
    on four paths, each with the launch counters reset just before it and
    read just after, failing if a kernel of the path never launched:
@@ -60,7 +63,22 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    int8 one quantize_rows per qmatmul), and
    the logits are held against the plain versions' at path 5's own gates,
    which two planted faults (a causal encoder, zeroed cross K/V) must
-   fail;
+   fail.  Path 6: path 1's configuration with speculative decoding
+   (spec_k 4, graphed) on tiled prompts: the n-gram drafter, the target
+   as its own draft model (its dense draft cache attends through another
+   path than the paged target), a drafter that proposes the n-gram run's
+   committed streams (the target's own chain: the full-acceptance path),
+   the self-drafter on the dense target cache (its streams against the
+   plain dense run's logged, not gated: ROADMAP.md queue 3), and the
+   n-gram drafter with half the lanes sampled; greedy streams held
+   against the plain Engine on the same prompts (identical, or parting
+   only where the plain Engine's own top-2 margin is below 1e-3),
+   graphed == eager, blocks of 2 + 3 rounds == 5, the chain drafter
+   accepting >= 3 of 4 drafts a round; accepted drafts, committed tokens
+   per verify pass, wall per committed token and device busy per round
+   logged.  Path 7: the jet-tagging MLP at batch 1 and 16384, f32, int8
+   PTQ and int8 with the table softmax, the int8 outputs bitwise the
+   plain versions', eager and graphed time per batch beside its bound;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -94,6 +112,13 @@ GEMMA_PROJ = [("wq", 2048, 2048), ("wk/wv", 2048, 256), ("wo", 2048, 2048),
 #: the cross K/V at M = 8 x 1500 frames
 WHISPER_PROJ = [("wq/wk/wv/wo", 512, 512), ("up", 512, 2048),
                 ("down", 2048, 512)]
+#: the jet-tagging MLP's layers (16 -> 64 -> 32 -> 32 -> 5), run at batch
+#: 1, 128 and 16384 (path 7)
+JET_PROJ = [("fc0", 16, 64), ("fc1", 64, 32), ("fc2", 32, 32),
+            ("fc3", 32, 5)]
+#: speculative decoding's draft depth on path 6: a verify pass runs the
+#: model at M = 8 x (SPEC_K + 1) = 40 rows and paged attention at S = 5
+SPEC_K = 4
 
 
 def log(msg: str) -> None:
@@ -169,6 +194,12 @@ def check_qmatmul(torch, timer, rows):
                torch.bfloat16, None, bias)
               for m in (8, 128, 12000) for name, k, n in WHISPER_PROJ
               for bias in (False, True)]
+    # a speculative verify pass (path 6): 8 lanes x (k + 1) rows
+    cases += [(8 * (SPEC_K + 1), f"verify {name}", k, n, torch.bfloat16,
+               None, False) for name, k, n in GEMMA_PROJ]
+    # the jet MLP's layers (path 7), f32 out with the bias epilogue
+    cases += [(m, f"jet {name}", k, n, torch.float32, None, True)
+              for m in (1, 128, 16384) for name, k, n in JET_PROJ]
     for m, name, k, n, out_dtype, spec, with_bias in cases:
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -193,7 +224,9 @@ def check_qmatmul(torch, timer, rows):
         plain_ms = timer(lambda: qmatmul_plain(a, b, sa, sb, bias, out_dtype,
                                                **kw), reps=5)
         lib_ms = ctx_ms = read_ms = None
-        if m > 16 and spec is None:       # torch._int_mm needs M > 16
+        if n % 8:
+            pass                  # torch._int_mm needs N a multiple of 8
+        elif m > 16 and spec is None:     # torch._int_mm needs M > 16
             lib_ms = yardstick(timer, lambda: torch._int_mm(a, b))
         elif spec is None:
             # context, not library columns (other functions): _int_mm on A
@@ -438,6 +471,7 @@ def check_attention(torch, timer, rows):
     # chunk 16 of margin -> a 12-page table; the long case ~4096 tokens
     cases = [("decode", 8, 1, 150, True, 177), ("prefill", 8, 16, 128, False,
                                                 177),
+             ("verify", 8, SPEC_K + 1, 150, True, 177),
              ("decode-4096", 8, 1, 4096, False, 4096 + 16)]
     for label, b, s, tokens, dead, width_tokens in cases:
         for q_dtype in (torch.bfloat16, torch.float32):
@@ -661,6 +695,67 @@ def check_sampling(torch, timer, report):
         f"{fmt_ms(bound)} ({by}); no library call samples")
 
 
+def check_verify(torch, timer, report):
+    """``verify_tokens_fused`` (the ``cuda`` lowering of
+    ``ops.verify_tokens``: PyTorch ops, as the reference leaves it to XLA)
+    at a verify pass's shape, (8, SPEC_K + 1, 256000) f32 logits, half the
+    slots at temperature 0.8 and top_k 40, drafts that follow each row's
+    argmax for a while: bitwise ``verify_tokens_ref`` on the card and from
+    a CUDA graph; its device time as a graph replay (sampled, and greedy),
+    device busy and device kernels a call."""
+    from repro_torch.kernels import prng
+    from repro_torch.kernels.ref import verify_tokens_ref
+    from repro_torch.kernels.speculative import verify_tokens_fused
+    b, s, v = 8, SPEC_K + 1, 256000
+    g = torch.Generator(device="cuda").manual_seed(6)
+    logits = torch.randn((b, s, v), generator=g, device="cuda") * 3
+    draft = logits[:, :SPEC_K].argmax(-1).to(torch.int32)
+    draft[::3, 1:] = 7                      # some chains break early
+    temp = torch.tensor([t for t, _ in SAMPLING], device="cuda")
+    top_k = torch.tensor([k for _, k in SAMPLING], dtype=torch.int32,
+                         device="cuda")
+    key = prng.fold_in(prng.PRNGKey(SAMPLE_SEED, "cuda"),
+                       torch.tensor(3, dtype=torch.int32, device="cuda"))
+    got = verify_tokens_fused(logits, draft, temp, top_k, key)
+    want = verify_tokens_ref(logits, draft, temp, top_k, key)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"verify_tokens_fused {[x.tolist() for x in got]}"
+                             f" vs ref {[x.tolist() for x in want]}")
+    graphs, outs = {}, {}
+    for name, fn in (("sampled", lambda: verify_tokens_fused(
+            logits, draft, temp, top_k, key)),
+            ("greedy", lambda: verify_tokens_fused(logits, draft, temp,
+                                                   top_k)),
+            ("plain", lambda: verify_tokens_ref(logits, draft, temp, top_k,
+                                                key))):
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            outs[name] = fn()
+    graphs["sampled"].replay()
+    if not all(torch.equal(x, y) for x, y in zip(outs["sampled"], want)):
+        raise AssertionError("verify_tokens_fused replayed from a CUDA graph "
+                             "gives other tokens")
+    ms = {name: timer(gr.replay) for name, gr in graphs.items()}
+    busy, kernels = _profiled_busy(
+        torch, lambda: verify_tokens_fused(logits, draft, temp, top_k, key))
+    del graphs, outs
+    bound, by = bound_ms(4 * b * s * v + 4 * b * SPEC_K + 8 * b, 0,
+                         F32_FLOP_PER_S)
+    row = dict(shape=f"{b}x{s}x{v} f32", ms=ms["sampled"],
+               greedy_ms=ms["greedy"], plain_ms=ms["plain"],
+               device_busy_ms=busy, device_kernels=kernels, bound_ms=bound,
+               bound_by=by, library_ms=None,
+               n_advance=got[1].tolist())
+    report["verify"] = row
+    log(f"[verify] verify_tokens_fused {b}x{s}x{v} f32 (half the slots at 0.8 "
+        f"/ top_k 40): bitwise the plain version on the card and from a CUDA "
+        f"graph, n_advance {got[1].tolist()}; graph replay sampled "
+        f"{fmt_ms(ms['sampled'])} (device busy {fmt_ms(busy)}, {kernels} "
+        f"device kernels and copies), greedy {fmt_ms(ms['greedy'])}, plain "
+        f"{fmt_ms(ms['plain'])}, bound {fmt_ms(bound)} ({by}); no library "
+        f"call verifies")
+
+
 def _sdpa_dense(torch, F, q, k, v, causal):
     """The library yardstick for the flash kernel: SDPA on K/V expanded to
     the query heads, with the bottom-right causal mask (queries the last
@@ -710,13 +805,15 @@ def yardstick(timer, fn):
 
 
 def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
-             first=()):
+             first=(), block=8, walls=None):
     """Drive one path through the engine's entry points: the launch counts
     are set to 0 just before and read just after; every kernel named in
     ``expect`` must have launched, and a graphed engine must have run its
     blocks as CUDA graphs.  ``sampling``: per-prompt (temperature, top_k)
-    (default greedy); blocks of the lengths in ``first``, then of 8
-    steps.  Returns (run summary, counts)."""
+    (default greedy); blocks of the lengths in ``first``, then of
+    ``block`` steps (rounds, under speculation).  ``walls``: a list that
+    receives (wall ms, tokens, live lanes, steps, captured) per block.
+    Returns (run summary, counts)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.lifecycle import RequestStatus
     sampling = sampling or [(0.0, 0)] * len(prompts)
@@ -727,7 +824,14 @@ def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
     eng.try_admit()
     blocks = 0
     while eng.live.any() or eng.waiting:
-        eng.step_many(first[blocks] if blocks < len(first) else 8)
+        n = first[blocks] if blocks < len(first) else block
+        live, captures = int(eng.live.sum()), eng.blocks.captures
+        t0 = time.perf_counter()
+        _, block_live = eng.step_many(n)
+        if walls is not None:
+            walls.append(((time.perf_counter() - t0) * 1e3,
+                          int(block_live.sum()), live, n,
+                          eng.blocks.captures != captures))
         blocks += 1
     eng.retire_finished()
     torch.cuda.synchronize()
@@ -895,8 +999,12 @@ def serve_main_path(torch, rows_out, profile: bool):
         ("4 --lut --paged, bf16", lutf, bf16, pool)],
         prompts[:batch], dict(geometry, max_len=ab_len))
 
+    # -- path 6: speculative decoding on path 1's configuration ------------
+    rows_out["spec"] = serve_spec(torch, cfg, int8, params, prompts[:batch],
+                                  gen_len, geometry, record=record)
+
     for r in runs.values():
-        r.pop("streams")
+        r.pop("streams", None)
     rows_out["serving"] = runs
     rows_out["launches"] = total
     split_per_path = {label: r["launches"]["paged_attention_split"]
@@ -974,15 +1082,254 @@ def serve_sampled(torch, cfg, ctx, params, prompts, gen_len, geometry, *,
     return out
 
 
+#: path 6's gate on greedy spec streams against path 1's plain ones: the
+#: verify pass computes logits at M 40 (plain decode at M 8), so cuBLAS's
+#: unembed and torch's reductions may round otherwise; a stream may part
+#: only where the plain Engine's own top-2 margin is below this
+SPEC_MARGIN_BOUND = 1e-3
+
+
+def plain_margins(torch, eng, prompts, streams):
+    """The plain Engine's own logits along its streams: ``eng`` (fresh,
+    the plain run's configuration) prefills ``prompts``, then decode
+    steps at the same batch, cache and knobs, every lane teacher-forced
+    along its stream.  Returns per lane the top-2 margin of the logits
+    that chose each token (token 0 is the prefill's, shared by both
+    engines: None); fails if the replay's argmax is not the stream."""
+    from repro_torch.train.step import build_serve_step
+    step = build_serve_step(eng.cfg, eng.ctx)
+    b, n = len(prompts), len(streams[0])
+    eng.add_requests(dict(enumerate(prompts)), gen_len=n)
+    pos = torch.tensor(eng.pos, dtype=torch.int32, device="cuda")
+    toks = torch.tensor([[s[0]] for s in streams], dtype=torch.int32,
+                        device="cuda")
+    if toks[:, 0].tolist() != eng.tokens[:, 0].tolist():
+        raise AssertionError("plain margins: the replayed prefill chose "
+                             "other first tokens")
+    margins = [[None] for _ in range(b)]
+    for t in range(n - 1):
+        logits, eng.cache = step(eng.params, eng.cache, toks, pos)
+        last = logits[:, -1].float()
+        top2 = last.topk(2, dim=-1).values
+        want = torch.tensor([s[t + 1] for s in streams], device="cuda")
+        if not torch.equal(last.argmax(-1), want):
+            raise AssertionError(f"plain margins: decode step {t} of the "
+                                 f"replay does not reproduce the streams")
+        for r, m in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+            margins[r].append(m)
+        toks, pos = want.to(torch.int32)[:, None], pos + 1
+    return margins
+
+
+def spec_gate(label, streams, plain, margins, *, gated=True):
+    """Path 6's gate 2: every stream equals path 1's plain one, or first
+    parts where the plain Engine's top-2 margin is below
+    SPEC_MARGIN_BOUND; logged and returned per lane as (position,
+    margin), None when identical.  ``gated=False`` logs only."""
+    out = []
+    for r, (a, b) in enumerate(zip(streams, plain)):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            out.append(None)
+            continue
+        m = margins[r][i]
+        out.append((i, m))
+        log(f"[spec] {label}: lane {r} parts from the plain stream at token "
+            f"{i}, plain top-2 margin {m}" + ("" if gated else
+                                              " (logged, not gated)"))
+        if gated and (m is None or m >= SPEC_MARGIN_BOUND):
+            raise AssertionError(f"{label}: lane {r} parts from the plain "
+                                 f"stream at token {i} where the plain "
+                                 f"margin is {m}")
+    return out
+
+
+def _steady(walls):
+    """Wall per block-step, per round and per committed token of the blocks
+    that captured no graph: (ms per step, ms per committed token of a live
+    lane, committed tokens per step of all lanes)."""
+    w = [x for x in walls if not x[4]]
+    if not w:
+        return None, None, None
+    ms = sum(x[0] for x in w)
+    steps = sum(x[3] for x in w)
+    lane_tokens = sum(x[1] / max(x[2], 1) for x in w)
+    return ms / steps, ms / lane_tokens, sum(x[1] for x in w) / steps
+
+
+#: path 6's runs: (label, target cache, drafter, sampled lanes, least
+#: drafts accepted per live round, streams gated against the plain run's)
+SPEC_RUNS = [("a ngram", "paged", "ngram", False, None, True),
+             ("b self-draft", "paged", "self", False, None, True),
+             ("b* chain drafter", "paged", "chain", False, 3.0, True),
+             ("b' self-draft, dense target", "dense", "self", False, None,
+              False),
+             ("c ngram, half sampled", "paged", "ngram", True, None, False)]
+
+
+def chain_drafter(torch, streams, plen: int):
+    """A drafter that proposes each lane's next SPEC_K tokens of
+    ``streams`` (prompts all ``plen`` long): fed the (a) run's committed
+    streams, the target's own greedy chain under the verify pass's
+    numerics, so every draft should survive (the full-acceptance and
+    bonus-token path).  Device ops only: it is captured with the block."""
+    table = torch.tensor([list(x) + [x[-1]] * (SPEC_K + 1) for x in streams],
+                         dtype=torch.int64, device="cuda")
+    steps = torch.arange(1, SPEC_K + 1, device="cuda")[None, :]
+
+    def drafter(hist, tok, pos):
+        idx = pos.to(torch.int64)[:, None] - plen + steps
+        return torch.gather(table, 1, idx.clamp(0, table.shape[1] - 1))
+    return drafter
+
+
+def serve_spec(torch, cfg, ctx, params, prompts, gen_len, geometry, *,
+               record):
+    """Path 6: path 1's configuration (int8 weights, paged f32 KV at the
+    auto knobs, batch 8, prompt 128, gen 32, page 16) with speculative
+    decoding, spec_k SPEC_K, graphed, on tiled (repetitive) prompts: (a)
+    the n-gram drafter; (b) the target as its own draft model (same cfg,
+    params and ctx), whose dense draft cache attends through the einsum
+    path (bf16 operands), not the paged kernel, so its drafts part from
+    the target's chain wherever that rounding flips an argmax; (b*) a
+    drafter that proposes (a)'s committed streams, the target's own chain,
+    so every greedy draft should survive (the full-acceptance and
+    bonus-token path); (b') (b) on the dense target cache (drafter and
+    target on the einsum path); (c) (a) with half the lanes at
+    temperature 0.8 and top_k 40.  Gates: greedy streams equal the plain
+    Engine's on the same prompts and cache (spec_gate; (b') is logged,
+    not gated: ROADMAP.md queue 3); graphed == eager streams and launch
+    counts; (c) in blocks of 2 + 3 rounds == blocks of 5; qmatmul,
+    quantize_rows (one per qmatmul) and, paged, split paged attention
+    launched; (b*) accepts >= 3.0 of SPEC_K drafts per live round.
+    Logged per run: accepted per round, committed tokens per verify pass,
+    wall per committed token beside the plain run's wall per step, device
+    busy per round."""
+    import numpy as np
+    from repro_torch.launch.serve import Engine
+    tiled = [np.tile(p[:8], len(p) // 8 + 1)[:len(p)] for p in prompts]
+    expect = {"paged": ("qmatmul", "quantize_rows", "paged_attention_split"),
+              "dense": ("qmatmul", "quantize_rows")}
+    out, runs, walls, plain, margins = {}, {}, {}, {}, {}
+
+    def engine(cache, graphs, **kw):
+        return Engine(cfg, ctx, params, paged=cache == "paged",
+                      graphs=graphs, seed=SAMPLE_SEED, **geometry, **kw)
+
+    drafters = {}
+
+    def spec_kw(drafter):
+        kw = dict(spec=True, spec_k=SPEC_K)
+        if drafter == "self":
+            kw["spec_draft"] = (cfg, params, ctx)
+        elif drafter == "chain":
+            kw["drafter_fn"] = drafters["chain"]
+        return kw
+
+    for cache in ("paged", "dense"):
+        label = f"path 6 plain, tiled prompts, {cache}"
+        walls[label] = []
+        runs[label], _ = run_path(torch, label, engine(cache, True), tiled,
+                                  gen_len, expect[cache], walls=walls[label])
+        plain[cache] = runs[label]["streams"]
+        margins[cache] = plain_margins(torch, engine(cache, False), tiled,
+                                       plain[cache])
+    for kind, cache, drafter, sampled, least, gated in SPEC_RUNS:
+        sampling = SAMPLING if sampled else None
+        arms = [("graphs", True, ()), ("eager", False, ())]
+        if sampled:
+            arms += [("graphs, blocks 2+3", True, (2, 3)),
+                     ("graphs, blocks 5", True, (5,))]
+        for arm, graphs, first in arms:
+            label = f"path 6 spec {kind}, {arm}"
+            walls[label] = []
+            eng = engine(cache, graphs, **spec_kw(drafter))
+            run, counts = run_path(
+                torch, label, eng, tiled, gen_len, expect[cache],
+                sampling=sampling, first=first, block=5 if first else 2,
+                walls=walls[label])
+            one_quantizer_per_qmatmul(label, counts)
+            st = eng.stats()
+            run.update(accepted_per_step=st["accepted_per_step"],
+                       verify_steps=st["verify_steps"],
+                       committed_per_verify=st["gen_tokens"]
+                       / max(st["verify_steps"], 1))
+            runs[label] = run
+            del eng
+        g, e = runs[f"path 6 spec {kind}, graphs"], \
+            runs[f"path 6 spec {kind}, eager"]
+        if g["streams"] != e["streams"] or g["launches"] != e["launches"]:
+            raise AssertionError(f"path 6 {kind}: graphed streams or launch "
+                                 f"counts differ from eager ones")
+        if sampled and runs[f"path 6 spec {kind}, graphs, blocks 2+3"][
+                "streams"] != runs[f"path 6 spec {kind}, graphs, blocks 5"][
+                "streams"]:
+            raise AssertionError(f"path 6 {kind}: blocks of 2 + 3 rounds and "
+                                 f"of 5 give different streams")
+        gate = None if sampled else spec_gate(
+            kind, g["streams"], plain[cache], margins[cache], gated=gated)
+        if kind.startswith("a "):
+            drafters["chain"] = chain_drafter(torch, g["streams"],
+                                              len(tiled[0]))
+        if least is not None and g["accepted_per_step"] < least:
+            raise AssertionError(f"path 6 {kind}: {g['accepted_per_step']:.3f}"
+                                 f" drafts accepted per round, expected >= "
+                                 f"{least} of {SPEC_K}")
+        record(f"spec {kind}, graphs", g, g["launches"])
+        out[kind] = dict(gate_vs_plain=gate, graphs=g, eager=e)
+    # steady state (blocks that captured nothing) and device busy per round
+    steady = {cache: _steady(walls[f"path 6 plain, tiled prompts, {cache}"])
+              [0] for cache in ("paged", "dense")}
+    for kind, cache, drafter, sampled, _, _ in SPEC_RUNS:
+        g = out[kind]["graphs"]
+        per_round, per_token, tokens = _steady(
+            walls[f"path 6 spec {kind}, graphs"])
+        eng = engine(cache, True, **spec_kw(drafter))
+        for p, (t, k) in zip(tiled, SAMPLING if sampled
+                             else [(0.0, 0)] * len(tiled)):
+            eng.submit(p, gen_len=gen_len, temperature=t, top_k=k)
+        eng.try_admit()
+        eng.step_many(1)                      # eager block and capture
+        top = []
+        busy, kernels = _profiled_busy(torch, lambda: eng.step_many(1), top)
+        del eng
+        g.update(wall_ms_per_round=per_round,
+                 wall_ms_per_committed_token=per_token,
+                 committed_tokens_per_round=tokens,
+                 device_busy_ms_per_round=busy,
+                 device_kernels_per_round=kernels,
+                 device_top=[dict(kernel=k, ms=ms, count=n)
+                             for k, ms, n in top],
+                 plain_wall_ms_per_step=steady[cache])
+        log(f"[spec] {kind}: accepted_per_step {g['accepted_per_step']:.3f} "
+            f"of {SPEC_K}, {g['committed_per_verify']:.3f} committed tokens "
+            f"per verify pass (all lanes: {tokens:.2f} a round); wall "
+            f"{per_round:.3f} ms a round, {per_token:.3f} ms per committed "
+            f"token of a live lane, against the plain {cache} run's graphed "
+            f"{steady[cache]:.3f} ms a step; device busy {fmt_ms(busy)} a "
+            f"round ({kernels} device kernels and copies)")
+        for k, ms, n in top[:6]:
+            log(f"[spec]   {ms:8.3f} ms  x{n:<5d} {k[:90]}")
+    for r in runs.values():
+        r.pop("streams", None)
+    for cache in ("paged", "dense"):
+        out[f"plain {cache}"] = dict(
+            runs[f"path 6 plain, tiled prompts, {cache}"],
+            wall_ms_per_step=steady[cache])
+    out["others"] = {k: v for k, v in runs.items() if "blocks" in k}
+    return out
+
+
 #: the graphs A/B: 8 lanes, 56 tokens each, so that the warm block, three
 #: timed blocks and two profiled ones per arm run with every lane live
 AB_GEN = 56
 
 
-def _profiled_busy(torch, fn):
+def _profiled_busy(torch, fn, top=None):
     """(device busy ms, device kernels and copies) of ``fn`` under
     torch.profiler, the second of two traced runs (the first starts the
-    tracer); (None, 0) when the trace holds no device time."""
+    tracer); (None, 0) when the trace holds no device time.  ``top``: a
+    list that receives the 12 longest (kernel, ms, count)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         torch.cuda.synchronize()
@@ -991,6 +1338,8 @@ def _profiled_busy(torch, fn):
             fn()
             torch.cuda.synchronize()
     rows = device_rows(prof)
+    if top is not None:
+        top.extend(rows[:12])
     busy = sum(r[1] for r in rows)
     return (busy if busy > 0 else None), sum(r[2] for r in rows)
 
@@ -1077,6 +1426,112 @@ def graphs_ab(torch, cfg, paths, prompts, geometry):
         del engs
         torch.cuda.synchronize()
     return out
+
+
+#: path 7: the jet-tagging MLP at a single event and at a large batch
+JET_BATCHES = (1, 16384)
+
+
+def serve_jet(torch, report) -> dict:
+    """Path 7: the paper's jet-tagging MLP (16 -> 64 -> 32 -> 32 -> 5,
+    ``repro_torch.models.mlp``), random weights from a seed, f32 compute,
+    at batch 1 and 16384: f32 weights (``torch.matmul``: held against the
+    CPU's forward), int8 PTQ weights (every layer through quantize_rows and
+    qmatmul) and int8 with the table softmax (``predict`` under
+    ``use_lut``); the int8 logits and probabilities bitwise the plain
+    versions' on the card, the launch counts reset just before and read
+    just after (one quantize_rows per qmatmul, four of each per forward).
+    Time per batch, warm (a deployed tagger's 4 KB of weights stay in L2):
+    the eager forward between CUDA events (the host's enqueue included),
+    the same forward as a CUDA graph replay (checked bitwise against the
+    eager output), and the device busy time and device kernels of one
+    eager forward (torch.profiler), beside the least time the card could
+    take (the input read once, the output written once, the weights once;
+    the products at the int8 or f32 peak).  Returns the launch counts of
+    the checked forwards (the timing runs' are not counted)."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.core.quantize import ptq_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import mlp
+    from repro_torch.nn.context import QuantContext
+    pol = PrecisionPolicy.uniform(FixedPointType(8, 4))
+    f32 = QuantContext(mode="none", compute_dtype=torch.float32)
+    int8 = QuantContext(mode="int8", policy=pol, compute_dtype=torch.float32)
+    lut = dataclasses.replace(int8, use_lut=True)
+    params = mlp.init(torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    ptq = ptq_params(params, pol)
+    macs = sum(k * n for _, k, n in JET_PROJ)
+    wbytes = {"f32": sum(4 * (k * n + n) for _, k, n in JET_PROJ),
+              "int8": sum(k * n + 8 * n for _, k, n in JET_PROJ)}
+    rows, total = [], {}
+    for b in JET_BATCHES:
+        x = torch.randn((b, 16), generator=torch.Generator(device="cuda")
+                        .manual_seed(b), device="cuda") * 1.5
+        for name, weights, ctx, fn in (
+                ("f32", params, f32, mlp.forward),
+                ("int8 ptq", ptq, int8, mlp.forward),
+                ("int8 ptq + lut softmax", ptq, lut, mlp.predict)):
+            reset_launch_counts()
+            got = fn(weights, x, ctx)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            if ctx.mode == "int8" and not (
+                    counts["qmatmul"] == counts["quantize_rows"]
+                    == len(JET_PROJ)):
+                raise AssertionError(f"path 7 jet MLP {name}, batch {b}: "
+                                     f"expected {len(JET_PROJ)} qmatmul and "
+                                     f"quantize_rows launches ({counts})")
+            if ctx.mode == "int8":
+                want = fn(weights, x, dataclasses.replace(ctx, backend="ref"))
+                err = (got - want).abs().max().item()
+                ok = torch.equal(got, want)
+            else:
+                want = fn({k: {n: t.cpu() for n, t in v.items()}
+                           for k, v in weights.items()}, x.cpu(), ctx)
+                err = (got.cpu() - want).abs().max().item()
+                ok = err <= 1e-4
+            if not (ok and got.shape == (b, 5)
+                    and torch.isfinite(got).all().item()):
+                raise AssertionError(f"path 7 jet MLP {name}, batch {b}: "
+                                     f"max_abs_err {err}")
+            ms = event_ms(torch, lambda: fn(weights, x, ctx), reps=9)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = fn(weights, x, ctx)
+            graph.replay()
+            if not torch.equal(replayed, got):
+                raise AssertionError(f"path 7 jet MLP {name}, batch {b}: a "
+                                     f"CUDA graph replay gives other outputs")
+            graph_ms = event_ms(torch, graph.replay, reps=9)
+            del graph
+            busy, kernels = _profiled_busy(torch, lambda: fn(weights, x, ctx))
+            kind = "int8" if ctx.mode == "int8" else "f32"
+            nbytes = 4 * b * 16 + 4 * b * 5 + wbytes[kind]
+            bnd, by = bound_ms(nbytes, 2.0 * b * macs,
+                               INT8_OPS_PER_S if kind == "int8"
+                               else F32_FLOP_PER_S)
+            rows.append(dict(config=name, batch=b, eager_us=ms * 1e3,
+                             graph_us=graph_ms * 1e3,
+                             device_busy_us=None if busy is None
+                             else busy * 1e3, device_kernels=kernels,
+                             bound_us=bnd * 1e3, bound_by=by,
+                             max_abs_err=err, bitwise=kind == "int8"))
+            log(f"[jet] {name}, batch {b}: "
+                + ("bitwise the plain versions" if kind == "int8"
+                   else f"max_abs_err {err:.3g} vs the CPU (tol 1e-4)")
+                + f"; a batch: eager {ms * 1e3:.2f} us, graph replay "
+                f"{graph_ms * 1e3:.2f} us, device busy "
+                f"{'n/a' if busy is None else f'{busy * 1e3:.2f} us'} "
+                f"({kernels} device kernels and copies); bound "
+                f"{bnd * 1e3:.4f} us ({by})")
+    log(f"[jet] kernel launches of path 7's checked forwards: "
+        f"{json.dumps(total)}")
+    report["jet"] = dict(rows=rows, launches=total)
+    return total
 
 
 #: path 5: whisper-base, batch 8, 1500 encoder frames (the 30-second
@@ -1725,6 +2180,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     check_sampling(torch, timer, report)
     torch.cuda.synchronize()
+    check_verify(torch, timer, report)
+    torch.cuda.synchronize()
     report["checks"] = rows
     counts = {}
     if not args.kernels:
@@ -1733,6 +2190,9 @@ def main(argv=None) -> int:
         counts = serve_main_path(torch, report, args.profile)
         torch.cuda.synchronize()
         for k, v in serve_whisper(torch, report, args.profile).items():
+            counts[k] = counts.get(k, 0) + v
+        torch.cuda.synchronize()
+        for k, v in serve_jet(torch, report).items():
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
 

@@ -1,9 +1,11 @@
 """Architecture configs ported so far (``--arch <id>``).
 
-Copies of ``repro.configs`` with the exact published dimensions.  The
-other reference architectures (yi, glm4, command-r, mamba2, deepseek-v2,
-olmoe, llama-vision, zamba2, jet-mlp) wait for their families
-(ROADMAP.md queue 1, items 14-17).
+Copies of ``repro.configs`` with the exact published dimensions.
+``jet-mlp`` is the paper's own model, consumed by
+``repro_torch.models.mlp`` (no serving family).  The other reference
+architectures (yi, glm4, command-r, mamba2, deepseek-v2, olmoe,
+llama-vision, zamba2) wait for their families (ROADMAP.md queue 1,
+items 14, 15 and 17).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from ..models.config import ModelConfig
 
 __all__ = ["get_config", "ARCH_IDS"]
 
-ARCH_IDS = ["gemma-2b", "whisper-base"]
+ARCH_IDS = ["gemma-2b", "whisper-base", "jet-mlp"]
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

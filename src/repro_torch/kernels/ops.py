@@ -23,9 +23,10 @@ from .lut_activation import lut_gated_mul as _lut_gated_mul_cuda
 from .qmatmul import qmatmul as _qmatmul_cuda
 from .quantize_rows import quantize_rows as _quantize_rows_cuda
 from .sampling import sample_tokens_fused as _sample_tokens_fused
+from .speculative import verify_tokens_fused as _verify_tokens_fused
 
 __all__ = ["lut_activation", "lut_gated_mul", "quantize_rows", "qmatmul",
-           "attention", "paged_attention", "sample_tokens"]
+           "attention", "paged_attention", "sample_tokens", "verify_tokens"]
 
 register_op("lut_activation", "ref")(_ref.lut_activation_ref)
 register_op("lut_activation", "cuda")(_lut_activation_cuda)
@@ -46,6 +47,9 @@ register_op("paged_attention", "cuda")(_paged_attention_cuda)
 # PyTorch ops on the device (argmax, argsort, the threefry noise)
 register_op("sample_tokens", "ref")(_ref.sample_tokens_ref)
 register_op("sample_tokens", "cuda")(_sample_tokens_fused)
+# draft verification, likewise XLA's in the reference and PyTorch ops here
+register_op("verify_tokens", "ref")(_ref.verify_tokens_ref)
+register_op("verify_tokens", "cuda")(_verify_tokens_fused)
 
 
 def lut_activation(x: torch.Tensor, spec: TableSpec, *,
@@ -119,3 +123,15 @@ def sample_tokens(logits, temperature, top_k, key=None, *,
     slot is greedy.  See :mod:`repro_torch.kernels.sampling`."""
     return get_impl("sample_tokens", backend)(logits, temperature, top_k,
                                               key)
+
+
+def verify_tokens(logits, draft, temperature, top_k, key=None, *,
+                  backend: Optional[str] = None):
+    """Speculative acceptance rule: (B, S, V) target logits over a drafted
+    block x (B, S - 1) draft ids -> (next_token (B,), n_advance (B,) in
+    [1, S]).  Greedy slots accept the longest prefix of the argmax chain
+    (the committed stream is the plain decoder's); sampled slots run
+    point-mass rejection sampling.  See
+    :mod:`repro_torch.kernels.speculative`."""
+    return get_impl("verify_tokens", backend)(logits, draft, temperature,
+                                              top_k, key)

@@ -2,8 +2,8 @@
 
 A copy of the parts of ``jax.random`` (default ``threefry2x32`` keys,
 ``jax_threefry_partitionable=True``) that the reference's sampling
-calls: ``PRNGKey``, ``fold_in``, 32-bit ``random_bits``, ``uniform`` and
-``gumbel`` (mode ``"low"``).  The port's sampled streams therefore draw
+calls: ``PRNGKey``, ``fold_in``, ``split``, 32-bit ``random_bits``,
+``uniform`` and ``gumbel`` (mode ``"low"``).  The port's sampled streams therefore draw
 the same noise as the JAX Engine's from the same seed.
 
 Keys are (2,) int32 tensors holding the two uint32 words of JAX's raw
@@ -28,8 +28,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "fold_in", "random_bits", "uniform", "gumbel",
-           "threefry2x32"]
+__all__ = ["PRNGKey", "fold_in", "split", "random_bits", "uniform",
+           "gumbel", "threefry2x32"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -80,6 +80,14 @@ def fold_in(key: torch.Tensor, data: Union[int, torch.Tensor]) -> torch.Tensor:
             else _i32(int(data)))
     y0, y1 = threefry2x32(key[0], key[1], 0, data)
     return torch.stack([y0, y1], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``, (num, 2): under the partitionable
+    layout key ``i`` hashes the counts ``(0, i)``, which is
+    ``fold_in(key, i)``, all ``num`` in one pass."""
+    return fold_in(key, torch.arange(num, dtype=torch.int32,
+                                     device=key.device))
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

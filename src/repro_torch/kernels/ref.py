@@ -32,7 +32,7 @@ __all__ = ["lut_activation_ref", "apply_table", "lut_activation_plain",
            "qmatmul_ref", "flash_attention_ref", "flash_attention_plain",
            "paged_attention_ref",
            "paged_attention_split_ref", "combine_splits",
-           "sample_tokens_ref"]
+           "sample_tokens_ref", "verify_tokens_ref"]
 
 _NEG = -1e30
 
@@ -414,3 +414,62 @@ def sample_tokens_ref(logits: torch.Tensor, temperature=None, top_k=None,
         + gumbel_noise(key, (b, v))
     sampled = torch.argmax(perturbed, dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy)
+
+
+def verify_tokens_ref(logits: torch.Tensor, draft: torch.Tensor,
+                      temperature=None, top_k=None,
+                      key: Optional[torch.Tensor] = None):
+    """Draft-verification oracle: (B, S, V) x (B, S - 1) -> (next_token,
+    n_advance), int32; the reference's ``verify_tokens_ref`` op for op.
+
+    Like :func:`sample_tokens_ref` it shares the stochastic pieces with
+    the fused lowering (the noise of
+    :func:`~repro_torch.kernels.speculative.verify_noise`, ranks by two
+    stable argsorts, the temperature floor, the softmax), so the two agree
+    bit for bit; what it derives on its own is the composition: an
+    explicit loop over positions carrying the "chain still alive" flag
+    (the fused one takes a cumulative product), per-position residual
+    masking and the commit selection.
+    """
+    from .sampling import slot_params
+    from .speculative import verify_noise
+    logits = logits.to(torch.float32)
+    b, s, v = logits.shape
+    k = s - 1
+    draft = draft.to(torch.int64)
+    lane = torch.arange(b, device=logits.device)
+    greedy_t = torch.argmax(logits, dim=-1).to(torch.int32)
+    if key is None:
+        accept = draft == greedy_t[:, :k]
+        t_full = greedy_t
+    else:
+        temperature, top_k = slot_params(temperature, top_k, b,
+                                         logits.device)
+        order = torch.argsort(-logits, dim=-1, stable=True)
+        ranks = torch.argsort(order, dim=-1, stable=True)
+        k_eff = torch.where(top_k > 0, torch.clamp(top_k, 1, v), v)
+        candidate = ranks < k_eff[:, None, None]
+        temp = torch.clamp_min(temperature, 1e-6)[:, None, None]
+        scaled = torch.where(candidate, logits / temp, -torch.inf)
+        probs = torch.softmax(scaled, dim=-1)
+        u, g_resample, g_bonus = verify_noise(key, b, k, v)
+        vocab = torch.arange(v, device=logits.device)[None, :]
+        cols, accepts = [], []
+        for j in range(k):
+            accepts.append(u[:, j] < probs[lane, j, draft[:, j]])
+            res = torch.where(vocab == draft[:, j, None], -torch.inf,
+                              scaled[:, j])
+            cols.append(torch.argmax(res + g_resample[:, j], dim=-1))
+        bonus = torch.argmax(scaled[:, k] + g_bonus, dim=-1)
+        t_sampled = torch.stack(cols + [bonus], dim=1).to(torch.int32)
+        is_greedy = (temperature <= 0)[:, None]
+        accept = torch.where(is_greedy, draft == greedy_t[:, :k],
+                             torch.stack(accepts, dim=1))
+        t_full = torch.where(is_greedy, greedy_t, t_sampled)
+    alive = torch.ones((b,), dtype=torch.bool, device=logits.device)
+    n_accept = torch.zeros((b,), dtype=torch.int64, device=logits.device)
+    for j in range(k):
+        alive = alive & accept[:, j]
+        n_accept = n_accept + alive.to(torch.int64)
+    next_token = torch.gather(t_full, 1, n_accept[:, None])[:, 0]
+    return next_token, (n_accept + 1).to(torch.int32)

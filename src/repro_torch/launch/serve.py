@@ -25,20 +25,30 @@ of the core of ``repro.launch.serve``).
   engine's life draws threefry Gumbel noise from ``fold_in(PRNGKey(seed),
   i)``, bit for bit ``jax.random``'s, so a block split never changes a
   stream.  An all-greedy batch skips the sorts and the noise.
+* **Speculative decoding** (``spec=True``): each block runs ``n``
+  draft -> verify rounds (``train.step.build_spec_decode_loop``): ``spec_k``
+  drafts a round from prompt lookup over the committed history
+  (``spec_ngram``), from a draft model of the ``lm`` family
+  (``spec_draft=(cfg, params, ctx)``, its own dense cache, prefilled with
+  the target), or from a caller's ``drafter_fn``; the target verifies them
+  in one call over ``spec_k + 1`` positions.  Greedy streams are the plain
+  engine's; sampled ones keep its distribution.  On the card a block is
+  one CUDA graph replay too.
 * **Continuous batching**: ``submit`` queues requests; each block
   boundary retires finished lanes and admits the queue head (FIFO) as
   soon as a lane (and, paged, enough free pages) exists.
 * **KV cache**: dense by default, as in the reference -- per-slot rows
-  ``max_len + prefill_chunk`` long, a retired slot's rows zeroed -- or
+  ``max_len`` plus a margin long (``prefill_chunk``, or ``spec_k + 2``
+  when larger), a retired slot's rows zeroed -- or
   paged (``paged=True``), with the split-KV knob resolved once per
   geometry, exactly as the reference resolves it.  ``kv_bits=8`` stores
   either as int8 rows or pages with bf16 scales.  ``stats()`` reports
   the cache, the knob and the kernel launch counts.
 
 Out of this slice (ROADMAP.md):
-speculative decoding, prefix caching, preemption, priorities, the
-durable journal, the fleet, the autotuner and non-``lm`` families (the
-``encdec`` family serves through the step builders of
+prefix caching, preemption, priorities, the durable journal, the fleet,
+the autotuner (and with it the adaptive ``spec_k``) and non-``lm``
+families (the ``encdec`` family serves through the step builders of
 ``repro_torch.train.step``, as the reference Engine never runs an
 encoder).  The Engine and the CLI refuse them by name.
 
@@ -52,6 +62,8 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --quant int8 --paged --temperature 0.8 --top-k 40 --seed 1 \\
         [--no-graphs]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+        --quant int8 --paged --spec --spec-k 4 [--spec-draft gemma-2b]
 """
 
 from __future__ import annotations
@@ -139,6 +151,12 @@ class Engine:
     ``graphs``: each decode block as a CUDA graph replay; None means on
     for a CUDA device and off (eager) on the CPU, where asking for graphs
     raises.
+
+    Speculative decoding, as the reference: ``spec`` on, ``spec_k`` drafts
+    a round, prompt lookup over ``spec_ngram`` tokens by default;
+    ``spec_draft=(cfg, params, ctx or None)`` drafts with a second model
+    (``lm`` family, the target's vocab); ``drafter_fn(hist, tok, pos) ->
+    (B, k)`` drafts for tests.  ``step_many(n)`` then runs ``n`` rounds.
     """
 
     def __init__(self, cfg, ctx: QuantContext, params, *, batch: int,
@@ -146,13 +164,20 @@ class Engine:
                  eos_id: int = -1, seed: int = 0, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_split="auto", pages_per_step="auto",
-                 autotune: str = "off", device=None, graphs=None):
+                 autotune: str = "off", spec: bool = False, spec_k: int = 4,
+                 spec_draft=None, spec_ngram: int = 2, drafter_fn=None,
+                 device=None, graphs=None):
         if kv_bits not in (None, 8):
             raise ValueError(f"kv_bits must be None or 8, not {kv_bits!r}")
         if autotune != "off":
             raise NotImplementedError(
                 f"autotune={autotune!r}: the autotuner is not ported yet "
                 f"(ROADMAP.md queue 1, item 9); use 'off'")
+        if not spec and (spec_draft is not None or drafter_fn is not None):
+            raise ValueError(
+                "spec_draft/drafter_fn were given but spec=False -- a "
+                "drafter without speculation would silently never run; "
+                "pass spec=True")
         _refuse_encdec(cfg)
         get_family(cfg)
         self.device = resolve_device(device)
@@ -164,9 +189,39 @@ class Engine:
         self.kv_bits = kv_bits
         cache_dtype = torch.int8 if kv_bits == 8 else torch.float32
         # chunked prefill writes a full chunk at every lane's position,
-        # also at a generating lane's (ignored) one: the margin keeps
+        # also at a generating lane's (ignored) one, and a verify pass
+        # k + 1 rows from a (possibly held) position: the margin keeps
         # those writes past max_len (dense rows, or table entries)
         margin = self.prefill_chunk
+        self.spec, self.spec_k = bool(spec), max(1, int(spec_k))
+        self.spec_ngram = max(1, int(spec_ngram))
+        self.drafter_fn = drafter_fn
+        if self.spec:
+            margin = max(margin, self.spec_k + 2)
+        #: committed tokens per slot at their absolute positions (prompt
+        #: and accepted generations): the prompt-lookup drafter's corpus
+        self.hist = np.zeros((batch, max_len + self.spec_k + 2), np.int32)
+        self.draft = None
+        if self.spec and spec_draft is not None:
+            d_cfg, d_params, d_ctx = spec_draft
+            if d_cfg.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft model vocab {d_cfg.vocab} != target vocab "
+                    f"{cfg.vocab}; drafts would be meaningless")
+            if d_cfg.family != "lm":
+                raise NotImplementedError(
+                    f"draft model {d_cfg.name} ({d_cfg.family}): only lm "
+                    f"drafters are ported (ROADMAP.md queue 1, item 14)")
+            d_ctx = d_ctx or ctx
+            self.draft = (d_cfg, prepare_params(d_params, d_ctx, self.device),
+                          d_ctx)
+            # the drafter's cache is dense: one model's rows, rolled back by
+            # pos, never paged (paging meters the target's admission)
+            self.draft_cache = init_cache_fn(
+                d_cfg, batch, max_len + max(self.prefill_chunk,
+                                            self.spec_k + 2),
+                torch.float32, self.device)
+            self._draft_prefill = build_prefill_step(d_cfg, d_ctx)
         self.paged = bool(paged)
         self._bt_dirty = False
         self.kv_split = self.pages_per_step = None
@@ -203,8 +258,17 @@ class Engine:
         self.prefill = build_prefill_step(cfg, self.ctx)
         if graphs is None:
             graphs = self.device.type == "cuda"
+        spec_kw = None
+        if self.spec:
+            spec_kw = dict(k=self.spec_k, ngram=self.spec_ngram,
+                           hist_len=self.hist.shape[1], drafter="ngram")
+            if drafter_fn is not None:
+                spec_kw["drafter"] = drafter_fn
+            elif self.draft is not None:
+                spec_kw.update(drafter="model", draft_cfg=self.draft[0],
+                               draft_ctx=self.draft[2])
         self.blocks = DecodeBlocks(cfg, self.ctx, batch, self.device,
-                                   graphs=graphs)
+                                   graphs=graphs, spec=spec_kw)
         self.pos = np.zeros((batch,), np.int32)
         self.live = np.zeros((batch,), bool)
         self.tokens = np.zeros((batch, 1), np.int32)
@@ -221,7 +285,8 @@ class Engine:
         self.waiting: deque = deque()
         self.counters = {"peak_live": 0, "admitted": 0, "gen_tokens": 0,
                          "decode_s": 0.0, "failures": 0, "decode_steps": 0,
-                         "prefill_chunks": 0}
+                         "prefill_chunks": 0, "verify_steps": 0,
+                         "draft_accepted": 0}
         self.request_log: List[dict] = []
         self._req_meta: Dict[int, dict] = {}
         self.results: Dict[int, dict] = {}
@@ -280,6 +345,8 @@ class Engine:
             self.temperature[s] = per_slot(temperature, s, 0.0)
             self.top_k[s] = per_slot(top_k, s, 0)
             self.stop_pos[s] = stop_of(s, p.shape[0])
+            self.hist[s, :] = 0
+            self.hist[s, :p.shape[0]] = p
             t_sub = (_t_submit or {}).get(s, t_call)
             rid = (_ids or {}).get(s)
             if rid is None:
@@ -398,7 +465,10 @@ class Engine:
 
         Everything a chunk needs is uploaded once and the per-chunk
         argmaxes stay on the device, so the whole prefill costs one host
-        sync (the reference reads every chunk's logits back).
+        sync (the reference reads every chunk's logits back).  A draft
+        model takes each chunk too (the reference's ``_prefill_draft``):
+        it has then consumed the prompt, one token behind the held first
+        token, which the first draft step consumes.
         """
         chunk = self.prefill_chunk
         plen = max(p.shape[0] for p in reqs.values())
@@ -417,9 +487,12 @@ class Engine:
             if c0 >= plen:
                 break
             cur = torch.where(fresh_d, c0, pos_d).to(torch.int32)
-            logits, self.cache = self.prefill(
-                self.params, {"tokens": toks_d[:, c0:c0 + chunk]},
-                self.cache, cur)
+            piece = {"tokens": toks_d[:, c0:c0 + chunk]}
+            logits, self.cache = self.prefill(self.params, piece, self.cache,
+                                              cur)
+            if self.draft is not None:
+                _, self.draft_cache = self._draft_prefill(
+                    self.draft[1], piece, self.draft_cache, cur)
             self.counters["prefill_chunks"] += 1
             picks.append(torch.argmax(logits.to(torch.float32), dim=-1))
         ids = torch.cat(picks, dim=1).cpu().numpy()
@@ -430,14 +503,18 @@ class Engine:
         """Run ``n`` fused decode steps, sync once.
 
         Returns ``(block, block_live)``, (n, B) emitted tokens and their
-        validity.  Lanes whose logits went non-finite are finished with
-        status FAILED and their valid prefix.  With requests waiting,
-        finished lanes are retired and the queue admitted at the end.
+        validity.  Under ``spec`` ``n`` counts draft -> verify rounds and
+        the block is (n * (spec_k + 1), B), each live slot committing 1 to
+        spec_k + 1 tokens a round.  Lanes whose logits went non-finite are
+        finished with status FAILED and their valid prefix.  With requests
+        waiting, finished lanes are retired and the queue admitted at the
+        end.
         """
         if self._bt_dirty:
             self._flush_block_tables()
         t0 = self.clock()
-        block, block_live, fault = self._block_decode(n)
+        block, block_live, fault = (self._block_spec(n) if self.spec
+                                    else self._block_decode(n))
         t1 = self.clock()
         self._gen_step += n
         self.counters["decode_s"] += t1 - t0
@@ -474,6 +551,27 @@ class Engine:
             self.blocks.unpack(out, n)
         return block, block_live, fault
 
+    def _block_spec(self, n: int):
+        """One speculative block of ``n`` rounds: one upload (with the
+        drafting history), one graph replay on the card, one download
+        (with the accepted counts and the new history)."""
+        state = self.blocks.pack(self.tokens, self.pos, self.live,
+                                 self.stop_pos, self.temperature, self.top_k,
+                                 self._gen_step, self.eos_id, hist=self.hist)
+        key = self._key if (self.temperature > 0).any() else None
+        model_draft = self.draft is not None and self.drafter_fn is None
+        draft = (self.draft[1], self.draft_cache) if model_draft else None
+        out = self.blocks(self.params, self.cache, state, key, n, draft=draft)
+        (block, block_live, self.tokens, self.pos, self.live, fault,
+         accepted, hist) = self.blocks.unpack(out, n)
+        if hist is not None:
+            self.hist = hist
+        # rounds in which a slot was live, and the drafts each committed
+        step_live = block_live.reshape(n, self.spec_k + 1, self.batch)[:, 0]
+        self.counters["verify_steps"] += int(step_live.sum())
+        self.counters["draft_accepted"] += int(accepted[step_live].sum())
+        return block, block_live, fault
+
     def step(self):
         """Per-token decode: the n=1 block."""
         return self.step_many(1)
@@ -504,6 +602,11 @@ class Engine:
         self.top_k[slot] = 0
         self.stop_pos[slot] = self.max_len
         self.cache = invalidate_fn(self.cache, slot, self.cfg)
+        if self.draft is not None:
+            # the draft rounds advance dead lanes too: a recycled slot's
+            # drafter must not see its previous occupant either
+            self.draft_cache = invalidate_fn(self.draft_cache, slot,
+                                             self.draft[0])
         if self.paged:
             self.allocator.free(self._slot_pages.pop(slot, []))
             self.block_tables[slot, :] = self._trash
@@ -518,7 +621,9 @@ class Engine:
         how many were captured and the seconds that took (inside
         ``decode_s``), and the kernel launch counts --
         ``lut_activation`` among them -- since the last reset (a graph
-        replay counts every launch it runs)."""
+        replay counts every launch it runs).  Under ``spec``: the live
+        verify rounds and the mean drafts accepted per round
+        (``accepted_per_step``; committed tokens per round = that + 1)."""
         c = self.counters
         out = {"requests": len(self.done), "admitted": c["admitted"],
                "peak_live": c["peak_live"], "gen_tokens": c["gen_tokens"],
@@ -535,6 +640,11 @@ class Engine:
                "graph_captures": self.blocks.captures,
                "graph_capture_s": self.blocks.capture_s,
                "kernel_launches": launch_counts()}
+        if self.spec:
+            out["verify_steps"] = c["verify_steps"]
+            out["accepted_per_step"] = (c["draft_accepted"]
+                                        / max(c["verify_steps"], 1))
+            out["spec_k"] = self.spec_k
         if self.request_log:
             out["ttft_mean_s"] = float(np.mean(
                 [r["ttft_s"] for r in self.request_log]))
@@ -557,7 +667,7 @@ def build_ctx(args) -> QuantContext:
 
 
 #: reference CLI flags outside this slice -> the ROADMAP.md item porting them
-_REFUSED = {"--spec": "queue 1, item 8", "--prefix-cache": "queue 1, item 11",
+_REFUSED = {"--prefix-cache": "queue 1, item 11",
             "--preempt": "queue 1, item 10",
             "--durable-dir": "queue 1, item 12",
             "--replicas": "queue 1, item 13"}
@@ -597,6 +707,17 @@ def main(argv=None):
                     help="weights, prompts and the sampling key")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain versions)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decoding: draft k tokens a round and "
+                         "verify them with one target call (greedy streams "
+                         "stay the plain engine's)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per verify round")
+    ap.add_argument("--spec-draft", default=None,
+                    help="arch of an lm draft model sharing the target's "
+                         "vocab (implies --spec); default: prompt lookup")
+    ap.add_argument("--spec-ngram", type=int, default=2,
+                    help="context length of the prompt-lookup match")
     ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="decode blocks as CUDA graph replays (default: on "
@@ -631,6 +752,20 @@ def main(argv=None):
         params = get_family(cfg).init(gen, cfg, dtype=ctx.compute_dtype,
                                       device=device)
 
+    if args.spec_draft:
+        args.spec = True                    # a drafter implies --spec
+    spec_draft = None
+    if args.spec_draft:
+        d_cfg = get_config(args.spec_draft)
+        if d_cfg.family != "lm":
+            ap.error(f"--spec-draft {args.spec_draft}: only lm drafters are "
+                     f"ported (ROADMAP.md queue 1, item 14)")
+        if args.smoke:
+            d_cfg = d_cfg.smoke()
+        d_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        spec_draft = (d_cfg, get_family(d_cfg).init(d_gen, d_cfg,
+                                                    device=device), ctx)
+
     def knob(v):
         return "auto" if v == "auto" else int(v)
 
@@ -639,7 +774,9 @@ def main(argv=None):
                  kv_bits=args.kv_bits, prefill_chunk=args.prefill_chunk,
                  seed=args.seed, paged=args.paged, page_size=args.page_size,
                  num_pages=args.num_pages, kv_split=knob(args.kv_split),
-                 pages_per_step=knob(args.pages_per_step), device=device,
+                 pages_per_step=knob(args.pages_per_step), spec=args.spec,
+                 spec_k=args.spec_k, spec_draft=spec_draft,
+                 spec_ngram=args.spec_ngram, device=device,
                  graphs=args.graphs)
     src = SyntheticLM(cfg.vocab, seed=args.seed)
     prompts = [src.tokens(i, 1, args.prompt_len)[0, :-1]
@@ -659,6 +796,9 @@ def main(argv=None):
              f"pages={eng.allocator.num_pages},kv_split={eng.kv_split},"
              f"pages_per_step={eng.pages_per_step})" if eng.paged
              else "dense")
+    if args.spec:
+        cache += (f" spec(k={eng.spec_k},"
+                  f"draft={args.spec_draft or 'ngram'})")
     print(f"served {len(eng.done)} requests, {gen_tokens} tokens in "
           f"{dt:.2f}s ({gen_tokens / dt:.1f} tok/s), quant={args.quant} "
           f"lut={args.lut} kv_bits={args.kv_bits} device={device} {cache} "

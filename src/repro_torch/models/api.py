@@ -12,7 +12,7 @@ from . import encdec, lm
 
 __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
            "init_cache_fn", "init_paged_cache_fn", "set_block_table",
-           "invalidate_fn"]
+           "invalidate_fn", "spec_state_fn", "spec_restore_fn"]
 
 FAMILIES = {"lm": lm, "encdec": encdec}
 
@@ -102,4 +102,27 @@ def invalidate_fn(cache, slot: int, cfg):
             else:
                 val[:, slot].zero_()
     walk(cache)
+    return cache
+
+
+def spec_state_fn(cache, cfg):
+    """The recurrent part of a serving cache, batch axis leading: what
+    speculative decoding checkpoints per block position, because recurrent
+    state cannot un-consume a rejected token.  KV rows rewind by the
+    ``pos`` edit alone (the next block overwrites rejected rows before any
+    query attends them), so the ported families, KV-only, return None.
+    The recurrent families bring their ``spec_state`` hook (ROADMAP.md
+    queue 1, item 14)."""
+    fam = get_family(cfg)
+    if hasattr(fam, "spec_state"):
+        return fam.spec_state(cache)
+    return None
+
+
+def spec_restore_fn(cache, state, cfg):
+    """Write a checkpoint of :func:`spec_state_fn`'s layout back into
+    ``cache``; families that checkpoint nothing return the cache."""
+    fam = get_family(cfg)
+    if hasattr(fam, "spec_restore"):
+        return fam.spec_restore(cache, state)
     return cache

@@ -1113,3 +1113,191 @@ def test_graphs_follow_replaced_params(card):
         if graphs:
             assert eng.stats()["graph_captures"] == 2
     assert streams[True] == streams[False]
+
+
+# -- the jet MLP's qmatmul shapes and the speculative verify pass ------------
+#: the jet-tagging MLP's layers (K x N): K 16 is half of one m16n8k32 step,
+#: N 5 takes the byte-staged B and the scalar output path
+JET_KN = [(16, 64), (64, 32), (32, 32), (32, 5)]
+
+
+@pytest.mark.parametrize("n", QMM_N + [5])
+@pytest.mark.parametrize("m", QMM_M)
+def test_qmatmul_k16_tiling_edges_bitwise(card, m, n):
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    a, b, sa, sb = _qmm_operands(card, m, 16, n)
+    bias = torch.randn((n,), generator=card, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        got = qmatmul(a, b, sa, sb, bias if m % 2 else None, dt)
+        want = qmatmul_plain(a, b, sa, sb, bias if m % 2 else None, dt)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kn", JET_KN, ids=str)
+@pytest.mark.parametrize("m", [1, 128, 16384])
+def test_qmatmul_jet_mlp_shapes_bitwise(card, m, kn):
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    a, b, sa, sb = _qmm_operands(card, m, *kn)
+    bias = torch.randn((kn[1],), generator=card, device="cuda")
+    got = qmatmul(a, b, sa, sb, bias, torch.float32)
+    want = qmatmul_plain(a, b, sa, sb, bias, torch.float32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("weights", ["dynamic", "ptq"])
+def test_jet_mlp_int8_forward_on_card_bitwise(card, weights):
+    """The jet MLP's int8 forward through the kernels equals the plain
+    versions' on the card, and the CPU's, bitwise; one quantize_rows per
+    qmatmul, four each."""
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.core.quantize import ptq_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import _to
+    from repro_torch.models import mlp
+    from repro_torch.nn.context import QuantContext
+    pol = PrecisionPolicy.uniform(FixedPointType(8, 4))
+    ctx = QuantContext(mode="int8", policy=pol, compute_dtype=torch.float32)
+    params = mlp.init(torch.Generator().manual_seed(0), device="cpu")
+    if weights == "ptq":
+        params = ptq_params(params, pol)
+    x = torch.randn((1000, 16), generator=torch.Generator().manual_seed(1))
+    want = mlp.forward(params, x, ctx)
+    pc = _to(params, "cuda")
+    reset_launch_counts()
+    got = mlp.forward(pc, x.cuda(), ctx)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["qmatmul"] == counts["quantize_rows"] == 4
+    plain = mlp.forward(pc, x.cuda(), QuantContext(
+        mode="int8", policy=pol, compute_dtype=torch.float32, backend="ref"))
+    assert torch.equal(got, plain) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("knobs", [(1, 1), (2, 1), (4, 2)])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_paged_attention_verify_shape(card, knobs, q_dtype):
+    """A verify pass's attention: S = k + 1 = 5 queries per lane, gemma's
+    heads (8 on 1 KV head of 256), positions that cross a page and a lane
+    whose last query lands on the trash page's table entries."""
+    from repro_torch.kernels import ops
+    b, hq, d, ps, width, npg, s = 4, 8, 256, 16, 12, 40, 5
+    q = torch.randn((b, hq, s, d), generator=card, device="cuda") \
+        .to(getattr(torch, q_dtype))
+    kp = torch.randn((npg + 1, 1, ps, d), generator=card, device="cuda")
+    vp = torch.randn((npg + 1, 1, ps, d), generator=card, device="cuda")
+    bt = torch.full((b, width), npg, dtype=torch.int32, device="cuda")
+    bt[:, :10] = torch.randperm(npg, generator=card, device="cuda")[:b * 10] \
+        .reshape(b, 10).to(torch.int32)
+    bt[3] = npg                              # a dead lane, all trash
+    qpos = torch.tensor([13, 150, 157, 0], dtype=torch.int32, device="cuda")
+    split, tile = knobs
+    got = ops.paged_attention(q, kp, vp, bt, qpos, kv_split=split,
+                              pages_per_step=tile)
+    want = ops.paged_attention(q, kp, vp, bt, qpos, kv_split=split,
+                               pages_per_step=tile, backend="ref")
+    tol = (dict(atol=2.0 ** -6, rtol=2.0 ** -8) if q_dtype == "bfloat16"
+           else dict(atol=2e-5, rtol=2e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+SPEC_DRAFTERS = ("ngram", "model")
+
+
+def _spec_run(cfg, ctx, params, prompts, kw, sampling, *, graphs, drafter,
+              gens=(16, 16, 16, 16), block=2, device="cuda"):
+    """Streams, launch counts (reset first) and stats of one spec Engine
+    run (k 4): batch 2, so two requests are admitted after the first
+    blocks."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import Engine
+    if drafter == "model":
+        kw = dict(kw, spec_draft=(cfg, params, ctx))
+    eng = Engine(cfg, ctx, params, device=device, batch=2, max_len=48,
+                 prefill_chunk=5, seed=7, graphs=graphs, spec=True, spec_k=4,
+                 **kw)
+    reset_launch_counts()
+    ids = [eng.submit(p, gen_len=g, temperature=t, top_k=k)
+           for p, g, (t, k) in zip(prompts, gens, GRAPH_SAMPLING[sampling])]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(block)
+    eng.retire_finished()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return ([eng.results[i]["tokens"] for i in ids], launch_counts(),
+            eng.stats())
+
+
+@pytest.mark.parametrize("drafter", SPEC_DRAFTERS)
+@pytest.mark.parametrize("sampling", list(GRAPH_SAMPLING))
+@pytest.mark.parametrize("cache", ["paged-auto", "dense"])
+def test_graphed_spec_streams_equal_eager(card, cache, sampling, drafter):
+    """Speculative blocks, graphs on and off, after admissions (batch 2,
+    four requests of unequal budgets): identical streams and launch
+    counts; each (rounds, sampled) block is one graph."""
+    cfg, ctx, params, prompts = _smoke_int8()
+    kw = GRAPH_CACHES[cache]
+    gens = (5, 19, 11, 16)
+    eager, e_counts, e_st = _spec_run(cfg, ctx, params, prompts, kw,
+                                      sampling, graphs=False,
+                                      drafter=drafter, gens=gens)
+    graphed, g_counts, g_st = _spec_run(cfg, ctx, params, prompts, kw,
+                                        sampling, graphs=True,
+                                        drafter=drafter, gens=gens)
+    assert [len(t) for t in graphed] == list(gens)
+    assert graphed == eager
+    assert g_counts == e_counts and g_counts["qmatmul"] > 0
+    assert g_counts["quantize_rows"] == g_counts["qmatmul"]
+    assert g_st["graph_captures"] in ((1, 2) if sampling == "sampled"
+                                      else (1,))
+    assert g_st["verify_steps"] == e_st["verify_steps"] > 0
+    if drafter == "model" and sampling == "greedy":
+        assert g_st["accepted_per_step"] > 2.0
+
+
+@pytest.mark.parametrize("drafter", SPEC_DRAFTERS)
+@pytest.mark.parametrize("cache", ["paged-auto", "dense"])
+@pytest.mark.parametrize("weights", ["f32", "int8"])
+def test_card_spec_streams_match_cpu_spec_streams(card, weights, cache,
+                                                  drafter):
+    """gemma-2b smoke, f32 compute, spec k 4: the card's greedy spec streams
+    equal the CPU's, or first part where the CPU's own top-2 logit margin
+    is below ENGINE_MARGIN_BOUND (the verify pass runs its logits at M =
+    2 x 5 rows, plain decode at 2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.serve import quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(
+        mode="int8" if weights == "int8" else "none",
+        policy=(PrecisionPolicy.uniform(FixedPointType(8, 4))
+                if weights == "int8" else PrecisionPolicy()),
+        compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if weights == "int8":
+        params = quantize_for_serving(params, ctx)
+    src = SyntheticLM(cfg.vocab, seed=0)
+    prompts = [src.tokens(i, 1, 14)[0, :-1] for i in range(4)]
+    kw = GRAPH_CACHES[cache]
+    want, _, _ = _spec_run(cfg, ctx, params, prompts, kw, "greedy",
+                           graphs=False, drafter=drafter, device="cpu")
+    got, _, _ = _spec_run(cfg, ctx, params, prompts, kw, "greedy",
+                          graphs=True, drafter=drafter)
+    assert all(len(t) == 16 for t in got)
+    for prompt, w, g in zip(prompts, want, got):
+        i = next((i for i, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        if i is None:
+            continue
+        tokens = torch.tensor(np.concatenate([prompt, w[:i]])[None],
+                              dtype=torch.int32)
+        logits, _, _ = lm.forward(params, tokens, cfg, ctx)
+        top2 = logits[0, -1].float().topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"{weights} {cache} {drafter}: first differing token {i}, CPU "
+              f"top-2 margin {margin:.6g}")
+        assert margin < ENGINE_MARGIN_BOUND, (i, margin)

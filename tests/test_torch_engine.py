@@ -129,7 +129,7 @@ def test_refusals():
         eng.submit(np.arange(4), gen_len=2, temperature=0.7, top_k=-1)
     with pytest.raises(ValueError, match="out-of-vocab"):
         eng.submit(np.asarray([cfg.vocab]), gen_len=2)
-    for flag in ("--spec", "--prefix-cache", "--preempt", "--replicas",
+    for flag in ("--prefix-cache", "--preempt", "--replicas",
                  "--durable-dir"):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma-2b", "--smoke", "--paged", "--device",
