@@ -68,17 +68,26 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    as its own draft model (its dense draft cache attends through another
    path than the paged target), a drafter that proposes the n-gram run's
    committed streams (the target's own chain: the full-acceptance path),
-   the self-drafter on the dense target cache (its streams against the
-   plain dense run's logged, not gated: ROADMAP.md queue 3), and the
+   the self-drafter on the dense target cache, and the
    n-gram drafter with half the lanes sampled; greedy streams held
-   against the plain Engine on the same prompts (identical, or parting
-   only where the plain Engine's own top-2 margin is below 1e-3),
+   against the plain Engine on the same prompts and cache (identical, or
+   parting only where the plain Engine's own top-2 margin is below 1e-3),
    graphed == eager, blocks of 2 + 3 rounds == 5, the chain drafter
    accepting >= 3 of 4 drafts a round; accepted drafts, committed tokens
    per verify pass, wall per committed token and device busy per round
    logged.  Path 7: the jet-tagging MLP at batch 1 and 16384, f32, int8
    PTQ and int8 with the table softmax, the int8 outputs bitwise the
-   plain versions', eager and graphed time per batch beside its bound;
+   plain versions', eager and graphed time per batch beside its bound.
+   Path 8: path 1's configuration on 16 requests that share a 96-token
+   system prompt (32 tokens of their own, 32 generated): plain; with the
+   prefix cache (the second wave hits 6 pages and prefills 32 tokens);
+   with preempt-and-spill over a pool of 70% of 8 lanes' budgets; and
+   under a fault schedule (raise, nan, corrupt, slow) with recovery:
+   each run's streams held against the plain run's as path 6's are,
+   hits, preemptions, replays and the flagged slow block required, no
+   graph captured again by recovery; prefill tokens and ms, TTFT of each
+   wave, wall per step, spill and resume ms per page, snapshot and
+   restore ms a block logged;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -1003,6 +1012,10 @@ def serve_main_path(torch, rows_out, profile: bool):
     rows_out["spec"] = serve_spec(torch, cfg, int8, params, prompts[:batch],
                                   gen_len, geometry, record=record)
 
+    # -- path 8: the request lifecycle on path 1's configuration -----------
+    rows_out["lifecycle"] = serve_lifecycle(torch, cfg, int8, params,
+                                            geometry, record=record)
+
     for r in runs.values():
         r.pop("streams", None)
     rows_out["serving"] = runs
@@ -1163,7 +1176,7 @@ SPEC_RUNS = [("a ngram", "paged", "ngram", False, None, True),
              ("b self-draft", "paged", "self", False, None, True),
              ("b* chain drafter", "paged", "chain", False, 3.0, True),
              ("b' self-draft, dense target", "dense", "self", False, None,
-              False),
+              True),
              ("c ngram, half sampled", "paged", "ngram", True, None, False)]
 
 
@@ -1195,10 +1208,11 @@ def serve_spec(torch, cfg, ctx, params, prompts, gen_len, geometry, *,
     drafter that proposes (a)'s committed streams, the target's own chain,
     so every greedy draft should survive (the full-acceptance and
     bonus-token path); (b') (b) on the dense target cache (drafter and
-    target on the einsum path); (c) (a) with half the lanes at
+    target on the einsum path, the verify pass one query position a call,
+    so its rows are plain decode's); (c) (a) with half the lanes at
     temperature 0.8 and top_k 40.  Gates: greedy streams equal the plain
-    Engine's on the same prompts and cache (spec_gate; (b') is logged,
-    not gated: ROADMAP.md queue 3); graphed == eager streams and launch
+    Engine's on the same prompts and cache (spec_gate, dense and paged
+    alike); graphed == eager streams and launch
     counts; (c) in blocks of 2 + 3 rounds == blocks of 5; qmatmul,
     quantize_rows (one per qmatmul) and, paged, split paged attention
     launched; (b*) accepts >= 3.0 of SPEC_K drafts per live round.
@@ -1317,6 +1331,198 @@ def serve_spec(torch, cfg, ctx, params, prompts, gen_len, geometry, *,
             runs[f"path 6 plain, tiled prompts, {cache}"],
             wall_ms_per_step=steady[cache])
     out["others"] = {k: v for k, v in runs.items() if "blocks" in k}
+    return out
+
+
+#: path 8: 16 requests, each a shared system prompt of LIFE_SYSTEM tokens
+#: (6 pages) and LIFE_OWN of its own, 32 greedy tokens each; the fault
+#: schedule of its chaos run (block rounds, 1-based)
+LIFE_SYSTEM, LIFE_OWN, LIFE_REQUESTS = 96, 32, 16
+LIFE_FAULTS = {2: "raise", 3: "nan", 4: "corrupt", 5: "slow"}
+
+
+def _timed(torch, eng, name, sink):
+    """Wrap ``eng.<name>`` (the Engine calls it through ``self``) so that
+    every call appends (ms, args) to ``sink``, the card synchronized before
+    and after it."""
+    orig = getattr(eng, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append(((time.perf_counter() - t0) * 1e3, a))
+        return out
+    setattr(eng, name, wrapper)
+
+
+def _ttft_by_id(eng):
+    """{request id: TTFT seconds}, filled as each lane finishes."""
+    out, orig = {}, eng.finish
+
+    def finish(slot, *a, **kw):
+        m = eng._req_meta.get(slot)
+        if m is not None:
+            out[m["id"]] = m["ttft_s"]
+        return orig(slot, *a, **kw)
+    eng.finish = finish
+    return out
+
+
+def _mean(xs):
+    return sum(xs) / len(xs) if xs else None
+
+
+def serve_lifecycle(torch, cfg, ctx, params, geometry, *, record):
+    """Path 8: path 1's configuration (int8 weights, bf16, paged f32 KV at
+    the auto knobs, page 16, prefill chunk 16, batch 8, graphed) on
+    LIFE_REQUESTS requests that share a LIFE_SYSTEM-token system prompt,
+    four ways: (v) plain, a full pool, the reference run; (p)
+    ``prefix_cache``: the second wave of 8 hits the system prompt's 6
+    pages and prefills its 32 own tokens only; (s) ``preempt`` over a pool
+    of 70% of what 8 lanes' budgets need, so that admission blocks and
+    victims spill; (c) a fault schedule (LIFE_FAULTS) with recovery on
+    and a straggler monitor that flags a single slow block.  Gates: every
+    request completes with its 32 tokens; qmatmul, quantize_rows (one per
+    qmatmul) and split paged attention launch in each run; (p), (s) and
+    (c) give (v)'s streams, or part only where (v)'s own top-2 margin is
+    below SPEC_MARGIN_BOUND; (p) hits, (s) preempts, (c) replays >= 3
+    times, flags the slow block and captures no more graphs than (v).
+    Logged: prefill tokens computed and prefill ms per admission, TTFT of
+    each wave (hits against misses), the decode blocks' wall per step
+    (admission left out), spill and resume ms per page, snapshot and
+    restore ms a block."""
+    import numpy as np
+    from repro_torch.ft import ServingFaultInjector, StragglerMonitor
+    from repro_torch.launch.serve import Engine
+    rs = np.random.RandomState(0)
+    system = rs.randint(0, cfg.vocab, (LIFE_SYSTEM,))
+    prompts = [np.concatenate([system, rs.randint(0, cfg.vocab, (LIFE_OWN,))])
+               for _ in range(LIFE_REQUESTS)]
+    gen_len, batch = 32, geometry["batch"]
+    expect = ("qmatmul", "quantize_rows", "paged_attention_split")
+    out, streams, engines = {}, {}, {}
+
+    def run(label, **kw):
+        eng = Engine(cfg, ctx, params, paged=True, **geometry, **kw)
+        t = {k: [] for k in ("prefill", "block", "snapshot", "restore",
+                             "preempt", "resume")}
+        for name, key in (("_prefill_chunked", "prefill"),
+                          ("_block_decode", "block"),
+                          ("snapshot", "snapshot"), ("restore", "restore"),
+                          ("_preempt", "preempt"), ("_resume", "resume")):
+            _timed(torch, eng, name, t[key])
+        ttft = _ttft_by_id(eng)
+        r, counts = run_path(torch, f"path 8 {label}", eng, prompts, gen_len,
+                             expect)
+        one_quantizer_per_qmatmul(label, counts)
+        st = eng.stats()
+        streams[label] = r.pop("streams")
+        record(f"path 8 {label}", r, counts)
+        waves = [[ttft[i] for i in range(w * batch, (w + 1) * batch)
+                  if i in ttft] for w in range(2)]
+        row = dict(run=r, prefill_tokens=st["prefill_tokens"],
+                   prefill_ms_per_admission=[
+                       (len(a[0]), ms) for ms, a in t["prefill"]],
+                   ttft_wave1_s=_mean(waves[0]), ttft_wave2_s=_mean(waves[1]),
+                   # the decode blocks alone (upload to download), the
+                   # first one (eager, then captured) left out
+                   decode_ms_per_step=statistics.median(
+                       ms / a[0] for ms, a in t["block"][1:]),
+                   graph_captures=st["graph_captures"],
+                   **{k: st[k] for k in ("preemptions", "spilled_pages",
+                                         "replays", "straggler_blocks")})
+        if eng.prefix_cache:
+            row.update({k: st[k] for k in ("prefix_hits", "prefix_hit_pages",
+                                           "prefix_tokens_saved",
+                                           "cow_copies")})
+        if t["preempt"]:
+            row["spill_ms_per_page"] = sum(ms for ms, _ in t["preempt"]) \
+                / max(st["spilled_pages"], 1)
+        if t["resume"]:
+            row["resume_ms_per_page"] = sum(ms for ms, _ in t["resume"]) \
+                / max(sum(a[1]["n_pages"] for _, a in t["resume"]), 1)
+        if t["snapshot"]:
+            row["snapshot_ms"] = _mean([ms for ms, _ in t["snapshot"]])
+            row["restore_ms"] = _mean([ms for ms, _ in t["restore"]])
+            row["snapshot_mb"] = sum(
+                x.numel() * x.element_size() for x in eng.cache["dense"][
+                    "pages"].values()) / 1e6
+        engines[label] = eng
+        out[label] = row
+        log(f"[life] {label}: prefill tokens {row['prefill_tokens']}, "
+            f"prefill ms per admission (lanes, ms) "
+            f"{[(n, round(ms, 3)) for n, ms in row['prefill_ms_per_admission']]}"
+            f"; TTFT wave 1 {row['ttft_wave1_s']:.4f} s, wave 2 "
+            f"{row['ttft_wave2_s']:.4f} s; decode block wall "
+            f"{row['decode_ms_per_step']:.3f} ms a step; " + ", ".join(
+                f"{k} {row[k]}" for k in ("prefix_hits", "prefix_tokens_saved",
+                                          "cow_copies", "preemptions",
+                                          "spilled_pages", "replays",
+                                          "straggler_blocks", "graph_captures")
+                if k in row)
+            + "".join(f", {k} {row[k]:.3f}" for k in (
+                "spill_ms_per_page", "resume_ms_per_page", "snapshot_ms",
+                "restore_ms", "snapshot_mb") if k in row))
+        return eng
+
+    plain = run("v plain")
+    need = plain.allocator.pages_for(plain._token_budget(len(prompts[0]),
+                                                         gen_len))
+    pool = int(0.7 * batch * need)
+    run("p prefix cache", prefix_cache=True)
+    run("s preempt", preempt=True, num_pages=pool)
+    inj = ServingFaultInjector(LIFE_FAULTS)
+    run("c chaos", fault_injector=inj,
+        straggler=StragglerMonitor(window=8, ratio=3.0, patience=1))
+    out["s preempt"]["num_pages"] = pool
+    out["s preempt"]["pages_per_request"] = need
+    out["c chaos"]["injected"] = inj.events
+
+    margins = []
+
+    def plain_margin_rows():
+        if not margins:
+            for h in range(0, LIFE_REQUESTS, batch):
+                margins.extend(plain_margins(
+                    torch, Engine(cfg, ctx, params, paged=True,
+                                  graphs=False, **geometry),
+                    prompts[h:h + batch], streams["v plain"][h:h + batch]))
+        return margins
+
+    for label in ("p prefix cache", "s preempt", "c chaos"):
+        same = streams[label] == streams["v plain"]
+        out[label]["gate_vs_plain"] = None if same else spec_gate(
+            f"path 8 {label}", streams[label], streams["v plain"],
+            plain_margin_rows())
+        log(f"[life] {label}: streams {'identical to' if same else 'gated against'}"
+            f" (v)'s")
+    p, s, c = (out[k] for k in ("p prefix cache", "s preempt", "c chaos"))
+    if p["prefix_hits"] == 0:
+        raise AssertionError("path 8 (p): no prefix-cache hit")
+    if s["preemptions"] == 0:
+        raise AssertionError(f"path 8 (s): no preemption over {pool} pages")
+    if c["replays"] < 3:
+        raise AssertionError(f"path 8 (c): {c['replays']} replays, expected "
+                             f">= 3 for {LIFE_FAULTS}")
+    if c["graph_captures"] != out["v plain"]["graph_captures"]:
+        raise AssertionError(f"path 8 (c): {c['graph_captures']} graphs "
+                             f"captured against (v)'s "
+                             f"{out['v plain']['graph_captures']}: recovery "
+                             f"recaptured")
+    flagged = [r for r, _ in engines["c chaos"].straggler.events]
+    if 5 not in flagged:
+        raise AssertionError(f"path 8 (c): the slow block (round 5) was not "
+                             f"flagged ({flagged})")
+    c["straggler_rounds"] = flagged
+    log(f"[life] (p) against (v): prefill tokens {out['v plain']['prefill_tokens']}"
+        f" -> {p['prefill_tokens']}, wave-2 TTFT "
+        f"{out['v plain']['ttft_wave2_s']:.4f} -> {p['ttft_wave2_s']:.4f} s, "
+        f"decode block wall per step {out['v plain']['decode_ms_per_step']:.3f}"
+        f" -> {p['decode_ms_per_step']:.3f} ms; (c) straggler rounds "
+        f"{flagged}")
+    del engines
     return out
 
 

@@ -16,4 +16,4 @@ without that explicit choice they raise.
 """
 
 __all__ = ["core", "kernels", "nn", "models", "configs", "train", "launch",
-           "convert"]
+           "ft", "checkpoint", "convert"]

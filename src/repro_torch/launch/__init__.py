@@ -1,2 +1,2 @@
 """Serving entry point (``python -m repro_torch.launch.serve``), the page
-allocator and the request lifecycle."""
+allocator, the prefix index and the request lifecycle."""

@@ -1,8 +1,26 @@
-"""Request lifecycle: statuses, admission validation, per-request rows.
+"""Request lifecycle: statuses, priority classes, SLO targets, admission
+validation, per-request rows (port of ``repro.launch.lifecycle``).
 
-A copy of the subset of ``repro.launch.lifecycle`` the engine's main
-path uses.  Priority classes, SLO targets and class quotas are not
-ported yet (ROADMAP.md queue 1, item 12).
+A request moves through
+
+::
+
+    QUEUED ──> RUNNING ──> COMPLETED
+       │          │ ├────> CANCELLED   (cancel(req_id))
+       │          │ ├────> TIMED_OUT   (deadline passed at a block boundary)
+       │          │ ├────> FAILED      (device fault lane, no recovery path)
+       │          │ └────> PREEMPTED ──> QUEUED   (pages spilled to host)
+       ├────────> CANCELLED
+       └────────> TIMED_OUT
+
+Every terminal transition returns the tokens the request committed
+(``Engine.results[req_id]``); exceptions are for caller errors and
+unrecoverable engine faults.  ``PREEMPTED`` is the one non-terminal exit:
+the request re-enters the queue with its full restart state, so resuming
+it is a restore, never a recompute.
+
+Class quotas (``normalize_class_quotas``) come with the fleet (ROADMAP.md
+queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -12,7 +30,9 @@ import time
 
 import numpy as np
 
-__all__ = ["RequestStatus", "validate_request", "request_row", "now"]
+__all__ = ["RequestStatus", "TERMINAL_STATUSES", "PriorityClass",
+           "coerce_priority", "normalize_slo_targets", "validate_request",
+           "request_row", "now"]
 
 
 class RequestStatus(str, enum.Enum):
@@ -27,12 +47,97 @@ class RequestStatus(str, enum.Enum):
     FAILED = "failed"
 
 
-def validate_request(prompt, *, vocab: int, temperature=None,
-                     top_k=None) -> np.ndarray:
+#: statuses a request never leaves
+TERMINAL_STATUSES = frozenset({
+    RequestStatus.COMPLETED, RequestStatus.CANCELLED,
+    RequestStatus.TIMED_OUT, RequestStatus.FAILED,
+})
+
+
+class PriorityClass(enum.IntEnum):
+    """SLO class of a request: a scheduling property, never a sampling one.
+
+    Lower value = more important.  The admission queue serves the
+    lowest-valued non-empty class first (FIFO within a class), victims
+    spill in descending value, and SLO shedding spends the budgets of
+    high-valued classes first.
+    """
+
+    REALTIME = 0
+    STANDARD = 1
+    BATCH = 2
+
+
+def coerce_priority(value) -> PriorityClass:
+    """A :class:`PriorityClass`, its int value or its name (any case);
+    ``None`` is STANDARD.  Anything else raises, naming the choices."""
+    if value is None:
+        return PriorityClass.STANDARD
+    if isinstance(value, PriorityClass):
+        return value
+    if isinstance(value, str):
+        try:
+            return PriorityClass[value.strip().upper()]
+        except KeyError:
+            raise ValueError(
+                f"unknown priority class {value!r} (choices: "
+                f"{[c.name.lower() for c in PriorityClass]})") from None
+    if isinstance(value, (int, np.integer)) and not isinstance(value, bool):
+        try:
+            return PriorityClass(int(value))
+        except ValueError:
+            raise ValueError(
+                f"priority class value {int(value)} out of range "
+                f"(valid: {[int(c) for c in PriorityClass]})") from None
+    raise ValueError(
+        f"priority must be a PriorityClass, its name or its int value "
+        f"(got {type(value).__name__})")
+
+
+def normalize_slo_targets(targets) -> dict:
+    """Per-class SLO targets as ``{PriorityClass: {"ttft_s", "tok_per_s"}}``.
+
+    Either key may be absent or None (no target on that axis); a
+    non-positive target could never be met and is refused, as are
+    unknown keys and non-dict targets."""
+    out = {}
+    for key, tgt in (targets or {}).items():
+        cls = coerce_priority(key)
+        if tgt is None:
+            continue
+        if not isinstance(tgt, dict):
+            raise ValueError(
+                f"SLO target for {cls.name.lower()} must be a dict "
+                f"with 'ttft_s'/'tok_per_s' keys (got "
+                f"{type(tgt).__name__})")
+        unknown = set(tgt) - {"ttft_s", "tok_per_s"}
+        if unknown:
+            raise ValueError(
+                f"unknown SLO target keys {sorted(unknown)} for "
+                f"{cls.name.lower()} (valid: ttft_s, tok_per_s)")
+        clean = {}
+        for k in ("ttft_s", "tok_per_s"):
+            v = tgt.get(k)
+            if v is None:
+                continue
+            if float(v) <= 0:
+                raise ValueError(
+                    f"SLO {k} for class {cls.name.lower()} must be "
+                    f"positive (got {v})")
+            clean[k] = float(v)
+        if clean:
+            out[cls] = clean
+    return out
+
+
+def validate_request(prompt, *, vocab: int, temperature=None, top_k=None,
+                     deadline_s=None, priority=None) -> np.ndarray:
     """Admission-time validation; returns the prompt as int32.
 
-    Rejects non-integer token ids, out-of-vocab ids, and negative
-    ``temperature`` / ``top_k`` (scalars or ``{slot: v}`` dicts).
+    Rejects non-integer token ids, out-of-vocab ids, negative
+    ``temperature`` / ``top_k``, non-positive ``deadline_s`` and unknown
+    ``priority`` classes.  Each may be a scalar or a ``{slot: v}`` dict,
+    whose entries are checked one by one (None entries mean no limit).
     """
     p = np.asarray(prompt)
     if p.ndim > 1:
@@ -62,15 +167,22 @@ def validate_request(prompt, *, vocab: int, temperature=None,
     for x in each(top_k):
         if int(x) < 0:
             raise ValueError(f"negative top_k {x} (0 disables the filter)")
+    for x in each(deadline_s):
+        if float(x) <= 0:
+            raise ValueError(f"deadline_s must be positive (got {x})")
+    for x in each(priority):
+        coerce_priority(x)          # unknown/out-of-range classes raise
     return p.astype(np.int32)
 
 
 def request_row(*, ttft_s: float, gen_tokens: int, decode_s: float,
-                status: RequestStatus) -> dict:
+                status: RequestStatus, priority=None) -> dict:
     """One ``Engine.request_log`` row; ``tok_per_s`` is None (not 0.0)
-    when the decode interval is not measurable."""
+    when the decode interval is not measurable, and ``priority`` is the
+    class name."""
     return {"ttft_s": float(ttft_s), "gen_tokens": int(gen_tokens),
             "decode_s": float(decode_s), "status": status.value,
+            "priority": coerce_priority(priority).name.lower(),
             "tok_per_s": (gen_tokens / decode_s) if decode_s > 0 else None}
 
 

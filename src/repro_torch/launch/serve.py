@@ -35,8 +35,10 @@ of the core of ``repro.launch.serve``).
   engine's; sampled ones keep its distribution.  On the card a block is
   one CUDA graph replay too.
 * **Continuous batching**: ``submit`` queues requests; each block
-  boundary retires finished lanes and admits the queue head (FIFO) as
-  soon as a lane (and, paged, enough free pages) exists.
+  boundary retires finished lanes and admits the queue head as soon as a
+  lane (and, paged, enough free pages) exists: the most important
+  priority class first (REALTIME > STANDARD > BATCH), FIFO within a
+  class, a page-blocked head blocking every class below it.
 * **KV cache**: dense by default, as in the reference -- per-slot rows
   ``max_len`` plus a margin long (``prefill_chunk``, or ``spec_k + 2``
   when larger), a retired slot's rows zeroed -- or
@@ -44,13 +46,26 @@ of the core of ``repro.launch.serve``).
   geometry, exactly as the reference resolves it.  ``kv_bits=8`` stores
   either as int8 rows or pages with bf16 scales.  ``stats()`` reports
   the cache, the knob and the kernel launch counts.
+* **Prefix caching** (``prefix_cache=True``, paged): committed,
+  page-aligned prompt pages are published to a hash index and mapped
+  read-only into later requests that open with the same tokens; a hit
+  allocates and prefills only its suffix, and a full-prompt hit
+  duplicates its boundary page (copy-on-write) before writing it.
+* **The request lifecycle**: ``status``/``cancel`` by request id,
+  deadlines (TTLs checked at block boundaries), preempt-and-spill under
+  page pressure (``preempt=True``: a victim's pages go to host memory and
+  come back into fresh pages, a restore, never a recompute), pressure and
+  SLO shedding, and restore-and-replay of a faulted block from a pre-block
+  snapshot (``fault_injector`` / ``recover``).  Every cache edit of the
+  lifecycle (copy-on-write, resume, restore, the chaos hook's poison) is
+  made in place, so the captured decode graphs stay valid.
 
 Out of this slice (ROADMAP.md):
-prefix caching, preemption, priorities, the durable journal, the fleet,
-the autotuner (and with it the adaptive ``spec_k``) and non-``lm``
-families (the ``encdec`` family serves through the step builders of
-``repro_torch.train.step``, as the reference Engine never runs an
-encoder).  The Engine and the CLI refuse them by name.
+the durable journal and warm restart (``durable_dir``), class quotas and
+the fleet, the autotuner (and with it the adaptive ``spec_k``) and
+non-``lm`` families (the ``encdec`` family serves through the step
+builders of ``repro_torch.train.step``, as the reference Engine never runs
+an encoder).  The Engine and the CLI refuse them by name.
 
 Usage::
 
@@ -64,6 +79,9 @@ Usage::
         [--no-graphs]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --quant int8 --paged --spec --spec-k 4 [--spec-draft gemma-2b]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+        --quant int8 --paged --prefix-cache --preempt --num-pages 56 \\
+        [--deadline-s 30 --priority-class realtime --slo-ttft-s 1]
 """
 
 from __future__ import annotations
@@ -87,17 +105,22 @@ from ..data.pipeline import SyntheticLM
 from ..kernels import launch_counts
 from ..kernels.flash_attention import _resolve_knobs
 from ..kernels.prng import PRNGKey
-from ..models.api import (get_family, init_cache_fn, init_paged_cache_fn,
-                          invalidate_fn, set_block_table)
+from ..checkpoint.store import latest_step, load_blob, save_blob
+from ..ft.straggler import StragglerMonitor
+from ..models.api import (cache_leaves, copy_pages_fn, get_family,
+                          init_cache_fn, init_paged_cache_fn, invalidate_fn,
+                          page_leaves, set_block_table)
 from ..nn.context import QuantContext
 from ..train.graphs import DecodeBlocks
 from ..train.step import build_prefill_step
-from .lifecycle import RequestStatus, request_row, validate_request
+from .lifecycle import (PriorityClass, RequestStatus, coerce_priority,
+                        normalize_slo_targets, request_row, validate_request)
 from .lifecycle import now as _now
 from .paging import PageAllocator
+from .prefix import PREFIX_OWNER, ROOT, PrefixIndex
 
-__all__ = ["Engine", "resolve_device", "quantize_for_serving",
-           "prepare_params", "build_ctx", "main"]
+__all__ = ["Engine", "DeviceFault", "resolve_device",
+           "quantize_for_serving", "prepare_params", "build_ctx", "main"]
 
 
 def _refuse_encdec(cfg) -> None:
@@ -137,10 +160,43 @@ def quantize_for_serving(params, ctx: QuantContext):
     return ptq_params(params, ctx.policy)
 
 
+class DeviceFault(RuntimeError):
+    """The block's fault lane flagged slots (non-finite logits on the
+    device: a poisoned cache, a kernel NaN).  Raised inside ``step_many``
+    so that recovery can restore and replay; without recovery the flagged
+    slots finish FAILED with their valid prefix."""
+
+    def __init__(self, slots):
+        slots = tuple(int(s) for s in slots)
+        super().__init__(f"device fault lane flagged slots {list(slots)}")
+        self.slots = slots
+
+
+def _copy_record(r: dict) -> dict:
+    """A queue record for a snapshot: the mutable ``outputs`` list is
+    copied; spilled payloads never change after the spill and are shared."""
+    r2 = dict(r)
+    if r2.get("outputs"):
+        r2["outputs"] = list(r2["outputs"])
+    return r2
+
+
+def _host_copy(tree) -> Dict[str, torch.Tensor]:
+    """Host copies of every tensor of a cache tree, keyed by path."""
+    return {p: t.detach().to("cpu", copy=True) for p, t in cache_leaves(tree)}
+
+
+def _write_back(tree, host: Dict[str, torch.Tensor]) -> None:
+    """Copy :func:`_host_copy`'s tensors into ``tree``'s, in place: the
+    tensors keep their addresses, so captured decode graphs stay valid."""
+    for p, t in cache_leaves(tree):
+        t.copy_(host[p])
+
+
 class Engine:
     """Slot-based continuous batching over chunked prefill and fused decode
     blocks (greedy or sampled per slot), on a dense (default) or paged KV
-    cache.
+    cache, with the reference's request lifecycle.
 
     ``kv_bits``: None (f32 cache) or 8 (int8 rows / pages with bf16
     scales).  ``kv_split`` / ``pages_per_step`` (paged only): ``"auto"``
@@ -157,6 +213,20 @@ class Engine:
     ``spec_draft=(cfg, params, ctx or None)`` drafts with a second model
     (``lm`` family, the target's vocab); ``drafter_fn(hist, tok, pos) ->
     (B, k)`` drafts for tests.  ``step_many(n)`` then runs ``n`` rounds.
+
+    The lifecycle: ``prefix_cache`` (paged) maps committed prompt pages
+    into later requests that share them; ``preempt`` (paged) spills a
+    running victim's pages to host memory under page pressure, after its
+    queue head was blocked ``preempt_after`` sweeps; ``shed_threshold``
+    (pool occupancy) or ``slo_targets`` (per class ``ttft_s`` /
+    ``tok_per_s``) shed speculation and halve blocks under pressure;
+    ``fault_injector`` (:class:`~repro_torch.ft.ServingFaultInjector`)
+    and ``recover`` (default on with an injector) restore a pre-block
+    snapshot and replay a faulted block, at most ``max_replays`` times;
+    ``straggler`` (a :class:`~repro_torch.ft.StragglerMonitor`, one by
+    default) flags slow blocks; ``clock`` replaces the engine's wall
+    clock (deadlines and telemetry).  Class quotas (ROADMAP.md queue 1,
+    item 13) and the durable journal (item 12b) are refused by name.
     """
 
     def __init__(self, cfg, ctx: QuantContext, params, *, batch: int,
@@ -164,15 +234,27 @@ class Engine:
                  eos_id: int = -1, seed: int = 0, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_split="auto", pages_per_step="auto",
-                 autotune: str = "off", spec: bool = False, spec_k: int = 4,
-                 spec_draft=None, spec_ngram: int = 2, drafter_fn=None,
-                 device=None, graphs=None):
+                 prefix_cache: bool = False, autotune: str = "off",
+                 spec: bool = False, spec_k: int = 4, spec_draft=None,
+                 spec_ngram: int = 2, drafter_fn=None, preempt: bool = False,
+                 preempt_after: int = 2, shed_threshold=None,
+                 slo_targets=None, class_quotas=None, fault_injector=None,
+                 recover=None, max_replays: int = 8, straggler=None,
+                 clock=None, durable_dir=None, device=None, graphs=None):
         if kv_bits not in (None, 8):
             raise ValueError(f"kv_bits must be None or 8, not {kv_bits!r}")
         if autotune != "off":
             raise NotImplementedError(
                 f"autotune={autotune!r}: the autotuner is not ported yet "
                 f"(ROADMAP.md queue 1, item 9); use 'off'")
+        if durable_dir is not None:
+            raise NotImplementedError(
+                "durable_dir: the durable journal and warm restart are not "
+                "ported yet (ROADMAP.md queue 1, item 12b)")
+        if class_quotas:
+            raise NotImplementedError(
+                "class_quotas: per-class partitions of the page pool are "
+                "not ported yet (ROADMAP.md queue 1, item 13)")
         if not spec and (spec_draft is not None or drafter_fn is not None):
             raise ValueError(
                 "spec_draft/drafter_fn were given but spec=False -- a "
@@ -200,6 +282,7 @@ class Engine:
             margin = max(margin, self.spec_k + 2)
         #: committed tokens per slot at their absolute positions (prompt
         #: and accepted generations): the prompt-lookup drafter's corpus
+        #: and the prefix index's publication source
         self.hist = np.zeros((batch, max_len + self.spec_k + 2), np.int32)
         self.draft = None
         if self.spec and spec_draft is not None:
@@ -254,6 +337,23 @@ class Engine:
         else:
             self.cache = init_cache_fn(cfg, batch, max_len + margin,
                                        cache_dtype, self.device)
+        # -- prefix caching: committed, page-aligned prompt pages are
+        # published to a hash index and mapped read-only into later
+        # requests that share the prefix (admission of a hit allocates and
+        # prefills only the suffix); page sharing needs the page pool
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache:
+            if not self.paged:
+                raise ValueError(
+                    "prefix_cache=True needs the paged cache: prefix "
+                    "reuse IS page sharing (dense lanes have no pages "
+                    "to share)")
+            self.prefix_index = PrefixIndex(self.allocator.page_size)
+            #: slot -> index pages mapped read-only into its table (one
+            #: reference held on each; the table holds them first)
+            self._slot_shared: Dict[int, List[int]] = {}
+            #: slot -> (chunks published or matched, chain key of the last)
+            self._pub: Dict[int, tuple] = {}
         self.ctx = ctx
         self.prefill = build_prefill_step(cfg, self.ctx)
         if graphs is None:
@@ -269,9 +369,14 @@ class Engine:
                                draft_ctx=self.draft[2])
         self.blocks = DecodeBlocks(cfg, self.ctx, batch, self.device,
                                    graphs=graphs, spec=spec_kw)
+        #: plain decode blocks of a speculative engine (shed blocks)
+        self._plain_blocks = None
         self.pos = np.zeros((batch,), np.int32)
         self.live = np.zeros((batch,), bool)
         self.tokens = np.zeros((batch, 1), np.int32)
+        #: lanes known zeroed since a block last touched them: a block
+        #: advances dead lanes too, so admission zeroes a dirty dense lane
+        self._clean = np.ones((batch,), bool)
         self.stop_pos = np.full((batch,), max_len, np.int32)
         self.eos_id = int(eos_id)
         #: per-slot sampling params; temperature <= 0 = greedy, top_k <= 0
@@ -284,34 +389,87 @@ class Engine:
         self.done: List[list] = []
         self.waiting: deque = deque()
         self.counters = {"peak_live": 0, "admitted": 0, "gen_tokens": 0,
-                         "decode_s": 0.0, "failures": 0, "decode_steps": 0,
-                         "prefill_chunks": 0, "verify_steps": 0,
-                         "draft_accepted": 0}
+                         "decode_s": 0.0, "decode_steps": 0,
+                         "prefill_chunks": 0, "prefill_tokens": 0,
+                         "verify_steps": 0, "draft_accepted": 0,
+                         "preemptions": 0, "cancellations": 0,
+                         "timeouts": 0, "failures": 0, "replays": 0,
+                         "spilled_pages": 0, "shed_spec_rounds": 0,
+                         "straggler_blocks": 0, "prefix_hits": 0,
+                         "prefix_hit_pages": 0, "prefix_tokens_saved": 0,
+                         "cow_copies": 0}
         self.request_log: List[dict] = []
-        self._req_meta: Dict[int, dict] = {}
+        self._req_meta: Dict[int, dict] = {}    # slot -> live request row
+        # -- the request lifecycle -------------------------------------------
+        self.preempt = bool(preempt)
+        if self.preempt and not self.paged:
+            raise ValueError(
+                "preempt=True needs the paged cache: preempt-and-spill "
+                "is a page-pool mechanism (dense slots have nothing to "
+                "spill -- every lane already owns its max_len rows)")
+        if self.preempt and self.draft is not None:
+            raise ValueError(
+                "preempt=True with a model drafter is unsupported: the "
+                "draft cache is a dense lane that cannot be spilled "
+                "through the page pool (use ngram self-speculation)")
+        self.preempt_after = max(1, int(preempt_after))
+        self.shed_threshold = (None if shed_threshold is None
+                               else float(shed_threshold))
+        self.slo_targets = normalize_slo_targets(slo_targets)
+        #: per-class lifecycle counters (``counters`` keeps the totals)
+        self.class_counters = {c: self._fresh_class_row()
+                               for c in PriorityClass}
+        self.fault_injector = fault_injector
+        self._recover = (bool(recover) if recover is not None
+                         else fault_injector is not None)
+        self.max_replays = int(max_replays)
+        self.straggler = (StragglerMonitor() if straggler is None
+                          else straggler)
+        self.clock = _now if clock is None else clock
+        self._t_start = self.clock()
         self.results: Dict[int, dict] = {}
         self._next_id = 0
-        self.clock = _now
+        self._round = 0             # decode-block counter (chaos schedule)
+        self._injected_slow = False
+        self._slow_penalty = 1.0    # synthetic straggler seconds
+        #: per class, (request id, blocked admission sweeps) of its head
+        self._head_blocked: Dict[PriorityClass, tuple] = {}
+
+    @staticmethod
+    def _fresh_class_row() -> dict:
+        return {"admitted": 0, "completed": 0, "preemptions": 0,
+                "cancellations": 0, "timeouts": 0, "failures": 0,
+                "shed_rounds": 0, "straggler_blocks": 0}
+
+    def _class_count(self, cls, key: str, n: int = 1) -> None:
+        self.class_counters[coerce_priority(cls)][key] += n
 
     # -- admission ------------------------------------------------------------
     def add_requests(self, requests: Dict[int, np.ndarray], *,
                      gen_len=None, temperature=None, top_k=None,
-                     _t_submit=None, _ids=None):
+                     deadline_s=None, priority=None, _t_submit=None,
+                     _ids=None, _deadlines=None, _prefix=None):
         """Prefill several fresh slots together (batched chunked prefill).
 
         ``gen_len`` (scalar or ``{slot: v}``) bounds generation
         (``stop_pos = min(prompt_len + gen_len, max_len)``);
         ``temperature``/``top_k`` (scalar or ``{slot: v}``, default 0)
-        set the slots' sampling (negative values are refused).  Paged: the
-        whole token budget's pages are allocated here (MemoryError when
-        the pool is short; queue through :meth:`submit` to wait instead).
-        An empty prompt is a single pad token (id 0).
+        set the slots' sampling; ``deadline_s`` a TTL from now (the
+        request times out at the first block boundary past it);
+        ``priority`` the SLO class (default STANDARD).  Paged: the whole
+        token budget's pages are allocated here, less a prefix hit's
+        shared pages (MemoryError when the pool is short, after evicting
+        cold prefixes and, with ``preempt``, spilling victims; queue
+        through :meth:`submit` to wait instead).  An empty prompt is a
+        single pad token (id 0).
         """
         t_call = self.clock()
         reqs = {int(s): validate_request(p, vocab=self.cfg.vocab,
                                          temperature=temperature,
-                                         top_k=top_k)
+                                         top_k=top_k, priority=priority)
                 for s, p in requests.items()}
+        if deadline_s is not None:
+            validate_request([], vocab=self.cfg.vocab, deadline_s=deadline_s)
         for s, p in reqs.items():
             if p.shape[0] > self.max_len:
                 raise ValueError(
@@ -331,17 +489,30 @@ class Engine:
         def stop_of(s, plen):
             return self._token_budget(plen, per_slot(gen_len, s, None))
 
+        prefix_of: Dict[int, dict] = {}
         if self.paged:
-            self._alloc_pages({s: stop_of(s, p.shape[0])
-                               for s, p in reqs.items()})
-
-        first = self._prefill_chunked(reqs)
+            self._alloc_pages(reqs, stop_of,
+                              {s: coerce_priority(per_slot(priority, s, None))
+                               for s in reqs}, prefix_of, _prefix)
+        for s in reqs:
+            if not self._clean[s]:
+                # a dirty dense lane: blocks advanced it since finish()
+                self.cache = invalidate_fn(self.cache, s, self.cfg)
+                if self.draft is not None:
+                    self.draft_cache = invalidate_fn(self.draft_cache, s,
+                                                     self.draft[0])
+        starts = {s: info["start"] for s, info in prefix_of.items()
+                  if info["start"]}
+        first = self._prefill_chunked(reqs, starts)
+        if self.draft is not None:
+            self._prefill_draft(reqs)
         t_first = self.clock()
         for s, p in reqs.items():
             self.pos[s] = p.shape[0]
             self.live[s] = True
             self.outputs[s] = []
             self.tokens[s, 0] = first[s]
+            self._clean[s] = False
             self.temperature[s] = per_slot(temperature, s, 0.0)
             self.top_k[s] = per_slot(top_k, s, 0)
             self.stop_pos[s] = stop_of(s, p.shape[0])
@@ -351,31 +522,102 @@ class Engine:
             rid = (_ids or {}).get(s)
             if rid is None:
                 rid = self._mint_id()
+            if _deadlines is not None and s in _deadlines:
+                dl = _deadlines[s]
+            else:
+                d = per_slot(deadline_s, s, None)
+                dl = None if d is None else t_call + float(d)
+            cls = coerce_priority(per_slot(priority, s, None))
             self._req_meta[s] = {"id": rid, "ttft_s": t_first - t_sub,
-                                 "t_admit": t_first}
+                                 "t_admit": t_first, "deadline": dl,
+                                 "priority": cls}
+            self._class_count(cls, "admitted")
         self.counters["admitted"] += len(reqs)
         self.counters["peak_live"] = max(self.counters["peak_live"],
                                          int(self.live.sum()))
+        if self.prefix_cache:
+            # publish the fresh prompts' full pages now, so that requests
+            # admitted in the very next sweep already hit
+            for s in reqs:
+                self._publish_committed(s)
 
-    def _alloc_pages(self, budgets: Dict[int, int]) -> None:
-        """Pages for each slot's whole token budget, all or nothing, and
-        the block table flushed to the device."""
-        needs = {s: self.allocator.pages_for(n) for s, n in budgets.items()}
-        recyclable = sum(len(self._slot_pages.get(s, ())) for s in needs)
-        if sum(needs.values()) - self.allocator.free_pages - recyclable > 0:
+    def _alloc_pages(self, reqs, stop_of, cls_of, prefix_of,
+                     _prefix) -> None:
+        """Pages for each slot's whole token budget, all or nothing: a
+        prefix hit maps its shared pages and allocates the rest; a short
+        pool evicts cold prefixes, then (``preempt``) spills victims at or
+        below the most important class admitted, then raises MemoryError
+        with the engine as it was.  The block table is flushed."""
+        held: Dict[int, List[int]] = {}
+        if self.prefix_cache:
+            # hold the hit pages at once (refcount >= 2), before eviction
+            # or preemption below can run; try_admit matched and shared
+            # them at pop time and hands its holds over through _prefix
+            for s, p in reqs.items():
+                info = (_prefix or {}).get(s)
+                if info is None:
+                    info = self._match_prefix(p)
+                    h = self._hit_pages(info)
+                    if h:
+                        self.allocator.share(h)
+                prefix_of[s] = info
+                held[s] = self._hit_pages(info)
+        floor = min(cls_of.values())
+        needs = {s: self.allocator.pages_for(stop_of(s, p.shape[0]))
+                 - len(prefix_of[s]["shared"] if s in prefix_of else ())
+                 for s, p in reqs.items()}
+        recyclable = sum(len(self._slot_pages.get(s, ())) for s in reqs)
+
+        def short():
+            return sum(needs.values()) - self.allocator.free_pages \
+                - recyclable
+
+        if short() > 0 and self.prefix_cache:
+            # cold index entries yield before any running request does
+            self.prefix_index.evict(self.allocator, short())
+        if short() > 0 and self.preempt:
+            self._preempt_until(sum(needs.values()) - recyclable,
+                                exclude=set(reqs), floor=floor)
+        if short() > 0:
+            for h in held.values():
+                if h:
+                    self.allocator.free(h)      # release the match
             raise MemoryError(
                 f"page pool exhausted: admission needs "
                 f"{sum(needs.values())} pages, free "
                 f"{self.allocator.free_pages} of {self.allocator.num_pages} "
                 f"(queue through submit() to wait for pages)")
-        for s in needs:
+        for s in reqs:
+            # a slot admitted over one that still holds pages recycles them
+            if self.prefix_cache:
+                self.allocator.free(self._slot_shared.pop(s, []))
+                self._pub.pop(s, None)
             if s in self._slot_pages:
                 self.allocator.free(self._slot_pages.pop(s))
-        for s, need in needs.items():
-            pages = self.allocator.alloc(need, owner=s)
+        for s in reqs:
+            info = prefix_of.get(s)
+            shared = info["shared"] if info else []
+            pages = self.allocator.alloc(needs[s], owner=s, cls=cls_of[s])
             self._slot_pages[s] = pages
             self.block_tables[s, :] = self._trash
-            self.block_tables[s, :len(pages)] = pages
+            self.block_tables[s, :len(shared)] = shared
+            self.block_tables[s, len(shared):len(shared) + len(pages)] = pages
+            if self.prefix_cache:
+                self._slot_shared[s] = list(shared)
+                self._pub[s] = ((info["depth"], info["key"])
+                                if info else (0, ROOT))
+            if info and info["cow"] is not None:
+                # full-prompt hit: the boundary page still takes this
+                # slot's writes (the last prompt row and decode), so it is
+                # duplicated into the slot's first private page first
+                copy_pages_fn(self.cache, info["cow"], pages[0])
+                self.allocator.free([info["cow"]])
+                self.counters["cow_copies"] += 1
+            if info and (info["shared"] or info["cow"] is not None):
+                self.counters["prefix_hits"] += 1
+                self.counters["prefix_hit_pages"] += (
+                    len(shared) + (1 if info["cow"] is not None else 0))
+                self.counters["prefix_tokens_saved"] += info["start"]
         self._flush_block_tables()
 
     def _flush_block_tables(self):
@@ -385,25 +627,127 @@ class Engine:
             self.block_tables.copy()).to(self.device))
         self._bt_dirty = False
 
+    # -- prefix caching -------------------------------------------------------
+    @staticmethod
+    def _hit_pages(info: dict) -> List[int]:
+        return info["shared"] + ([info["cow"]] if info["cow"] is not None
+                                 else [])
+
+    def _match_prefix(self, prompt: np.ndarray) -> dict:
+        """Plan a prompt's admission against the prefix index: ``start``
+        (first token to prefill), ``shared`` (index pages mapped read-only
+        at table entries 0..), ``cow`` (an index page duplicated into the
+        slot's first private page, or None), and ``depth``/``key`` (where
+        the slot's own publication resumes).  Moves no refcount.
+
+        A full-prompt hit still prefills the last prompt token (its logits
+        are the first generated token); its row and every decode write
+        land in the last matched page, which is therefore the copy."""
+        ps = self.allocator.page_size
+        plen = int(prompt.shape[0])
+        m, pages, key = self.prefix_index.match(prompt)
+        if m == 0:
+            return {"start": 0, "shared": [], "cow": None,
+                    "depth": 0, "key": ROOT}
+        if m * ps == plen:
+            return {"start": plen - 1, "shared": pages[:-1],
+                    "cow": pages[-1], "depth": m, "key": key}
+        return {"start": m * ps, "shared": pages, "cow": None,
+                "depth": m, "key": key}
+
+    def _publish_committed(self, slot: int) -> None:
+        """Publish ``slot``'s pages whose rows are all below its committed
+        position (``pos`` never decreases, so a published page stays
+        committed).  A chunk whose chain key is indexed already is touched
+        and its page stays private.  Publication shares the page, re-owns
+        it to the index and moves it to the slot's shared list, so a later
+        finish or preemption drops a reference instead of freeing it."""
+        ps = self.allocator.page_size
+        depth, parent = self._pub.get(slot, (0, ROOT))
+        pos = int(self.pos[slot])
+        while (depth + 1) * ps <= pos:
+            chunk = self.hist[slot, depth * ps:(depth + 1) * ps]
+            key = self.prefix_index.chain_key(parent, chunk)
+            if key in self.prefix_index:
+                self.prefix_index.touch(key)
+            else:
+                page = int(self.block_tables[slot, depth])
+                assert page != self._trash \
+                    and page in self._slot_pages.get(slot, ()), \
+                    "publishable chunk not backed by a private page"
+                self.allocator.share([page])
+                self.allocator.transfer([page], PREFIX_OWNER)
+                self._slot_pages[slot].remove(page)
+                self._slot_shared[slot].append(page)
+                meta = self._req_meta.get(slot)
+                self.prefix_index.put(
+                    key, parent, chunk, page, depth,
+                    cls=meta["priority"] if meta else None)
+            depth, parent = depth + 1, key
+        self._pub[slot] = (depth, parent)
+
+    def _cow_guard(self) -> None:
+        """Copy-on-write sweep before a block: a table entry at or past a
+        slot's ``pos`` that maps a page others reference is duplicated
+        into a fresh private page (``cow_copies`` counts it).  By
+        construction no block writes a shared page; the sweep guards the
+        proof."""
+        ps = self.allocator.page_size
+        dirty = False
+        for s in range(self.batch):
+            if self.outputs[s] is None:
+                continue                    # empty lane: all-trash table
+            row = self.block_tables[s]
+            for e in range(int(self.pos[s]) // ps, row.shape[0]):
+                page = int(row[e])
+                if (page == self._trash
+                        or self.allocator.refcount(page) <= 1
+                        or page in self._slot_pages.get(s, ())):
+                    continue
+                meta = self._req_meta.get(s)
+                fresh = self.allocator.alloc(
+                    1, owner=s, cls=meta["priority"] if meta else None)[0]
+                copy_pages_fn(self.cache, page, fresh)
+                self.block_tables[s, e] = fresh
+                self._slot_pages[s].append(fresh)
+                if page in self._slot_shared.get(s, ()):
+                    self._slot_shared[s].remove(page)
+                self.allocator.free([page])     # drop this slot's hold
+                self.counters["cow_copies"] += 1
+                dirty = True
+        if dirty:
+            self._flush_block_tables()
+
+    # -- the admission queue --------------------------------------------------
     def _mint_id(self) -> int:
         rid = self._next_id
         self._next_id += 1
         return rid
 
     def submit(self, prompt: np.ndarray, *, gen_len: Optional[int] = None,
-               temperature: float = 0.0, top_k: int = 0) -> int:
-        """Queue a request; returns its id (the key of ``results``).
-        ``temperature > 0`` samples (``top_k > 0`` restricts the draw to
-        the k best logits); 0 is greedy."""
+               temperature: float = 0.0, top_k: int = 0,
+               deadline_s: Optional[float] = None, priority=None) -> int:
+        """Queue a request; returns its id (the key of ``results``,
+        :meth:`status` and :meth:`cancel`).  ``temperature > 0`` samples
+        (``top_k > 0`` restricts the draw to the k best logits); 0 is
+        greedy.  ``deadline_s``: a TTL from now, past which the request
+        times out at the next block boundary, queued or running.
+        ``priority``: the SLO class (REALTIME > STANDARD > BATCH, FIFO
+        within a class); it changes when a request runs, never what it
+        generates."""
         prompt = validate_request(prompt, vocab=self.cfg.vocab,
-                                  temperature=temperature, top_k=top_k)
+                                  temperature=temperature, top_k=top_k,
+                                  deadline_s=deadline_s, priority=priority)
         if prompt.shape[0] > self.max_len:
             raise ValueError(
                 f"prompt of {prompt.shape[0]} tokens does not fit the "
                 f"cache (max_len={self.max_len})")
+        t = self.clock()
         req = {"id": self._mint_id(), "prompt": prompt, "gen_len": gen_len,
                "temperature": temperature, "top_k": top_k,
-               "t_submit": self.clock()}
+               "t_submit": t, "priority": coerce_priority(priority),
+               "deadline": None if deadline_s is None
+               else t + float(deadline_s)}
         if self.paged:
             need = self.allocator.pages_for(self._budget(req))
             if need > self.allocator.num_pages:
@@ -413,6 +757,67 @@ class Engine:
                     f"gen_len")
         self.waiting.append(req)
         return req["id"]
+
+    def status(self, req_id: int):
+        """Lifecycle status of a request id (None = unknown id)."""
+        if req_id in self.results:
+            return self.results[req_id]["status"]
+        for r in self.waiting:
+            if r["id"] == req_id:
+                return (RequestStatus.PREEMPTED if r.get("resume")
+                        else RequestStatus.QUEUED)
+        for m in self._req_meta.values():
+            if m["id"] == req_id:
+                return RequestStatus.RUNNING
+        return None
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a request wherever it is: queued (fresh or preempted),
+        it leaves the queue CANCELLED with the tokens it had committed;
+        running, its lane finishes now with its partial output.  Unknown
+        or terminal ids return False."""
+        for i, r in enumerate(self.waiting):
+            if r["id"] == req_id:
+                del self.waiting[i]
+                self._finalize_queued(r, RequestStatus.CANCELLED)
+                return True
+        for s, m in list(self._req_meta.items()):
+            if m["id"] == req_id:
+                self.live[s] = False
+                self.finish(s, status=RequestStatus.CANCELLED)
+                return True
+        return False
+
+    def _finalize_queued(self, rec: dict, status: RequestStatus) -> None:
+        """Terminal outcome of a request that holds no lane: a results
+        entry only (``done`` keeps lane streams)."""
+        self.results[rec["id"]] = {"status": status,
+                                   "tokens": list(rec.get("outputs") or [])}
+        if status is RequestStatus.TIMED_OUT:
+            self.counters["timeouts"] += 1
+            self._class_count(self._rec_priority(rec), "timeouts")
+        elif status is RequestStatus.CANCELLED:
+            self.counters["cancellations"] += 1
+            self._class_count(self._rec_priority(rec), "cancellations")
+
+    def _sweep_deadlines(self) -> None:
+        """TTLs at the block boundary: expired queued requests finalize
+        without a lane, expired live ones finish with their output."""
+        t = self.clock()
+        expired = [r for r in self.waiting
+                   if r.get("deadline") is not None and t >= r["deadline"]]
+        if expired:
+            gone = {id(r) for r in expired}
+            self.waiting = deque(r for r in self.waiting
+                                 if id(r) not in gone)
+            for r in expired:
+                self._finalize_queued(r, RequestStatus.TIMED_OUT)
+        for s in range(self.batch):
+            m = self._req_meta.get(s)
+            if (m is not None and m.get("deadline") is not None
+                    and self.live[s] and t >= m["deadline"]):
+                self.live[s] = False
+                self.finish(s, status=RequestStatus.TIMED_OUT)
 
     def _token_budget(self, plen: int, gen_len: Optional[int]) -> int:
         """A request's cache-row budget, i.e. its final ``stop_pos``."""
@@ -432,71 +837,323 @@ class Engine:
                 n += 1
         return n
 
+    def _rec_priority(self, rec: dict) -> PriorityClass:
+        """SLO class of a queue record (fresh or a preempted resume)."""
+        if rec.get("resume"):
+            return coerce_priority(rec["meta"].get("priority"))
+        return coerce_priority(rec.get("priority"))
+
+    def _queue_head(self) -> int:
+        """Index of the next admission candidate: the front of the most
+        important non-empty class (FIFO within a class; a page-blocked
+        head blocks every lower class)."""
+        best, best_i = None, 0
+        for i, r in enumerate(self.waiting):
+            p = self._rec_priority(r)
+            if best is None or p < best:
+                best, best_i = p, i
+                if p == PriorityClass.REALTIME:
+                    break
+        return best_i
+
     def try_admit(self) -> int:
-        """Admit queued requests into free lanes (paged: while pages last):
-        FIFO, no head-of-line skipping; one batched prefill for all."""
+        """Admit queued requests into free lanes while pages last: by
+        class, FIFO within a class, no head-of-line skipping; fresh
+        admissions share one batched prefill, preempted records resume
+        (payload and lane restored, no prefill).  A page-blocked head
+        first evicts cold prefixes; with ``preempt``, after
+        ``preempt_after`` blocked sweeps of the same head (at once when
+        its class is past its TTFT target), victims at or below its class
+        spill until it fits."""
         free = [s for s in range(self.batch)
                 if self.outputs[s] is None and not self.live[s]]
         admit: Dict[int, np.ndarray] = {}
-        kw = {"gen_len": {}, "temperature": {}, "top_k": {}, "_t_submit": {},
-              "_ids": {}}
+        kw = {"gen_len": {}, "temperature": {}, "top_k": {}, "priority": {},
+              "_t_submit": {}, "_ids": {}, "_deadlines": {}, "_prefix": {}}
         planned = 0
+        resumed = 0
+        placed: set = set()
         while self.waiting and free:
-            req = self.waiting[0]
+            i = self._queue_head()
+            req = self.waiting[i]
+            cls = self._rec_priority(req)
+            pre = None
             if self.paged:
-                need = self.allocator.pages_for(self._budget(req))
-                if not self.allocator.can_alloc(planned + need):
+                if req.get("resume"):
+                    need = req["n_pages"]
+                else:
+                    need = self.allocator.pages_for(self._budget(req))
+                    if self.prefix_cache:
+                        # a hit's shared pages are mapped, not allocated
+                        pre = self._match_prefix(req["prompt"])
+                        need -= len(pre["shared"])
+                if not self.allocator.can_alloc(planned + need, cls=cls):
+                    if self.prefix_cache:
+                        # pages promised this sweep are held (refcount >=
+                        # 2); the current head's match is protected here
+                        mine = set(self._hit_pages(pre)) if pre else set()
+                        want = planned + need - self.allocator.free_pages
+                        if self.prefix_index.evict(self.allocator, want,
+                                                   protect=mine):
+                            continue    # freed pages; recheck the head
+                    if self._maybe_preempt(req, cls, planned + need, free,
+                                           exclude=placed):
+                        continue        # victims spilled; recheck head
                     break
-                planned += need
-            self.waiting.popleft()
+            del self.waiting[i]
+            hb = self._head_blocked.get(cls)
+            if hb is not None and hb[0] == req["id"]:
+                # only the tracked head's own admission resets its count
+                del self._head_blocked[cls]
             s = free.pop(0)
+            placed.add(s)
+            if req.get("resume"):
+                self._resume(s, req)
+                resumed += 1
+                continue
+            if self.paged:
+                planned += need
+            if pre is not None:
+                # hold the matched pages now: a later head's eviction must
+                # not free them while this admission is pending
+                h = self._hit_pages(pre)
+                if h:
+                    self.allocator.share(h)
+                kw["_prefix"][s] = pre
             admit[s] = req["prompt"]
             kw["gen_len"][s] = req["gen_len"]
             kw["temperature"][s] = req["temperature"]
             kw["top_k"][s] = req["top_k"]
+            kw["priority"][s] = cls
             kw["_t_submit"][s] = req["t_submit"]
             kw["_ids"][s] = req["id"]
+            kw["_deadlines"][s] = req["deadline"]
         if admit:
             self.add_requests(admit, **kw)
-        return len(admit)
+        return len(admit) + resumed
 
-    def _prefill_chunked(self, reqs) -> Dict[int, int]:
+    # -- preempt and spill ------------------------------------------------------
+    def _victim_order(self, exclude=(), floor=None) -> List[int]:
+        """Spill order: BATCH before STANDARD before REALTIME; within a
+        class requests without a deadline first, then the most slack;
+        ties latest-admitted first.  ``floor`` (the preempting head's
+        class) spares every more important victim."""
+        cands = [s for s in range(self.batch)
+                 if self.live[s] and s in self._req_meta
+                 and s not in exclude]
+        if floor is not None:
+            cands = [s for s in cands
+                     if coerce_priority(self._req_meta[s].get("priority"))
+                     >= floor]
+
+        def rank(s):
+            m = self._req_meta[s]
+            dl = m.get("deadline")
+            return (-int(coerce_priority(m.get("priority"))),
+                    dl is not None, -(dl or 0.0), -m["t_admit"], -s)
+
+        return sorted(cands, key=rank)
+
+    def _preempt_until(self, target_free: int, exclude=(),
+                       floor=None) -> None:
+        """Spill victims until ``free_pages`` covers ``target_free`` (or
+        none is left: the caller checks again)."""
+        for v in self._victim_order(exclude, floor=floor):
+            if self.allocator.free_pages >= target_free:
+                break
+            self._preempt(v)
+
+    def _maybe_preempt(self, req, cls: PriorityClass, need: int,
+                       free: List[int], exclude=()) -> bool:
+        """Escalation inside try_admit: once the same head was blocked
+        ``preempt_after`` sweeps of its class (or is past its class's TTFT
+        target), spill victims at or below its class until it fits."""
+        if not self.preempt:
+            return False
+        hb = self._head_blocked.get(cls)
+        rounds = hb[1] + 1 if hb is not None and hb[0] == req["id"] else 1
+        self._head_blocked[cls] = (req["id"], rounds)
+        if rounds < self.preempt_after and not self._past_ttft_slo(req, cls):
+            return False
+        progressed = False
+        for v in self._victim_order(exclude, floor=cls):
+            if self.allocator.can_alloc(need, cls=cls):
+                break
+            self._preempt(v)
+            free.append(v)          # the victim's lane is admittable now
+            progressed = True
+        return progressed and self.allocator.can_alloc(need, cls=cls)
+
+    def _past_ttft_slo(self, req: dict, cls: PriorityClass) -> bool:
+        """Is this fresh queued record past its class's TTFT target?"""
+        tgt = self.slo_targets.get(cls, {}).get("ttft_s")
+        if tgt is None or req.get("resume"):
+            return False
+        return self.clock() - req["t_submit"] >= tgt
+
+    def _page_payload(self, pages: List[int]) -> Dict[str, torch.Tensor]:
+        """Host copy of the pool pages' payload, keyed by cache path: one
+        gather over the page axis of every page leaf (K/V and int8 scales
+        alike)."""
+        out = {}
+        for path, leaf in page_leaves(self.cache):
+            ids = torch.as_tensor(pages, dtype=torch.int64,
+                                  device=leaf.device)
+            out[path] = leaf.index_select(1, ids).to("cpu")
+        return out
+
+    def _write_pages(self, payload: Dict[str, torch.Tensor],
+                     pages: List[int]) -> None:
+        """Scatter a spilled payload into (new) physical pages, in place."""
+        for path, leaf in page_leaves(self.cache):
+            data = payload.get(path)
+            if data is None:
+                continue
+            ids = torch.as_tensor(pages, dtype=torch.int64,
+                                  device=leaf.device)
+            leaf.index_copy_(1, ids, data.to(leaf.device))
+
+    def _preempt(self, slot: int) -> None:
+        """Spill ``slot``'s request to host memory and queue it again, at
+        the back.  Every page its table maps (shared prefix pages first,
+        then its own) is copied to the host and every reference it holds
+        dropped; the resumed request gets private pages.  The lm family
+        keeps no recurrent lane state (the reference's ``_lane_state``)."""
+        meta = self._req_meta.pop(slot)
+        row = self.block_tables[slot]
+        mapped = [int(p) for p in row[row != self._trash]]
+        payload = self._page_payload(mapped) if mapped else {}
+        shared = (self._slot_shared.pop(slot, [])
+                  if self.prefix_cache else [])
+        if shared:
+            self.allocator.free(shared)         # drop this slot's holds
+        private = self._slot_pages.pop(slot, [])
+        spilled = self.allocator.spill(slot)
+        assert sorted(spilled) == sorted(private) \
+            and set(mapped) == set(shared) | set(private), \
+            "allocator/engine page maps diverged"
+        self.block_tables[slot, :] = self._trash
+        self._bt_dirty = True
+        rec = {"resume": True, "id": meta["id"], "meta": meta,
+               "deadline": meta.get("deadline"),
+               "n_pages": len(mapped), "payload": payload,
+               "pub": (self._pub.pop(slot, (0, ROOT))
+                       if self.prefix_cache else None),
+               "outputs": self.outputs[slot],
+               "pos": int(self.pos[slot]),
+               "token": int(self.tokens[slot, 0]),
+               "hist": self.hist[slot].copy(),
+               "temperature": float(self.temperature[slot]),
+               "top_k": int(self.top_k[slot]),
+               "stop_pos": int(self.stop_pos[slot])}
+        self.outputs[slot] = None
+        self.live[slot] = False
+        self.pos[slot] = 0
+        self.tokens[slot, 0] = 0
+        self.temperature[slot] = 0.0
+        self.top_k[slot] = 0
+        self.stop_pos[slot] = self.max_len
+        self._clean[slot] = True
+        self.waiting.append(rec)
+        self.counters["preemptions"] += 1
+        self._class_count(meta.get("priority"), "preemptions")
+        self.counters["spilled_pages"] += len(mapped)
+
+    def _resume(self, slot: int, rec: dict) -> None:
+        """Re-admit a preempted request: fresh pages take the spilled
+        payload (in place) and the table re-targets them; ``pos``, the
+        held token, outputs, drafting history and sampling params are
+        exactly as spilled, so the stream goes on as if never spilled."""
+        pages = self.allocator.alloc(rec["n_pages"], owner=slot,
+                                     cls=self._rec_priority(rec))
+        self._slot_pages[slot] = pages
+        if self.prefix_cache:
+            # all its pages are private now; publication resumes at the
+            # kept chain position (indexed chunks are recognized, skipped)
+            self._slot_shared[slot] = []
+            self._pub[slot] = rec.get("pub") or (0, ROOT)
+        self.block_tables[slot, :] = self._trash
+        self.block_tables[slot, :len(pages)] = pages
+        self._flush_block_tables()
+        if rec["payload"]:
+            self._write_pages(rec["payload"], pages)
+        self.pos[slot] = rec["pos"]
+        self.tokens[slot, 0] = rec["token"]
+        self.live[slot] = True
+        self.outputs[slot] = rec["outputs"]
+        self.hist[slot] = rec["hist"]
+        self.temperature[slot] = rec["temperature"]
+        self.top_k[slot] = rec["top_k"]
+        self.stop_pos[slot] = rec["stop_pos"]
+        self._clean[slot] = False
+        self._req_meta[slot] = rec["meta"]
+        self.counters["peak_live"] = max(self.counters["peak_live"],
+                                         int(self.live.sum()))
+
+    # -- prefill ----------------------------------------------------------------
+    def _prefill_chunked(self, reqs, starts=None) -> Dict[int, int]:
         """Batched chunked prefill; returns each slot's first token.
+        ``starts`` (slot -> first token to ingest) makes it suffix-only
+        for prefix hits: the chunk grid runs at ``start + c0`` per slot
+        and attends the shared pages through the flushed block table.
 
         Everything a chunk needs is uploaded once and the per-chunk
         argmaxes stay on the device, so the whole prefill costs one host
-        sync (the reference reads every chunk's logits back).  A draft
-        model takes each chunk too (the reference's ``_prefill_draft``):
-        it has then consumed the prompt, one token behind the held first
-        token, which the first draft step consumes.
+        sync (the reference reads every chunk's logits back).
         """
         chunk = self.prefill_chunk
-        plen = max(p.shape[0] for p in reqs.values())
+        starts = starts or {}
+        offs = {s: int(starts.get(s, 0)) for s in reqs}
+        sufs = {s: p[offs[s]:] for s, p in reqs.items()}
+        plen = max(t.shape[0] for t in sufs.values())
         padded = -(-plen // chunk) * chunk
         toks = np.zeros((self.batch, padded), np.int32)
-        fresh = np.zeros((self.batch,), bool)
-        for s, p in reqs.items():
-            toks[s, :p.shape[0]] = p
-            fresh[s] = True
+        for s, t in sufs.items():
+            toks[s, :t.shape[0]] = t
+        # lanes whose (shorter) suffix is exhausted park at the last full
+        # chunk inside the table: their writes land at positions >=
+        # max_len, in the margin, never below a committed watermark
+        park = (self.block_tables.shape[1] * self.allocator.page_size
+                - chunk) if (self.paged and offs and max(offs.values())) \
+            else None
+        n_chunks = -(-plen // chunk)
+        cur = np.repeat(self.pos[None, :], n_chunks, axis=0)
+        for c in range(n_chunks):
+            for s in reqs:
+                cur[c, s] = (c * chunk if park is None
+                             else min(offs[s] + c * chunk, park))
         toks_d = torch.from_numpy(toks).to(self.device)
-        fresh_d = torch.from_numpy(fresh).to(self.device)
-        # lanes mid-generation keep their own position
-        pos_d = torch.from_numpy(self.pos.copy()).to(self.device)
+        cur_d = torch.from_numpy(cur).to(self.device)
         picks = []
-        for c0 in range(0, padded, chunk):
-            if c0 >= plen:
-                break
-            cur = torch.where(fresh_d, c0, pos_d).to(torch.int32)
-            piece = {"tokens": toks_d[:, c0:c0 + chunk]}
+        for c in range(n_chunks):
+            piece = {"tokens": toks_d[:, c * chunk:(c + 1) * chunk]}
             logits, self.cache = self.prefill(self.params, piece, self.cache,
-                                              cur)
-            if self.draft is not None:
-                _, self.draft_cache = self._draft_prefill(
-                    self.draft[1], piece, self.draft_cache, cur)
+                                              cur_d[c])
             self.counters["prefill_chunks"] += 1
             picks.append(torch.argmax(logits.to(torch.float32), dim=-1))
+        self.counters["prefill_tokens"] += sum(t.shape[0]
+                                               for t in sufs.values())
         ids = torch.cat(picks, dim=1).cpu().numpy()
-        return {s: int(ids[s, p.shape[0] - 1]) for s, p in reqs.items()}
+        return {s: int(ids[s, t.shape[0] - 1]) for s, t in sufs.items()}
+
+    def _prefill_draft(self, reqs) -> None:
+        """Ingest the admitted prompts, whole, into the draft model's
+        cache: it then sits one token behind the held first token, which
+        the first draft step consumes."""
+        chunk = self.prefill_chunk
+        plen = max(p.shape[0] for p in reqs.values())
+        n_chunks = -(-plen // chunk)
+        toks = np.zeros((self.batch, n_chunks * chunk), np.int32)
+        cur = np.repeat(self.pos[None, :], n_chunks, axis=0)
+        for s, p in reqs.items():
+            toks[s, :p.shape[0]] = p
+            cur[:, s] = np.arange(n_chunks) * chunk
+        toks_d = torch.from_numpy(toks).to(self.device)
+        cur_d = torch.from_numpy(cur).to(self.device)
+        for c in range(n_chunks):
+            _, self.draft_cache = self._draft_prefill(
+                self.draft[1], {"tokens": toks_d[:, c * chunk:(c + 1) * chunk]},
+                self.draft_cache, cur_d[c])
 
     # -- decode / retire --------------------------------------------------------
     def step_many(self, n: int):
@@ -505,21 +1162,77 @@ class Engine:
         Returns ``(block, block_live)``, (n, B) emitted tokens and their
         validity.  Under ``spec`` ``n`` counts draft -> verify rounds and
         the block is (n * (spec_k + 1), B), each live slot committing 1 to
-        spec_k + 1 tokens a round.  Lanes whose logits went non-finite are
-        finished with status FAILED and their valid prefix.  With requests
-        waiting, finished lanes are retired and the queue admitted at the
-        end.
+        spec_k + 1 tokens a round.
+
+        Every block boundary sweeps deadlines and applies the shedding
+        policy (a shed block is a plain block, half as long when
+        REALTIME is at risk); with recovery on, the engine snapshots
+        first, and a faulted block (an injected exception, the device
+        fault lane, a corruption report) is restored and replayed -- an
+        injected fault fires once, so the replay runs clean and commits
+        the fault-free tokens.  Without recovery, lanes of the fault lane
+        finish FAILED with their valid prefix, and host faults propagate.
+        With requests waiting, finished lanes are retired and the queue
+        admitted at the end.
         """
-        if self._bt_dirty:
+        self._round += 1
+        self._sweep_deadlines()
+        n_eff, spec_now = self._shed_policy(n)
+        if self.prefix_cache:
+            self._cow_guard()
+        if self.paged and self._bt_dirty:
             self._flush_block_tables()
-        t0 = self.clock()
-        block, block_live, fault = (self._block_spec(n) if self.spec
-                                    else self._block_decode(n))
-        t1 = self.clock()
-        self._gen_step += n
+        snap = self.snapshot() if self._recover else None
+        pos_before = self.pos.copy()
+        injector = self.fault_injector
+        attempt = 0
+        fault_slots: tuple = ()
+        while True:
+            try:
+                self._injected_slow = False
+                if injector is not None:
+                    injector.before_block(self._round, self)
+                t0 = self.clock()
+                if spec_now:
+                    block, block_live, fault = self._block_spec(n_eff)
+                else:
+                    block, block_live, fault = self._block_decode(n_eff)
+                if injector is not None:
+                    injector.after_block(self._round, self)
+                t1 = self.clock()
+                if fault.any():
+                    raise DeviceFault(np.where(fault)[0])
+                break
+            except (RuntimeError, FloatingPointError) as e:
+                if snap is not None and attempt < self.max_replays:
+                    attempt += 1
+                    self.restore(snap)
+                    self.counters["replays"] += 1
+                    continue
+                if isinstance(e, DeviceFault):
+                    # no recovery: keep the block's committed prefix and
+                    # fail the flagged slots below
+                    fault_slots = e.slots
+                    break
+                raise
+        self._gen_step += n_eff
+        self._clean[:] = False              # a block advances every lane
         self.counters["decode_s"] += t1 - t0
-        self.counters["decode_steps"] += n
+        self.counters["decode_steps"] += n_eff
         self.counters["gen_tokens"] += int(block_live.sum())
+        # straggler telemetry: wall time per step, plus the injector's
+        # synthetic penalty for a deterministic slow block
+        dur = (t1 - t0) / max(1, n_eff)
+        if self._injected_slow:
+            dur += self._slow_penalty
+            self._injected_slow = False
+        if (self.straggler is not None
+                and self.straggler.record(self._round, dur)):
+            self.counters["straggler_blocks"] += 1
+            # charged to every class that had a request in the block
+            for cls in {coerce_priority(m.get("priority"))
+                        for m in self._req_meta.values()}:
+                self._class_count(cls, "straggler_blocks")
         for s in range(self.batch):
             if not self.live[s] and s in self._req_meta:
                 self._req_meta[s].setdefault("t_done", t1)
@@ -527,28 +1240,104 @@ class Engine:
             if self.outputs[s] is not None:
                 self.outputs[s].extend(
                     int(t) for t in block[block_live[:, s], s])
-        for s in np.where(fault)[0]:
+        if (self.spec or self.prefix_cache) and not spec_now:
+            # a plain block feeds hist on the host -- the drafting corpus
+            # under speculation, the publication source under prefix
+            # caching -- as the spec block does on the device
+            for s in range(self.batch):
+                col = block[:, s][block_live[:, s]]
+                if col.size:
+                    p0 = int(pos_before[s])
+                    end = min(p0 + col.size, self.hist.shape[1])
+                    self.hist[s, p0:end] = col[:end - p0]
+        if self.prefix_cache:
+            assert (self.pos >= pos_before).all(), \
+                "pos went backwards across a block"
+            for s in range(self.batch):
+                # live slots and slots that finished inside the block (their
+                # pages stay mapped until retirement), never a fault-flagged
+                # one: its pages may hold what the fault lane caught
+                if self.outputs[s] is not None and s not in fault_slots:
+                    self._publish_committed(s)
+        for s in fault_slots:
             if self.outputs[s] is not None:
                 self.live[s] = False
-                self.finish(int(s), status=RequestStatus.FAILED)
+                self.finish(s, status=RequestStatus.FAILED)
         if self.waiting:
             self.retire_finished()
             self.try_admit()
         return block, block_live
 
+    def _shed_policy(self, n: int):
+        """Pressure shedding: (block steps, speculative?).  With
+        ``slo_targets``, pressure is a class behind its target (its oldest
+        fresh queued request past the TTFT target, or its recent
+        completions below the tok/s target): speculation is shed, and the
+        block halved only when REALTIME is at risk.  Else, past
+        ``shed_threshold`` pool occupancy, the block is halved and
+        speculation shed.  Shapes change, greedy streams do not."""
+        if self.slo_targets:
+            cls = self._slo_pressure()
+            if cls is None:
+                return n, self.spec
+            if self.spec:
+                self.counters["shed_spec_rounds"] += 1
+            self._class_count(cls, "shed_rounds")
+            if cls == PriorityClass.REALTIME:
+                return max(1, n // 2), False
+            return n, False
+        if (self.shed_threshold is None or not self.paged
+                or self.allocator.num_pages == 0):
+            return n, self.spec
+        occ = self.allocator.used_pages / self.allocator.num_pages
+        if occ < self.shed_threshold:
+            return n, self.spec
+        if self.spec:
+            self.counters["shed_spec_rounds"] += 1
+        return max(1, n // 2), False
+
+    def _slo_pressure(self) -> Optional[PriorityClass]:
+        """The most important class behind its SLO target, or None."""
+        t = self.clock()
+        worst = None
+        for cls, tgt in self.slo_targets.items():
+            at_risk = False
+            ttft = tgt.get("ttft_s")
+            if ttft is not None:
+                at_risk = any(
+                    not r.get("resume") and t - r["t_submit"] >= ttft
+                    for r in self.waiting
+                    if self._rec_priority(r) == cls)
+            rate = tgt.get("tok_per_s")
+            if rate is not None and not at_risk:
+                recent = [r["tok_per_s"] for r in self.request_log[-8:]
+                          if r.get("priority") == cls.name.lower()
+                          and r["tok_per_s"] is not None]
+                at_risk = bool(recent) and float(np.mean(recent)) < rate
+            if at_risk and (worst is None or cls < worst):
+                worst = cls
+        return worst
+
     def _block_decode(self, n: int):
         """One fused decode block: one upload, ``n`` steps (one graph
         replay on the card), one download.  The cache is written in
-        place."""
-        state = self.blocks.pack(self.tokens, self.pos, self.live,
-                                 self.stop_pos, self.temperature, self.top_k,
-                                 self._gen_step, self.eos_id)
+        place.  A speculative engine's shed blocks run here too."""
+        blocks = self.blocks
+        if self.spec:
+            if self._plain_blocks is None:
+                self._plain_blocks = DecodeBlocks(
+                    self.cfg, self.ctx, self.batch, self.device,
+                    graphs=self.blocks.graphs)
+            blocks = self._plain_blocks
+        state = blocks.pack(self.tokens, self.pos, self.live,
+                            self.stop_pos, self.temperature, self.top_k,
+                            self._gen_step, self.eos_id)
         # all-greedy batches skip the top-k sorts and the noise (greedy
         # consumes no PRNG state, so the stream is unaffected)
         key = self._key if (self.temperature > 0).any() else None
-        out = self.blocks(self.params, self.cache, state, key, n)
+        out = blocks(self.params, self.cache, state, key, n)
         block, block_live, self.tokens, self.pos, self.live, fault = \
-            self.blocks.unpack(out, n)
+            blocks.unpack(out, n)
         return block, block_live, fault
 
     def _block_spec(self, n: int):
@@ -578,22 +1367,32 @@ class Engine:
 
     def finish(self, slot: int,
                status: RequestStatus = RequestStatus.COMPLETED):
-        """Retire ``slot``: its tokens land in ``results[req_id]``.  Dense:
-        its KV rows are zeroed, so a recycled slot never observes its
-        previous occupant.  Paged: its pages return to the free list and
-        its table row points at the trash page (the device table is
-        rewritten lazily, once per sweep)."""
+        """Retire ``slot`` with a terminal ``status``: its tokens land in
+        ``results[req_id]`` (partial for CANCELLED, TIMED_OUT and FAILED).
+        Dense: its KV rows are zeroed, so a recycled slot never observes
+        its previous occupant.  Paged: its own pages return to the free
+        list, its shared prefix pages lose its reference only, and its
+        table row points at the trash page (the device table is rewritten
+        lazily, once per sweep)."""
         meta = self._req_meta.pop(slot, None)
         if meta is not None:
+            cls = coerce_priority(meta.get("priority"))
             done = meta.get("t_done", self.clock())
             self.request_log.append(request_row(
                 ttft_s=meta["ttft_s"],
                 gen_tokens=len(self.outputs[slot] or []),
-                decode_s=done - meta["t_admit"], status=status))
+                decode_s=done - meta["t_admit"], status=status,
+                priority=cls))
             self.results[meta["id"]] = {
                 "status": status, "tokens": list(self.outputs[slot] or [])}
-            if status is RequestStatus.FAILED:
-                self.counters["failures"] += 1
+            key = {RequestStatus.CANCELLED: "cancellations",
+                   RequestStatus.TIMED_OUT: "timeouts",
+                   RequestStatus.FAILED: "failures"}.get(status)
+            if key is not None:
+                self.counters[key] += 1
+                self._class_count(cls, key)
+            elif status is RequestStatus.COMPLETED:
+                self._class_count(cls, "completed")
         self.done.append(self.outputs[slot])
         self.outputs[slot] = None
         self.live[slot] = False
@@ -608,23 +1407,144 @@ class Engine:
             self.draft_cache = invalidate_fn(self.draft_cache, slot,
                                              self.draft[0])
         if self.paged:
+            if self.prefix_cache:
+                self.allocator.free(self._slot_shared.pop(slot, []))
+                self._pub.pop(slot, None)
             self.allocator.free(self._slot_pages.pop(slot, []))
             self.block_tables[slot, :] = self._trash
             self._bt_dirty = True
+        self._clean[slot] = True
+
+    # -- snapshot / restore -----------------------------------------------------
+    def snapshot(self) -> dict:
+        """Everything a block can change, copied to host memory: the cache
+        (and a draft model's), the slot arrays, the allocator with its
+        free-list order, block tables, queue, outputs, results, counters,
+        the prefix index and the PRNG step, so that :meth:`restore`
+        rewinds the engine to this block boundary exactly."""
+        snap = {
+            "cache": _host_copy(self.cache),
+            "pos": self.pos.copy(), "tokens": self.tokens.copy(),
+            "live": self.live.copy(), "clean": self._clean.copy(),
+            "temperature": self.temperature.copy(),
+            "top_k": self.top_k.copy(),
+            "stop_pos": self.stop_pos.copy(), "hist": self.hist.copy(),
+            "gen_step": self._gen_step, "round": self._round,
+            "next_id": self._next_id,
+            "head_blocked": dict(self._head_blocked),
+            "class_counters": {c: dict(row) for c, row
+                               in self.class_counters.items()},
+            "outputs": [None if o is None else list(o)
+                        for o in self.outputs],
+            "done": list(self.done),
+            "waiting": [_copy_record(r) for r in self.waiting],
+            "req_meta": {s: dict(m) for s, m in self._req_meta.items()},
+            "results": {k: {"status": v["status"],
+                            "tokens": list(v["tokens"])}
+                        for k, v in self.results.items()},
+            "counters": dict(self.counters),
+            "request_log": [dict(r) for r in self.request_log],
+        }
+        if self.paged:
+            snap["allocator"] = self.allocator.state()
+            snap["block_tables"] = self.block_tables.copy()
+            snap["bt_dirty"] = self._bt_dirty
+            snap["slot_pages"] = {s: list(p)
+                                  for s, p in self._slot_pages.items()}
+        if self.prefix_cache:
+            snap["prefix_index"] = self.prefix_index.state()
+            snap["slot_shared"] = {s: list(p)
+                                   for s, p in self._slot_shared.items()}
+            snap["pub"] = dict(self._pub)
+        if self.draft is not None:
+            snap["draft_cache"] = _host_copy(self.draft_cache)
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        """Rewind the engine to a :meth:`snapshot`, which stays pristine
+        (one snapshot survives any number of replays).  The caches are
+        written back into their tensors in place: their addresses, and
+        with them the captured decode graphs, survive."""
+        _write_back(self.cache, snap["cache"])
+        self.pos = snap["pos"].copy()
+        self.tokens = snap["tokens"].copy()
+        self.live = snap["live"].copy()
+        self._clean = snap["clean"].copy()
+        self.temperature = snap["temperature"].copy()
+        self.top_k = snap["top_k"].copy()
+        self.stop_pos = snap["stop_pos"].copy()
+        self.hist = snap["hist"].copy()
+        self._gen_step = snap["gen_step"]
+        self._round = snap["round"]
+        self._next_id = snap["next_id"]
+        self._head_blocked = dict(snap["head_blocked"])
+        self.class_counters = {c: dict(row) for c, row
+                               in snap["class_counters"].items()}
+        self.outputs = [None if o is None else list(o)
+                        for o in snap["outputs"]]
+        self.done = list(snap["done"])
+        self.waiting = deque(_copy_record(r) for r in snap["waiting"])
+        self._req_meta = {s: dict(m) for s, m in snap["req_meta"].items()}
+        self.results = {k: {"status": v["status"],
+                            "tokens": list(v["tokens"])}
+                        for k, v in snap["results"].items()}
+        self.counters = dict(self.counters, **snap["counters"])
+        self.request_log = [dict(r) for r in snap["request_log"]]
+        if self.paged:
+            self.allocator.load_state(snap["allocator"])
+            self.block_tables = snap["block_tables"].copy()
+            self._bt_dirty = snap["bt_dirty"]
+            self._slot_pages = {s: list(p)
+                                for s, p in snap["slot_pages"].items()}
+        if self.prefix_cache:
+            self.prefix_index.load_state(snap["prefix_index"])
+            self._slot_shared = {s: list(p)
+                                 for s, p in snap["slot_shared"].items()}
+            self._pub = dict(snap["pub"])
+        if self.draft is not None:
+            _write_back(self.draft_cache, snap["draft_cache"])
+
+    def save_snapshot(self, directory: str, step: int = 0) -> str:
+        """Write :meth:`snapshot` to disk atomically (``save_blob``)."""
+        return save_blob(self.snapshot(), directory, step)
+
+    def load_snapshot(self, directory: str,
+                      step: Optional[int] = None) -> None:
+        """Restore the newest (or the given) on-disk snapshot."""
+        if step is None:
+            step = latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no engine snapshot under "
+                                        f"{directory}")
+        self.restore(load_blob(directory, step))
+
+    def _poison_cache(self, value: float) -> None:
+        """Chaos hook: fill every float leaf of the serving cache with
+        ``value``, in place (block tables and int8 payloads stay)."""
+        for _, leaf in cache_leaves(self.cache):
+            if leaf.is_floating_point():
+                leaf.fill_(float(value))
 
     # -- telemetry ----------------------------------------------------------------
     def stats(self) -> dict:
         """Serving telemetry: TTFT (submit -> first token), decode tokens
         per second of block wall time (syncs included), the model calls
-        made (decode steps, prefill chunks), the cache, the resolved
-        split-KV knob (None when dense), whether blocks run as CUDA graphs,
-        how many were captured and the seconds that took (inside
-        ``decode_s``), and the kernel launch counts --
-        ``lut_activation`` among them -- since the last reset (a graph
-        replay counts every launch it runs).  Under ``spec``: the live
-        verify rounds and the mean drafts accepted per round
-        (``accepted_per_step``; committed tokens per round = that + 1)."""
+        made (decode steps, prefill chunks and the prompt tokens they
+        computed), the cache, the resolved split-KV knob (None when
+        dense), whether blocks run as CUDA graphs, how many were captured
+        and the seconds that took (inside ``decode_s``), and the kernel
+        launch counts since the last reset (a graph replay counts every
+        launch it runs).  Under ``spec``: the live verify rounds and the
+        mean drafts accepted per round.  The lifecycle: prefix-cache hits,
+        pages and tokens saved and copy-on-write copies; preemptions,
+        cancellations, timeouts, failures, replays, spilled pages, shed
+        spec rounds and straggler blocks; per-class rows (``classes``)
+        for every class with any activity."""
         c = self.counters
+        captures = self.blocks.captures + (self._plain_blocks.captures
+                                           if self._plain_blocks else 0)
+        capture_s = self.blocks.capture_s + (self._plain_blocks.capture_s
+                                             if self._plain_blocks else 0.0)
         out = {"requests": len(self.done), "admitted": c["admitted"],
                "peak_live": c["peak_live"], "gen_tokens": c["gen_tokens"],
                "decode_s": c["decode_s"],
@@ -632,13 +1552,13 @@ class Engine:
                                     if c["decode_s"] > 0 else None),
                "decode_steps": c["decode_steps"],
                "prefill_chunks": c["prefill_chunks"],
+               "prefill_tokens": c["prefill_tokens"],
                "paged": self.paged, "kv_bits": self.kv_bits,
                "kv_split": self.kv_split,
                "pages_per_step": self.pages_per_step,
-               "queued": len(self.waiting), "failures": c["failures"],
+               "queued": len(self.waiting),
                "device": str(self.device), "graphs": self.blocks.graphs,
-               "graph_captures": self.blocks.captures,
-               "graph_capture_s": self.blocks.capture_s,
+               "graph_captures": captures, "graph_capture_s": capture_s,
                "kernel_launches": launch_counts()}
         if self.spec:
             out["verify_steps"] = c["verify_steps"]
@@ -652,6 +1572,43 @@ class Engine:
                      if r["tok_per_s"] is not None]
             out["req_tok_per_s_mean"] = (float(np.mean(rates))
                                          if rates else None)
+        if self.prefix_cache:
+            for k in ("prefix_hits", "prefix_hit_pages",
+                      "prefix_tokens_saved", "cow_copies"):
+                out[k] = c[k]
+            out["shared_pages"] = self.allocator.shared_pages()
+            out["prefix_index_pages"] = len(self.prefix_index)
+        for k in ("preemptions", "cancellations", "timeouts", "failures",
+                  "replays", "spilled_pages", "shed_spec_rounds",
+                  "straggler_blocks"):
+            out[k] = c[k]
+        out["straggler_events"] = (len(self.straggler.events)
+                                   if self.straggler is not None else 0)
+        out["uptime_s"] = float(self.clock() - self._t_start)
+        classes = {}
+        for cls in PriorityClass:
+            row = dict(self.class_counters[cls])
+            rows = [r for r in self.request_log
+                    if r.get("priority", "standard") == cls.name.lower()]
+            row["requests"] = len(rows)
+            row["queued"] = sum(1 for r in self.waiting
+                                if self._rec_priority(r) == cls)
+            if rows:
+                tt = [r["ttft_s"] for r in rows]
+                row["ttft_p50_s"] = float(np.percentile(tt, 50))
+                row["ttft_p99_s"] = float(np.percentile(tt, 99))
+                rates = [r["tok_per_s"] for r in rows
+                         if r["tok_per_s"] is not None]
+                row["tok_per_s_mean"] = (float(np.mean(rates))
+                                         if rates else None)
+            if (row["requests"] or row["queued"]
+                    or any(row[k] for k in self._fresh_class_row())):
+                classes[cls.name.lower()] = row
+        if classes:
+            out["classes"] = classes
+        if self.slo_targets:
+            out["slo_targets"] = {c.name.lower(): dict(t)
+                                  for c, t in self.slo_targets.items()}
         return out
 
 
@@ -667,10 +1624,11 @@ def build_ctx(args) -> QuantContext:
 
 
 #: reference CLI flags outside this slice -> the ROADMAP.md item porting them
-_REFUSED = {"--prefix-cache": "queue 1, item 11",
-            "--preempt": "queue 1, item 10",
-            "--durable-dir": "queue 1, item 12",
-            "--replicas": "queue 1, item 13"}
+_REFUSED = {"--durable-dir": "queue 1, item 12b",
+            "--snapshot-every": "queue 1, item 12b",
+            "--replicas": "queue 1, item 13",
+            "--standby-dir": "queue 1, item 13",
+            "--class-quota": "queue 1, item 13"}
 
 
 def main(argv=None):
@@ -718,6 +1676,33 @@ def main(argv=None):
                          "vocab (implies --spec); default: prompt lookup")
     ap.add_argument("--spec-ngram", type=int, default=2,
                     help="context length of the prompt-lookup match")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="prefix caching over the page pool (needs "
+                         "--paged): committed prompt pages are shared "
+                         "copy-on-write with later requests that open with "
+                         "the same tokens, which prefill only their suffix")
+    ap.add_argument("--preempt", action="store_true",
+                    help="preempt-and-spill (needs --paged): under page "
+                         "pressure spill a running victim's pages to host "
+                         "memory and resume it later")
+    ap.add_argument("--shed-threshold", type=float, default=None,
+                    help="page-pool occupancy (0..1) past which a block is "
+                         "halved and speculation skipped")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request TTL from submission; past it the "
+                         "request times out at the next block boundary "
+                         "with its partial output")
+    ap.add_argument("--priority-class", default="standard",
+                    choices=[c.name.lower() for c in PriorityClass],
+                    help="SLO class of the submitted requests (realtime > "
+                         "standard > batch, FIFO within a class)")
+    ap.add_argument("--slo-ttft-s", type=float, default=None,
+                    help="TTFT target (s) of the realtime class: a realtime "
+                         "request queued past it preempts at once and "
+                         "sheds speculation until it is served")
+    ap.add_argument("--slo-tok-per-s", type=float, default=None,
+                    help="decode-rate target (tok/s) of the realtime class, "
+                         "driving the same shedding")
     ap.add_argument("--graphs", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="decode blocks as CUDA graph replays (default: on "
@@ -776,15 +1761,22 @@ def main(argv=None):
                  num_pages=args.num_pages, kv_split=knob(args.kv_split),
                  pages_per_step=knob(args.pages_per_step), spec=args.spec,
                  spec_k=args.spec_k, spec_draft=spec_draft,
-                 spec_ngram=args.spec_ngram, device=device,
-                 graphs=args.graphs)
+                 spec_ngram=args.spec_ngram, prefix_cache=args.prefix_cache,
+                 preempt=args.preempt, shed_threshold=args.shed_threshold,
+                 slo_targets=({"realtime": {"ttft_s": args.slo_ttft_s,
+                                            "tok_per_s": args.slo_tok_per_s}}
+                              if (args.slo_ttft_s is not None
+                                  or args.slo_tok_per_s is not None)
+                              else None),
+                 device=device, graphs=args.graphs)
     src = SyntheticLM(cfg.vocab, seed=args.seed)
     prompts = [src.tokens(i, 1, args.prompt_len)[0, :-1]
                for i in range(args.requests)]
     t0 = time.perf_counter()
     for p in prompts:
         eng.submit(p, gen_len=args.gen_len, temperature=args.temperature,
-                   top_k=args.top_k)
+                   top_k=args.top_k, deadline_s=args.deadline_s,
+                   priority=args.priority_class)
     eng.try_admit()
     gen_tokens = 0
     while eng.live.any() or eng.waiting:
@@ -799,7 +1791,11 @@ def main(argv=None):
     if args.spec:
         cache += (f" spec(k={eng.spec_k},"
                   f"draft={args.spec_draft or 'ngram'})")
-    print(f"served {len(eng.done)} requests, {gen_tokens} tokens in "
+    if args.prefix_cache:
+        cache += " prefix-cache"
+    if args.preempt:
+        cache += " preempt"
+    print(f"served {len(eng.results)} requests, {gen_tokens} tokens in "
           f"{dt:.2f}s ({gen_tokens / dt:.1f} tok/s), quant={args.quant} "
           f"lut={args.lut} kv_bits={args.kv_bits} device={device} {cache} "
           f"temperature={args.temperature} top_k={args.top_k} "

@@ -12,7 +12,8 @@ from . import encdec, lm
 
 __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
            "init_cache_fn", "init_paged_cache_fn", "set_block_table",
-           "invalidate_fn", "spec_state_fn", "spec_restore_fn"]
+           "invalidate_fn", "spec_state_fn", "spec_restore_fn",
+           "copy_pages_fn", "cache_leaves", "page_leaves"]
 
 FAMILIES = {"lm": lm, "encdec": encdec}
 
@@ -73,6 +74,41 @@ def set_block_table(cache, bt: torch.Tensor):
             elif isinstance(val, dict):
                 walk(val)
     walk(cache)
+    return cache
+
+
+def cache_leaves(cache, path: str = ""):
+    """``(path, tensor)`` of every tensor of a serving cache, in a fixed
+    order (paths like ``/dense/pages/k``)."""
+    out = []
+    for key in sorted(cache):
+        val = cache[key]
+        if isinstance(val, dict):
+            out += cache_leaves(val, f"{path}/{key}")
+        else:
+            out.append((f"{path}/{key}", val))
+    return out
+
+
+def page_leaves(cache):
+    """:func:`cache_leaves` under a ``"pages"`` key: the page-pool leaves,
+    K/V and int8 scales alike, each with the page axis at position 1 --
+    (L, P+1, ...)."""
+    return [(p, t) for p, t in cache_leaves(cache) if "/pages/" in p]
+
+
+def copy_pages_fn(cache, src, dst):
+    """Copy physical pages ``src`` -> ``dst`` in every page-pool leaf, in
+    place (``index_copy_``), so the tensors keep their addresses and the
+    captured decode graphs stay valid.  The copy-on-write primitive of
+    prefix caching; block tables are the caller's host-side edit.
+    ``src``/``dst``: ints or equal-length id sequences."""
+    for _, leaf in page_leaves(cache):
+        s = torch.as_tensor(src, dtype=torch.int64,
+                            device=leaf.device).reshape(-1)
+        d = torch.as_tensor(dst, dtype=torch.int64,
+                            device=leaf.device).reshape(-1)
+        leaf.index_copy_(1, d, leaf.index_select(1, s))
     return cache
 
 

@@ -25,7 +25,8 @@ KV-cache regimes (port of the GQA part of ``repro.nn.attention``).
 * **dense** -- per-slot rows ``(B, Hkv, rows, Dh)`` in f32, or int8 with
   bf16 scales; the new rows are written at ``cache_pos`` and the whole
   row range is attended under a visibility mask by
-  :func:`_einsum_attention`.
+  :func:`_einsum_attention` (a speculative verify pass one query
+  position at a time, so its rows are plain decode's, bit for bit).
 
 Caches are updated **in place** (the reference returns new arrays): a
 decode step writes ``B`` rows, not a copy of every layer's cache.  RoPE
@@ -185,7 +186,36 @@ def _einsum_attention(q, k, v, *, ctx: QuantContext,
     Operands are rounded to ``compute_dtype`` and multiplied in f32 (the
     reference's bf16 operands with ``preferred_element_type=f32``); the
     softmax is :func:`repro_torch.nn.activations.softmax` on f32 logits.
+
+    Under ``ctx.per_position_attention`` (the verify pass) a masked call
+    of several query positions attends one position at a time
+    (:func:`_attention_by_row`): GQA folds the positions into the
+    products' M, and cuBLAS picks another algorithm at M = 5 x group than
+    at a decode step's M = group, whose per-row sums round otherwise, so
+    the verify pass would part from plain decode.  Every other call (a
+    prefill chunk, whisper's decoder prompt) keeps the two fused
+    products; at the CPU tests' shapes both forms are bitwise the JAX
+    reference's.
     """
+    if mask is not None and q.shape[2] > 1 and ctx.per_position_attention:
+        return _attention_by_row(q, k, v, ctx=ctx, mask=mask)
+    return _einsum_attention_fused(q, k, v, ctx=ctx, mask=mask)
+
+
+def _attention_by_row(q, k, v, *, ctx: QuantContext, mask: torch.Tensor):
+    """:func:`_einsum_attention_fused` per query position: every call has
+    a decode step's shapes, so the rows do not depend on how many
+    positions a call carries."""
+    return torch.cat([
+        _einsum_attention_fused(q[:, :, i:i + 1], k, v, ctx=ctx,
+                                mask=mask[:, i:i + 1])
+        for i in range(q.shape[2])], dim=2)
+
+
+def _einsum_attention_fused(q, k, v, *, ctx: QuantContext,
+                            mask: Optional[torch.Tensor] = None):
+    """:func:`_einsum_attention` as two batched products over every query
+    position at once."""
     b, hq, sq, dh = q.shape
     hkv = k.shape[1]
     dv = v.shape[-1]

@@ -33,6 +33,10 @@ class QuantContext:
     ``cuda``; ``ref`` forces the plain versions on any device).
     ``kv_split``/``pages_per_step``: the split-KV knob of paged attention
     (None = the cost model's choice; ``(1, 1)`` = the unsplit kernel).
+    ``per_position_attention``: a masked einsum attention call of several
+    query positions attends one position at a time, each at a decode
+    step's shapes (the speculative verify pass, whose rows must be plain
+    decode's bit for bit; not a reference field).
     """
 
     mode: str = "none"
@@ -51,6 +55,7 @@ class QuantContext:
     kv_split: Optional[int] = None
     pages_per_step: Optional[int] = None
     force_paged_kernel: bool = False
+    per_position_attention: bool = False
 
     def __post_init__(self):
         if self.mode == "fake":

@@ -15,6 +15,7 @@ serving cache, dense or paged, which the model updates in place.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
@@ -126,7 +127,9 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
 
     Each round proposes ``k`` tokens per slot, runs the target ONCE over
     the ``k + 1`` block positions (a chunked call: paged attention at
-    S = k + 1, at ``ctx``'s split-KV knob, as plain decode), accepts the
+    S = k + 1, at ``ctx``'s split-KV knob, as plain decode; the einsum
+    attention of a dense or int8 cache one position at a time, under
+    ``per_position_attention``, so its rows are plain decode's), accepts the
     longest agreeing prefix through ``ops.verify_tokens`` and advances each
     slot by what it committed.  Greedy slots emit the target's argmax
     stream (the plain engine's); sampled slots keep its temperature /
@@ -159,6 +162,7 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
     """
     LOOP_BUILDS["spec"] += 1
     s_blk = k + 1
+    verify_ctx = dataclasses.replace(ctx, per_position_attention=True)
     model_draft = drafter == "model"
     if model_draft:
         if draft_cfg is None:
@@ -210,7 +214,8 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
                 drafts, carry = draft_ngram(carry, tokens, pos, k, ngram)
             # -- verify: one target call over the whole block ----------
             seq = torch.cat([tokens, drafts], dim=1)          # (B, k + 1)
-            logits, cache = decode_fn(params, seq, cache, pos, cfg, ctx)
+            logits, cache = decode_fn(params, seq, cache, pos, cfg,
+                                      verify_ctx)
             logits = logits.to(torch.float32)
             bad = live & ~torch.isfinite(logits).all(dim=(1, 2))
             ok = live & ~bad

@@ -1301,3 +1301,260 @@ def test_card_spec_streams_match_cpu_spec_streams(card, weights, cache,
         print(f"{weights} {cache} {drafter}: first differing token {i}, CPU "
               f"top-2 margin {margin:.6g}")
         assert margin < ENGINE_MARGIN_BOUND, (i, margin)
+
+
+# -- the dense cache's verify pass against plain decode ------------------------
+def _einsum_logits(q, k, cd):
+    """The fused attention's first product (the logits), GQA folded."""
+    b, hq, sq, dh = q.shape
+    hkv = k.shape[1]
+
+    def operand(t):
+        return t.to(cd).to(torch.float32)
+    qg = q.reshape(b, hkv, hq // hkv, sq, dh)
+    return torch.einsum("bhgqd,bhkd->bhgqk", operand(qg), operand(k))
+
+
+def test_dense_verify_attention_rows_equal_decode_rows(card):
+    """gemma-2b at full width (depth cut to 1), int8 weights, bf16
+    compute, a dense f32 cache of batch 8 and 177 rows (path 6's: max_len
+    161 and a 16-row margin), a 128-token prompt: one verify call at S = 5
+    and five decode calls at S = 1 over the same cache contents give the
+    same layer-0 attention rows, bit for bit.  The verify call runs under
+    the speculative loop's context (``per_position_attention``), the
+    decode calls under the engine's.  The failure names the product that
+    parts (the logits or P.V): fused, GQA folds the positions into the
+    products' M (40 rows against 8), and cuBLAS picks its algorithm per
+    shape."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.launch.serve import prepare_params, quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.nn.attention import _fresh_kv_attention
+    from repro_torch.nn.blocks import layer_slice, norm_apply
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.nn.embedding import embed
+    from repro_torch.nn.linear import linear
+    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=1)
+    ctx = QuantContext(mode="int8",
+                       policy=PrecisionPolicy.uniform(FixedPointType(8, 4)),
+                       compute_dtype=torch.bfloat16)
+    params = prepare_params(quantize_for_serving(
+        lm.init(card, cfg, device="cuda"), ctx), ctx, "cuda")
+    b, plen, s, d = 8, 128, 5, cfg.attn_dims()
+    toks = torch.randint(0, cfg.vocab, (b, plen + s), generator=card,
+                         device="cuda", dtype=torch.int32)
+    cache = lm.init_cache(cfg, b, 177, torch.float32, "cuda")
+    lm.prefill(params, toks[:, :plen], cache, cfg, ctx,
+               pos=torch.zeros((b,), dtype=torch.int32, device="cuda"))
+    p0 = layer_slice(params["dense"], 0)
+    rows = layer_slice(cache["dense"], 0)
+    x = embed(params["embed"], toks[:, plen:], ctx,
+              scale_by_dim=cfg.embed_scale)
+    h = norm_apply(cfg, p0["ln1"], x)
+    pos = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+
+    def attend(hh, cache_l, at, actx):
+        q = linear(p0["attn"]["wq"], hh, actx, path="attn/wq")
+        q = q.reshape(b, hh.shape[1], d.n_heads, d.head_dim).transpose(1, 2)
+        return _fresh_kv_attention(p0["attn"], q, hh, d, actx, kv_input=None,
+                                   cache=cache_l, cache_pos=at,
+                                   path="attn"), q
+
+    c5 = {k: v.clone() for k, v in rows.items()}
+    c1 = {k: v.clone() for k, v in rows.items()}
+    verify, q5 = attend(h, c5, pos,
+                        dataclasses.replace(ctx, per_position_attention=True))
+    decode = [attend(h[:, i:i + 1], c1, pos + i, ctx) for i in range(s)]
+    torch.cuda.synchronize()
+    parted = [i for i in range(s)
+              if not torch.equal(verify[:, :, i], decode[i][0][:, :, 0])]
+    if parted:
+        i = parted[0]
+        lg5 = _einsum_logits(q5, c5["k"], ctx.compute_dtype)[..., i, :]
+        lg1 = _einsum_logits(decode[i][1], c1["k"],
+                             ctx.compute_dtype)[..., 0, :]
+        which = "P.V" if torch.equal(lg5, lg1) else "the logits"
+        diff = (verify[:, :, i] - decode[i][0][:, :, 0]).abs().max().item()
+        raise AssertionError(
+            f"verify (S {s}) and decode (S 1) attention rows part at "
+            f"positions {parted}, max |diff| {diff:.3g}; at position {i} "
+            f"{which} einsum parts")
+    assert torch.equal(c5["k"], c1["k"]) and torch.equal(c5["v"], c1["v"])
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_verify_logits_equal_decode_logits(card, kind):
+    """gemma-2b at full width and depth (18 layers), int8 weights, bf16
+    compute, an f32 cache of batch 8 (dense: 177 rows; paged: page 16, 12
+    pages a lane), a 128-token prompt: one verify call at S = 5 under the
+    speculative loop's context and five decode calls at S = 1 give the
+    same logits, bit for bit.  Beside the attention, this holds the norms'
+    row statistics (``nn/norms._row_mean``): ``torch.mean`` rounds a row
+    otherwise in a call of 40 rows than in one of 8."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.launch.serve import prepare_params, quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config("gemma-2b")
+    ctx = QuantContext(mode="int8",
+                       policy=PrecisionPolicy.uniform(FixedPointType(8, 4)),
+                       compute_dtype=torch.bfloat16)
+    params = prepare_params(quantize_for_serving(
+        lm.init(card, cfg, device="cuda"), ctx), ctx, "cuda")
+    b, plen, s = 8, 128, 5
+    toks = torch.randint(0, cfg.vocab, (b, plen + s), generator=card,
+                         device="cuda", dtype=torch.int32)
+    if kind == "dense":
+        cache = lm.init_cache(cfg, b, 177, torch.float32, "cuda")
+    else:
+        cache = lm.init_paged_cache(cfg, b, b * 12, 16, 12, torch.float32,
+                                    "cuda")
+        cache["dense"]["block_table"][:] = torch.arange(
+            b * 12, dtype=torch.int32, device="cuda").reshape(b, 12)
+    lm.prefill(params, toks[:, :plen], cache, cfg, ctx,
+               pos=torch.zeros((b,), dtype=torch.int32, device="cuda"))
+
+    def clone(t):
+        return ({k: clone(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.clone())
+    c5, c1 = clone(cache), clone(cache)
+    pos = torch.full((b,), plen, dtype=torch.int32, device="cuda")
+    verify, _ = lm.decode_step(
+        params, toks[:, plen:], c5, pos, cfg,
+        dataclasses.replace(ctx, per_position_attention=True))
+    decode = [lm.decode_step(params, toks[:, plen + i:plen + i + 1], c1,
+                             pos + i, cfg, ctx)[0] for i in range(s)]
+    torch.cuda.synchronize()
+    parted = [i for i in range(s)
+              if not torch.equal(verify[:, i], decode[i][:, 0])]
+    diff = max((verify[:, i].float() - decode[i][:, 0].float()).abs().max()
+               .item() for i in range(s))
+    assert not parted, (f"{kind}: verify (S {s}) and decode (S 1) logits "
+                        f"part at positions {parted}, max |diff| {diff:.3g}")
+
+
+# -- the lifecycle on the card -------------------------------------------------
+def test_copy_pages_and_payload_on_card_bitwise_cpu(card):
+    """``copy_pages_fn`` and the spill payload's gather and scatter on the
+    card equal the CPU's bitwise (f32 and int8 pages) and keep every
+    cache tensor's address."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import lm
+    from repro_torch.models.api import copy_pages_fn, page_leaves
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.train.graphs import _addresses
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for kv_bits in (None, 8):
+        engs = [Engine(cfg, ctx, params, device=dev, batch=2, max_len=24,
+                       paged=True, page_size=4, kv_bits=kv_bits)
+                for dev in ("cpu", "cuda")]
+        g = torch.Generator().manual_seed(1)
+        fill = [torch.randint(-127, 128, leaf.shape, generator=g).to(
+                    leaf.dtype) if leaf.dtype == torch.int8 else
+                torch.rand(leaf.shape, generator=g).to(leaf.dtype)
+                for _, leaf in page_leaves(engs[0].cache)]
+        for eng in engs:
+            for (_, leaf), f in zip(page_leaves(eng.cache), fill):
+                leaf.copy_(f)
+        before = _addresses(engs[1].cache)
+        for eng in engs:
+            copy_pages_fn(eng.cache, [1, 5], [3, 0])
+            eng._write_pages(eng._page_payload([2, 4]), [7, 1])
+        torch.cuda.synchronize()
+        assert _addresses(engs[1].cache) == before
+        for (_, a), (_, b) in zip(page_leaves(engs[0].cache),
+                                  page_leaves(engs[1].cache)):
+            assert torch.equal(a, b.cpu())
+
+
+def _lifecycle_run(cfg, ctx, params, device, case, graphs=None):
+    """One lifecycle scenario on ``device``: (streams, counters, stats)."""
+    from repro_torch.ft import ServingFaultInjector
+    from repro_torch.launch.serve import Engine
+    rs = np.random.RandomState(0)
+    if case == "prefix":
+        pre = rs.randint(0, cfg.vocab, (12,))
+        prompts = [np.concatenate([pre, rs.randint(0, cfg.vocab, (n,))])
+                   for n in (5, 3, 7, 9)]
+        kw = dict(batch=2, paged=True, page_size=4, prefix_cache=True)
+    elif case == "preempt":
+        prompts = [rs.randint(0, cfg.vocab, (10,)) for _ in range(4)]
+        kw = dict(batch=3, paged=True, page_size=4, num_pages=8,
+                  preempt=True, preempt_after=2)
+    else:
+        prompts = [rs.randint(0, cfg.vocab, (n,)) for n in (9, 5, 12, 3)]
+        kw = dict(batch=2, paged=True, page_size=8)
+        if case == "chaos":
+            kw["fault_injector"] = ServingFaultInjector(
+                {1: "raise", 2: "nan", 3: "corrupt", 4: "slow"})
+    eng = Engine(cfg, ctx, params, device=device, max_len=32,
+                 prefill_chunk=5, graphs=graphs, **kw)
+    ids = [eng.submit(p, gen_len=6) for p in prompts]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(2)
+    eng.retire_finished()
+    keys = ("preemptions", "spilled_pages", "replays", "prefix_hits",
+            "prefix_tokens_saved", "cow_copies")
+    return (prompts, [eng.results[i]["tokens"] for i in ids],
+            {k: eng.counters[k] for k in keys}, eng.stats())
+
+
+@pytest.mark.parametrize("case", ["prefix", "preempt", "chaos"])
+def test_card_lifecycle_streams_match_cpu_engine(card, case):
+    """gemma-2b smoke, f32 compute, graphs on: prefix caching, preempt and
+    spill over an 8-page pool, and a fault schedule with recovery give the
+    CPU Engine's streams (or first part where the CPU's top-2 margin is
+    below ENGINE_MARGIN_BOUND) and its lifecycle counters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompts, want, cw, _ = _lifecycle_run(cfg, ctx, params, "cpu", case)
+    _, got, cg, st = _lifecycle_run(cfg, ctx, params, "cuda", case)
+    assert st["graphs"] and st["graph_captures"] > 0
+    assert cg == cw
+    assert {"prefix": cg["prefix_hits"], "preempt": cg["preemptions"],
+            "chaos": cg["replays"]}[case] > 0
+    for prompt, w, g in zip(prompts, want, got):
+        i = next((i for i, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        if i is None:
+            continue
+        tokens = torch.tensor(np.concatenate([prompt, w[:i]])[None],
+                              dtype=torch.int32)
+        logits, _, _ = lm.forward(params, tokens, cfg, ctx)
+        top2 = logits[0, -1].float().topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"{case}: first differing token {i}, CPU top-2 margin "
+              f"{margin:.6g}")
+        assert margin < ENGINE_MARGIN_BOUND, (i, margin)
+
+
+def test_restore_and_replay_keep_graph_captures(card):
+    """A fault schedule (raise, nan, corrupt, slow) with recovery on the
+    card: three restores and replays, streams bitwise the fault-free
+    card run's, and as many CUDA graphs captured as that run: restore and
+    the poison write into the cache's tensors, so no graph is captured
+    again."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    _, clean, cc, sc = _lifecycle_run(cfg, ctx, params, "cuda", "clean")
+    _, chaos, ch, sh = _lifecycle_run(cfg, ctx, params, "cuda", "chaos")
+    assert ch["replays"] == 3 and cc["replays"] == 0
+    assert chaos == clean
+    assert sh["graph_captures"] == sc["graph_captures"] > 0

@@ -242,3 +242,43 @@ def test_dense_and_paged_int8_kv_streams_identical(use_lut):
                               {"kv_bits": 8, "paged": True})
     assert paged == dense
     assert eng.allocator.free_pages == eng.allocator.num_pages
+
+
+@pytest.mark.parametrize("shape,exact", [
+    ((2, 4, 1, 5, 24, 32), True),       # gemma-2b smoke, a verify pass
+    ((2, 4, 1, 5, 40, 32), True),       # the dense rows of ENGINE_KW
+    ((8, 8, 1, 5, 177, 256), False)])   # gemma-2b full width, batch 8
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_attention_by_row_equals_fused_einsum(shape, exact, cd):
+    """The verify pass's S-invariant attention (one query position a call,
+    every call a decode step's shapes) against the fused einsum that every
+    other call takes: bitwise at the smoke shapes; at full width the fused
+    products sum in another order (1e-6 apart here too), so there they
+    agree to 1e-5.  Each row is bitwise the single-position call's, and
+    ``_einsum_attention`` takes the per-position form exactly under
+    ``per_position_attention``, bitwise."""
+    import dataclasses
+    from repro_torch.nn.context import QuantContext
+    b, hq, hkv, s, rows, dh = shape
+    ctx = QuantContext(compute_dtype=getattr(torch, cd))
+    rs = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rs.randn(*sh).astype(np.float32))
+               for sh in ((b, hq, s, dh), (b, hkv, rows, dh),
+                          (b, hkv, rows, dh)))
+    pos = torch.from_numpy(rs.randint(0, rows - s, (b,)).astype(np.int32))
+    mask = tatt._cache_mask(pos, s, rows, True)
+    fused = tatt._einsum_attention_fused(q, k, v, ctx=ctx, mask=mask)
+    by_row = tatt._attention_by_row(q, k, v, ctx=ctx, mask=mask)
+    assert torch.equal(tatt._einsum_attention(q, k, v, ctx=ctx, mask=mask),
+                       fused)
+    vctx = dataclasses.replace(ctx, per_position_attention=True)
+    assert torch.equal(tatt._einsum_attention(q, k, v, ctx=vctx, mask=mask),
+                       by_row)
+    for i in range(s):
+        one = tatt._einsum_attention_fused(q[:, :, i:i + 1], k, v, ctx=ctx,
+                                           mask=mask[:, i:i + 1])
+        assert torch.equal(by_row[:, :, i:i + 1], one)
+    if exact:
+        assert torch.equal(by_row, fused)
+    else:
+        torch.testing.assert_close(by_row, fused, rtol=1e-5, atol=1e-5)

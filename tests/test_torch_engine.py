@@ -101,8 +101,9 @@ def test_block_size_invariance_and_stop_rules():
 
 
 def test_refusals():
-    """Out-of-slice options are refused by name; ``--lut``, ``--kv-bits 8``
-    and the dense cache (no ``--paged``) are served."""
+    """Out-of-slice options are refused by name (the durable journal, the
+    fleet and class quotas); ``--lut``, ``--kv-bits 8`` and the dense
+    cache (no ``--paged``) are served."""
     from repro_torch.launch.serve import Engine, main
     cfg, _, tparams = smoke_params("none")
     _, tctx = contexts("none")
@@ -129,8 +130,8 @@ def test_refusals():
         eng.submit(np.arange(4), gen_len=2, temperature=0.7, top_k=-1)
     with pytest.raises(ValueError, match="out-of-vocab"):
         eng.submit(np.asarray([cfg.vocab]), gen_len=2)
-    for flag in ("--prefix-cache", "--preempt", "--replicas",
-                 "--durable-dir"):
+    for flag in ("--durable-dir", "--snapshot-every", "--replicas",
+                 "--standby-dir", "--class-quota"):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma-2b", "--smoke", "--paged", "--device",
                   "cpu", flag, "8"])

@@ -94,6 +94,23 @@ def _layers_torch(params, x, cfg, ctx, cache, pos):
     return outs
 
 
+@pytest.mark.parametrize("d", [7, 32, 33, 512, 2048, 2304])
+def test_norm_row_sums_of_32(d):
+    """The card's row statistic (``norms._sums_of_32``: sums of at most 32
+    values, level by level, zero-padded) against the reference's
+    ``jnp.mean`` of the same squares, and each row of a call of 5
+    positions (a verify pass) bitwise the row of a call of 1."""
+    from repro_torch.nn import norms
+    rs = np.random.RandomState(d)
+    x = (rs.randn(8, 5, d).astype(np.float32) * 3) ** 2
+    got = norms._sums_of_32(torch.from_numpy(x)) / d
+    want = np.asarray(jnp.mean(jnp.asarray(x), axis=-1, keepdims=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=0)
+    for i in range(5):
+        one = norms._sums_of_32(torch.from_numpy(x[:, i:i + 1].copy())) / d
+        assert torch.equal(got[:, i:i + 1], one)
+
+
 @pytest.mark.parametrize("knobs", [{}, {"kv_split": 1, "pages_per_step": 1}],
                          ids=["auto", "split1"])
 @pytest.mark.parametrize("mode", ["none", "int8"])

@@ -119,3 +119,77 @@ def serve_torch(cfg, ctx, params, prompts, kw):
     eng.retire_finished()
     assert launch_counts() == {k: 0 for k in launch_counts()}
     return [eng.results[i]["tokens"] for i in ids], eng
+
+
+#: (cfg, JAX ctx, JAX params, port ctx, port params) per weight mode
+_LIFECYCLE = {}
+
+
+def lifecycle_makers(mode: str = "none"):
+    """``(cfg, {"jax": make, "torch": make})`` for the lifecycle suites:
+    ``make(**kw)`` builds the reference Engine (on :func:`auto_mesh`; call
+    it and drive it inside ``use_mesh(auto_mesh())``) or the port's Engine
+    on the CPU, over the same gemma-2b smoke weights (``mode`` "none" or
+    "int8"), with f32 compute."""
+    if mode not in _LIFECYCLE:
+        cfg, jparams, tparams = smoke_params(mode)
+        jctx, tctx = contexts(mode)
+        _LIFECYCLE[mode] = (cfg, jctx, jparams, tctx, tparams)
+    cfg, jctx, jparams, tctx, tparams = _LIFECYCLE[mode]
+
+    def make_jax(**kw):
+        from repro.launch.serve import Engine
+        return Engine(cfg, jctx, jparams, auto_mesh(), **kw)
+
+    def make_torch(**kw):
+        from repro_torch.launch.serve import Engine
+        return Engine(cfg, tctx, tparams, device="cpu", **kw)
+
+    return cfg, {"jax": make_jax, "torch": make_torch}
+
+
+def drain(eng, block: int = 4):
+    """Run blocks until nothing is live or queued, then retire."""
+    while eng.live.any() or eng.waiting:
+        eng.step_many(block)
+    eng.retire_finished()
+    return eng
+
+
+def serve_engine(make, prompts, *, gen_len=6, block=4, batch=2, max_len=32,
+                 **kw):
+    """Submit ``prompts`` to ``make(batch=, max_len=, **kw)``, drain it."""
+    eng = make(batch=batch, max_len=max_len, **kw)
+    for p in prompts:
+        eng.submit(p, gen_len=gen_len)
+    eng.try_admit()
+    return drain(eng, block)
+
+
+def rand_prompts(vocab, lens, seed=0):
+    """Prompts of ``lens`` tokens drawn with numpy from ``seed``."""
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, vocab, (n,)) for n in lens]
+
+
+def shared_prompts(vocab, pre_len, tail_lens, seed=0):
+    """Prompts opening with one shared ``pre_len``-token preamble."""
+    rs = np.random.RandomState(seed)
+    pre = rs.randint(0, vocab, (pre_len,))
+    return [np.concatenate([pre, rs.randint(0, vocab, (n,))])
+            for n in tail_lens]
+
+
+class FakeClock:
+    """A deterministic engine clock: ``tick`` added per read."""
+
+    def __init__(self, t=0.0, tick=0.0):
+        self.t = float(t)
+        self.tick = float(tick)
+
+    def __call__(self):
+        self.t += self.tick
+        return self.t
+
+    def advance(self, dt):
+        self.t += float(dt)
