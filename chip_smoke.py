@@ -87,7 +87,22 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    hits, preemptions, replays and the flagged slow block required, no
    graph captured again by recovery; prefill tokens and ms, TTFT of each
    wave, wall per step, spill and resume ms per page, snapshot and
-   restore ms a block logged;
+   restore ms a block logged.
+   Path 9: path 1's configuration on 16 requests of mixed priority
+   classes: a durable run (journal and snapshots every 2 blocks) and two
+   crashes (after a durable snapshot; before any) recovered into fresh
+   Engines, bitwise the durable run's streams and ``done`` order; the
+   autotuner (``analytic`` gives ``off``'s knobs and streams and
+   ``decode_block`` 32; ``fitted`` from the port's H100 artifact, or a
+   short calibration sweep here, bitwise an ``off`` Engine at the same
+   knobs, where it parts from analytic's logged; the adaptive ``spec_k``
+   on the n-gram run equal to fixed k); two replicas and a hot standby
+   (fault-free with no death; the primary killed: one promotion,
+   bitwise; the secondary killed: re-dispatched once, gated as path 6),
+   device busy of a fleet round against one Engine's; a batch flood
+   against a realtime floor (admitted while the flood runs, no class over
+   its cap); journal, snapshot, recovery and promotion times and memory
+   on the card after every rebuild logged;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -475,6 +490,10 @@ def check_attention(torch, timer, rows):
                                                      paged_attention_unsplit)
     from repro_torch.kernels.ref import (paged_attention_ref,
                                          paged_attention_split_ref)
+    from repro_torch.launch import autotune
+    # the knobs ``autotune="fitted"`` resolves (the port's H100 artifact,
+    # else the analytic weights) are held against the plain version too
+    fitted = autotune.load_estimator("fitted")
     g = torch.Generator(device="cuda").manual_seed(2)
     # engine geometry: max_len 161 (prompt 128 + gen 32 + 1), prefill
     # chunk 16 of margin -> a 12-page table; the long case ~4096 tokens
@@ -488,7 +507,11 @@ def check_attention(torch, timer, rows):
                                                   width_tokens, q_dtype)
             np_ = bt.shape[1]
             auto = _resolve_knobs(np_, 16, 1, b, None, None)
-            for t, split in ((1, 1), auto):
+            fk = autotune.resolve(autotune.WorkloadShape(
+                pages=np_, page_size=16, hkv=1, batch=b), fitted)
+            fk = _resolve_knobs(np_, 16, 1, b, fk.kv_split,
+                                fk.pages_per_step)
+            for t, split in dict.fromkeys(((1, 1), auto, fk)):
                 if (t, split) == (1, 1):
                     name = "paged_attention_unsplit"
 
@@ -523,9 +546,12 @@ def check_attention(torch, timer, rows):
                 if not (ok and torch.isfinite(got).all().item()):
                     raise AssertionError(f"{name} {label} {q_dtype}: "
                                          f"max_abs_err {err}")
+                by = "+".join(k for k, v in (("auto", auto), ("fitted", fk))
+                              if v == (t, split))
                 row = dict(kernel=name, case=f"{label} B={b} S={s} "
                            f"tokens~{tokens} table={np_} knobs=(t={t},"
-                           f"split={split}) q={str(q_dtype)[6:]}",
+                           f"split={split}{' ' + by if by else ''}) "
+                           f"q={str(q_dtype)[6:]}",
                            max_abs_err=err, tol=[atol, rtol])
                 if q_dtype == torch.bfloat16:
                     row["ms"] = timer(kern)
@@ -1016,6 +1042,11 @@ def serve_main_path(torch, rows_out, profile: bool):
     rows_out["lifecycle"] = serve_lifecycle(torch, cfg, int8, params,
                                             geometry, record=record)
 
+    # -- path 9: the journal, the fleet, class quotas, the autotuner -------
+    rows_out["resilience"] = serve_resilience(torch, cfg, int8, params,
+                                              geometry, prompts,
+                                              record=record)
+
     for r in runs.values():
         r.pop("streams", None)
     rows_out["serving"] = runs
@@ -1102,13 +1133,15 @@ def serve_sampled(torch, cfg, ctx, params, prompts, gen_len, geometry, *,
 SPEC_MARGIN_BOUND = 1e-3
 
 
-def plain_margins(torch, eng, prompts, streams):
+def plain_margins(torch, eng, prompts, streams, tops=None):
     """The plain Engine's own logits along its streams: ``eng`` (fresh,
     the plain run's configuration) prefills ``prompts``, then decode
     steps at the same batch, cache and knobs, every lane teacher-forced
     along its stream.  Returns per lane the top-2 margin of the logits
     that chose each token (token 0 is the prefill's, shared by both
-    engines: None); fails if the replay's argmax is not the stream."""
+    engines: None); fails if the replay's argmax is not the stream.
+    ``tops``: a list that receives per lane the top logit of each token
+    (None for token 0)."""
     from repro_torch.train.step import build_serve_step
     step = build_serve_step(eng.cfg, eng.ctx)
     b, n = len(prompts), len(streams[0])
@@ -1120,6 +1153,8 @@ def plain_margins(torch, eng, prompts, streams):
         raise AssertionError("plain margins: the replayed prefill chose "
                              "other first tokens")
     margins = [[None] for _ in range(b)]
+    if tops is not None:
+        tops.extend([None] for _ in range(b))
     for t in range(n - 1):
         logits, eng.cache = step(eng.params, eng.cache, toks, pos)
         last = logits[:, -1].float()
@@ -1130,6 +1165,9 @@ def plain_margins(torch, eng, prompts, streams):
                                  f"replay does not reproduce the streams")
         for r, m in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
             margins[r].append(m)
+        if tops is not None:
+            for r, v in enumerate(top2[:, 0].tolist()):
+                tops[r].append(v)
         toks, pos = want.to(torch.int32)[:, None], pos + 1
     return margins
 
@@ -1154,6 +1192,30 @@ def spec_gate(label, streams, plain, margins, *, gated=True):
             raise AssertionError(f"{label}: lane {r} parts from the plain "
                                  f"stream at token {i} where the plain "
                                  f"margin is {m}")
+    return out
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bf16 values at ``v`` (8 significant bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 2.0 ** -133
+
+
+def parting_log(label, streams, plain, margins, tops):
+    """Where each stream first parts from the plain one: per lane
+    (position, plain top-2 margin, that margin in bf16 ulps of the top
+    logit), None when identical; logged, not gated."""
+    out = []
+    for r, (a, b) in enumerate(zip(streams, plain)):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            out.append(None)
+            continue
+        m = margins[r][i]
+        ulps = None if m is None else m / bf16_ulp(tops[r][i])
+        out.append((i, m, ulps))
+        log(f"[res] {label}: lane {r} parts at token {i}, plain top-2 "
+            f"margin {m} ({ulps} bf16 ulps of the top logit)")
     return out
 
 
@@ -1523,6 +1585,548 @@ def serve_lifecycle(torch, cfg, ctx, params, geometry, *, record):
         f" -> {p['decode_ms_per_step']:.3f} ms; (c) straggler rounds "
         f"{flagged}")
     del engines
+    return out
+
+
+#: path 9: the mixed priority classes of its 16 requests, the crash rounds
+#: of its journal runs (after the first durable snapshot, before any) and
+#: the fleet's fault rounds
+RES_PRIOS = ("realtime", "standard", "batch", "standard") * 4
+RES_CRASHES = (("after a snapshot", 6), ("journal only", 2))
+RES_KILL_ROUND = 2
+
+
+def _res_drive(torch, eng, prompts, gen_len, prios, block=8):
+    """Submit with classes, drain, retire.  Returns the ids."""
+    ids = [eng.submit(p, gen_len=gen_len, priority=c)
+           for p, c in zip(prompts, prios)]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(block)
+    eng.retire_finished()
+    torch.cuda.synchronize()
+    return ids
+
+
+def _res_complete(label, results, ids, gen_len):
+    from repro_torch.launch.lifecycle import RequestStatus
+    for i in ids:
+        r = results.get(i)
+        if r is None or r["status"] is not RequestStatus.COMPLETED \
+                or len(r["tokens"]) != gen_len:
+            raise AssertionError(f"path 9 {label}: request {i} did not "
+                                 f"complete: {r and r['status']}")
+
+
+def serve_resilience(torch, cfg, ctx, params, geometry, prompts, *, record):
+    """Path 9: path 1's configuration (gemma-2b, int8 weights, bf16, paged
+    f32 KV at the auto knobs, batch 8, prompt 128, gen 32, 16 requests of
+    mixed priority classes, graphed) through the durable journal, the
+    fleet, class quotas and the autotuner.  Every run resets the launch
+    counts and fails unless qmatmul, quantize_rows (one per qmatmul) and
+    split paged attention launched.
+
+    (j) a durable run (``snapshot_every`` 2), then a crash at a round
+    after the first durable snapshot and one before any, each recovered
+    into a fresh Engine (same arguments, no ``durable_dir``): streams and
+    ``done`` order equal the durable run's, all COMPLETED.  (f) two
+    replicas and a journal-tailing hot standby: fault-free (every id once,
+    no death), the primary killed (one promotion, streams equal), the
+    secondary killed (its requests re-dispatched once, gated as path 6's
+    against the fault-free streams).  (q) a BATCH flood against a
+    REALTIME floor on path 8 (s)'s pool: the realtime requests admitted
+    while the flood runs, no class over its cap.  (a) ``analytic`` gives
+    ``off``'s knobs (8, 2) and streams, ``decode_block`` 32; ``fitted``
+    (the port's H100 artifact, or a short sweep here) logged with its
+    knobs here and at ~4096 tokens, its streams bitwise an ``off``
+    Engine's at the same knobs; with f32 weights and compute its streams
+    gated against analytic's as path 6's, with int8 weights (f32 or bf16
+    compute) where they part logged (another split sums attention in
+    another order, and the activation quantizer or a bf16 rounding can
+    turn that into another token); the n-gram spec run
+    with ``analytic`` (adaptive ``spec_k``) equals the fixed-k one.
+    Logged: fsync'd append and durable snapshot ms, recovery ms, promotion
+    time, journal lag, device busy of a fleet round against one Engine's,
+    memory on the card after each rebuild."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.ft import (FleetFaultInjector, InjectedCrash,
+                                ServingFaultInjector)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import autotune, calibrate
+    from repro_torch.launch.fleet import Fleet
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    gen_len, batch = 32, geometry["batch"]
+    expect = ("qmatmul", "quantize_rows", "paged_attention_split")
+    out = {"memory_gib": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_path9_")
+
+    def mem(tag):
+        # what is still referenced: dead objects in cycles collected first
+        gc.collect()
+        torch.cuda.synchronize()
+        out["memory_gib"][tag] = torch.cuda.memory_allocated() / 2**30
+        log(f"[res] memory on the card {tag}: "
+            f"{out['memory_gib'][tag]:.3f} GiB allocated")
+
+    def counted(label, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        missing = [k for k in expect if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"path 9 {label}: kernels of the path "
+                                 f"never launched: {missing} ({counts})")
+        one_quantizer_per_qmatmul(f"path 9 {label}", counts)
+        record(f"path 9 {label}", dict(launches=counts,
+                                       wall_s=time.perf_counter() - t0),
+               counts)
+        return res
+
+    def engine(**kw):
+        return Engine(cfg, ctx, params, paged=True, **geometry, **kw)
+
+    def streams_of(eng, ids):
+        return [eng.results[i]["tokens"] for i in ids]
+
+    mem("before path 9")
+    try:
+        # -- (j) the durable journal and warm restart ---------------------
+        appends, saves = [], []
+        j0 = engine(durable_dir=os.path.join(tmp, "j0"), snapshot_every=2)
+        _timed(torch, j0._journal, "append", appends)
+        _timed(torch, j0, "_save_durable", saves)
+        ids = counted("j durable", lambda: _res_drive(
+            torch, j0, prompts, gen_len, RES_PRIOS))
+        _res_complete("j durable", j0.results, ids, gen_len)
+        if j0._round <= max(r for _, r in RES_CRASHES):
+            raise AssertionError(f"path 9 (j): {j0._round} rounds, too few "
+                                 f"for the crash rounds {RES_CRASHES}")
+        want, want_done = streams_of(j0, ids), list(j0.done)
+        snap_mb = os.path.getsize(os.path.join(
+            tmp, "j0", "step_00000000", "blob.npy")) / 1e6
+        blocks = [ms for ms, a in appends if a[0][0] == "block"]
+        out["j"] = dict(rounds=j0._round, journal_records=j0._journal.count,
+                        append_ms_per_block=_mean(blocks),
+                        append_ms_all=_mean([ms for ms, _ in appends]),
+                        snapshots=len(saves),
+                        snapshot_ms=_mean([ms for ms, _ in saves]),
+                        snapshot_mb=snap_mb,
+                        graph_captures=j0.stats()["graph_captures"])
+        log(f"[res] (j) durable run: {j0._round} rounds, "
+            f"{j0._journal.count} journal records, fsync'd append "
+            f"{out['j']['append_ms_per_block']:.3f} ms per block record "
+            f"({out['j']['append_ms_all']:.3f} ms mean over all), "
+            f"{len(saves)} durable snapshots of {snap_mb:.1f} MB at "
+            f"{out['j']['snapshot_ms']:.1f} ms each")
+        del j0
+        for tag, rnd in RES_CRASHES:
+            d = os.path.join(tmp, f"crash{rnd}")
+            dead = engine(durable_dir=d, snapshot_every=2,
+                          fault_injector=ServingFaultInjector({rnd: "crash"}))
+
+            def crash_and_recover():
+                try:
+                    _res_drive(torch, dead, prompts, gen_len, RES_PRIOS)
+                except InjectedCrash:
+                    pass
+                else:
+                    raise AssertionError(f"path 9 (j) {tag}: no crash")
+                mem(f"after the crash at round {rnd}")
+                rec = engine()
+                restores, replays = [], []
+                _timed(torch, rec, "restore", restores)
+                _timed(torch, rec, "_replay_event", replays)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                info = rec.recover(d)
+                torch.cuda.synchronize()
+                rec_ms = (time.perf_counter() - t0) * 1e3
+                while rec.live.any() or rec.waiting:
+                    rec.step_many(8)
+                rec.retire_finished()
+                return rec, info, rec_ms, restores, replays
+
+            rec, info, rec_ms, restores, replays = counted(
+                f"j crash {tag}", crash_and_recover)
+            mem(f"after recovering from round {rnd}")
+            got = streams_of(rec, ids)
+            if got != want or rec.done != want_done:
+                first = [next((i for i, (x, y) in enumerate(zip(a, b))
+                               if x != y), None) for a, b in zip(got, want)]
+                raise AssertionError(f"path 9 (j) crash {tag} at round {rnd}:"
+                                     f" recovered streams differ from the "
+                                     f"durable run's (first diffs {first})")
+            _res_complete(f"j crash {tag}", rec.results, ids, gen_len)
+            restore_ms = sum(ms for ms, _ in restores)
+            replay_ms = sum(ms for ms, _ in replays)
+            row = dict(round=rnd, snapshot_step=info["snapshot_step"],
+                       replayed=info["replayed"], recover_ms=rec_ms,
+                       restore_ms=restore_ms, replay_ms=replay_ms,
+                       load_ms=rec_ms - restore_ms - replay_ms,
+                       graph_captures=rec.stats()["graph_captures"])
+            out[f"j crash {tag}"] = row
+            log(f"[res] (j) crash at round {rnd} ({tag}): recovered from "
+                f"snapshot {info['snapshot_step']}, {info['replayed']} "
+                f"records replayed; recover {rec_ms:.1f} ms (load "
+                f"{row['load_ms']:.1f}, restore {restore_ms:.1f}, replay "
+                f"{replay_ms:.1f}); the recovered Engine captured "
+                f"{row['graph_captures']} graphs; streams and done order "
+                f"identical to the durable run's")
+            del rec, dead
+
+        # -- (a) the autotuner, path 1's geometry -------------------------
+        ana = engine(autotune="analytic")
+        ids_a = counted("a analytic", lambda: _res_drive(
+            torch, ana, prompts, gen_len, RES_PRIOS))
+        knobs = (ana.pages_per_step, ana.kv_split)
+        if knobs != (8, 2) or streams_of(ana, ids_a) != want:
+            raise AssertionError(f"path 9 (a): analytic knobs {knobs} "
+                                 f"(expected (8, 2)) or streams differ from "
+                                 f"off's")
+        if ana.decode_block != 32:
+            raise AssertionError(f"path 9 (a): decode_block resolved to "
+                                 f"{ana.decode_block}, expected 32")
+        del ana
+        art = autotune._artifact_path()
+        swept = None
+        if autotune.load_artifact() is None:
+            rows = calibrate.sweep(calibrate.SHAPES[:4])
+            est, gates = calibrate.fit_and_gate(rows)
+            art = autotune.save_artifact(
+                est, os.path.join(tmp, "autotune.json"),
+                device=calibrate.device_info(), rows=rows)
+            os.environ[autotune.ARTIFACT_ENV] = str(art)
+            swept = dict(rows=len(rows), gates=gates)
+        est = autotune.load_estimator("fitted")
+        if est.source != "artifact":
+            raise AssertionError(f"path 9 (a): fitted mode read {est.source}")
+        long_shape = dict(pages=257, page_size=16, hkv=1, batch=8)
+        knob_rows = {}
+        for name, e in (("analytic", autotune.analytic_estimator()),
+                        ("fitted", est)):
+            kv1 = autotune.resolve(autotune.WorkloadShape(
+                pages=12, page_size=16, hkv=1, batch=8, gen_len=161), e)
+            kv2 = autotune.resolve(autotune.WorkloadShape(**long_shape), e)
+            knob_rows[name] = dict(path1=kv1.as_dict(), long=kv2.as_dict())
+        timer = Timer(torch)
+        g = torch.Generator(device=geometry["device"]).manual_seed(9)
+        q, kp, vp, bt, qpos = _attention_case(torch, g, 8, 1, 4096, False,
+                                              4096 + 16, torch.bfloat16)
+        from repro_torch.kernels.flash_attention import paged_attention
+        for name, kr in knob_rows.items():
+            kv = kr["long"]
+            kr["long_kernel_ms"] = timer(lambda: paged_attention(
+                q, kp, vp, bt, qpos, kv_split=kv["kv_split"],
+                pages_per_step=kv["pages_per_step"]))
+        del timer, q, kp, vp, bt, qpos
+        walls = {}
+        fstreams = {}
+        # in turns: analytic, fitted, fitted, analytic
+        for turn, name in enumerate(("analytic", "fitted", "fitted",
+                                     "analytic")):
+            w = []
+            eng = engine(autotune=name)
+            run, counts = run_path(torch, f"path 9 a {name} {turn}", eng,
+                                   prompts[:batch], gen_len, expect,
+                                   walls=w)
+            one_quantizer_per_qmatmul(f"path 9 a {name}", counts)
+            record(f"path 9 a {name} decode {turn}", run, counts)
+            got = run.pop("streams")
+            if fstreams.setdefault(name, got) != got:
+                raise AssertionError(f"path 9 (a) {name}: two runs gave "
+                                     f"different streams")
+            walls.setdefault(name, []).append(_steady(w)[0])
+            knob_rows[name]["engine_knobs"] = (eng.pages_per_step,
+                                               eng.kv_split)
+            del eng
+        # the fitted Engine is the Engine at its knobs, nothing else: its
+        # streams equal an ``off`` Engine's given the same knobs, bitwise
+        fk = knob_rows["fitted"]["engine_knobs"]
+        eng = engine(pages_per_step=fk[0], kv_split=fk[1])
+        run, counts = run_path(torch, "path 9 a explicit fitted knobs", eng,
+                               prompts[:batch], gen_len, expect)
+        record("path 9 a explicit fitted knobs", run, counts)
+        del eng
+        if run.pop("streams") != fstreams["fitted"]:
+            raise AssertionError(f"path 9 (a): the fitted Engine's streams "
+                                 f"differ from an off Engine's at its knobs "
+                                 f"{fk}")
+        # the witnesses: the same two knob vectors sum attention in the
+        # same two orders under f32 compute.  With f32 weights no rounding
+        # step lies between that order and the logits, so the streams are
+        # gated as path 6's: a wrong kernel at the fitted knobs fails here.
+        # With int8 weights the activation quantizer rounds to integer
+        # codes, where an f32 difference can flip one: logged
+        f32 = torch.float32
+        wparams = lm.init(torch.Generator(device=geometry["device"])
+                          .manual_seed(0), cfg, device=geometry["device"])
+        witnesses = (("f32 weights", QuantContext(compute_dtype=f32),
+                      wparams, ("paged_attention_split",), True),
+                     ("int8 f32", dataclasses.replace(ctx, compute_dtype=f32),
+                      params, expect, False))
+        f32_parting = {}
+        for wname, wctx, wp, wexpect, gated in witnesses:
+            wit = {}
+            for name in ("analytic", "fitted"):
+                eng = Engine(cfg, wctx, wp, paged=True, **geometry,
+                             autotune=name)
+                run, counts = run_path(torch, f"path 9 a {wname} {name}",
+                                       eng, prompts[:batch], gen_len, wexpect)
+                record(f"path 9 a {wname} {name}", run, counts)
+                if (eng.pages_per_step, eng.kv_split) != \
+                        knob_rows[name]["engine_knobs"]:
+                    raise AssertionError(
+                        f"path 9 (a) {wname} {name}: knobs "
+                        f"{eng.pages_per_step, eng.kv_split}")
+                wit[name] = run.pop("streams")
+                del eng
+            f32_parting[wname] = None
+            if wit["fitted"] != wit["analytic"]:
+                plain = Engine(cfg, wctx, wp, paged=True, **geometry,
+                               graphs=False, autotune="analytic")
+                margins = plain_margins(torch, plain, prompts[:batch],
+                                        wit["analytic"])
+                del plain
+                f32_parting[wname] = spec_gate(
+                    f"path 9 (a) {wname} fitted vs analytic", wit["fitted"],
+                    wit["analytic"], margins, gated=gated)
+        # the loop's names hold the f32 weights too (9.3 GiB)
+        del wparams, witnesses, wp, wctx
+        parting = None
+        if fstreams["fitted"] != fstreams["analytic"]:
+            # bf16 compute: logged, the f32 run above is the gate
+            tops = []
+            margins = plain_margins(torch, engine(graphs=False,
+                                                  autotune="analytic"),
+                                    prompts[:batch], fstreams["analytic"],
+                                    tops)
+            parting = parting_log("path 9 (a) fitted vs analytic",
+                                  fstreams["fitted"], fstreams["analytic"],
+                                  margins, tops)
+        out["a"] = dict(analytic_knobs=knobs, decode_block=32,
+                        artifact=str(art), swept=swept,
+                        fitted_weights=list(est.weights), knobs=knob_rows,
+                        decode_ms_per_step=walls,
+                        fitted_vs_analytic=parting,
+                        f32_fitted_vs_analytic=f32_parting)
+        log(f"[res] (a) analytic knobs {knobs} == off's, streams identical, "
+            f"decode_block 32; fitted ({est.source}, {art}"
+            f"{', swept here' if swept else ''}) picks "
+            f"{knob_rows['fitted']['path1']} at path 1's geometry and "
+            f"{knob_rows['fitted']['long']} at ~4096 tokens (analytic: "
+            f"{knob_rows['analytic']['long']}); paged attention at ~4096 "
+            f"tokens {knob_rows['analytic']['long_kernel_ms']:.4f} ms "
+            f"(analytic knobs) vs {knob_rows['fitted']['long_kernel_ms']:.4f}"
+            f" ms (fitted); decode block wall per step (graph replays, "
+            f"two runs each, in turns) analytic "
+            f"{[round(x, 3) for x in walls['analytic']]} ms, fitted "
+            f"{[round(x, 3) for x in walls['fitted']]} ms; fitted streams "
+            f"identical to an off Engine's at {fk}, "
+            f"{'identical to' if parting is None else 'parting from'} "
+            f"analytic's; under f32 compute, f32 weights "
+            + ("identical" if f32_parting["f32 weights"] is None else
+               f"parting only at plain margins below {SPEC_MARGIN_BOUND}")
+            + ", int8 weights " + ("identical" if f32_parting["int8 f32"]
+                                   is None else "parting (logged)"))
+        tiled = [np.tile(p[:8], len(p) // 8 + 1)[:len(p)]
+                 for p in prompts[:batch]]
+        spec = {}
+        for name in ("off", "analytic"):
+            eng = engine(spec=True, spec_k=SPEC_K, autotune=name)
+            ks = []
+            orig = eng._step_many
+
+            def step(n, eng=eng, ks=ks, orig=orig):
+                r = orig(n)
+                ks.append(eng.spec_k)
+                return r
+            eng._step_many = step
+            ids8 = counted(f"a spec {name}", lambda: _res_drive(
+                torch, eng, tiled, gen_len, ["standard"] * batch, block=2))
+            st = eng.stats()
+            spec[name] = dict(streams=streams_of(eng, ids8), spec_k=ks,
+                              spec_k_rejits=st["spec_k_rejits"],
+                              graph_captures=st["graph_captures"],
+                              accepted_per_step=st["accepted_per_step"])
+            # the wrapper and the bound method hold the Engine too
+            del eng, step, orig
+        if spec["analytic"]["streams"] != spec["off"]["streams"]:
+            raise AssertionError("path 9 (a): the adaptive spec_k run's "
+                                 "streams differ from the fixed-k run's")
+        for v in spec.values():
+            v.pop("streams")
+        out["a"]["spec"] = spec
+        log(f"[res] (a) n-gram spec, analytic: spec_k by block "
+            f"{spec['analytic']['spec_k']}, {spec['analytic']['spec_k_rejits']}"
+            f" switches, {spec['analytic']['graph_captures']} graphs "
+            f"captured (fixed k: {spec['off']['graph_captures']}), accepted "
+            f"per round {spec['analytic']['accepted_per_step']:.3f} (fixed: "
+            f"{spec['off']['accepted_per_step']:.3f}); streams identical")
+
+        # -- (f) the fleet: two replicas and a hot standby ----------------
+        def fleet(tag, inj=None):
+            return Fleet(lambda **kw: engine(**kw), 2,
+                         standby_dir=os.path.join(tmp, f"fleet-{tag}"),
+                         fault_injector=inj)
+
+        def fleet_run(tag, inj=None):
+            fl = fleet(tag, inj)
+            fids = [fl.submit(p, gen_len=gen_len, priority=c)
+                    for p, c in zip(prompts, RES_PRIOS)]
+            fl.drain(block=8)
+            torch.cuda.synchronize()
+            return fl, fids
+
+        fl0, fids = counted("f0 fleet", lambda: fleet_run("f0"))
+        _res_complete("f0", fl0.results, fids, gen_len)
+        f0 = {f: fl0.results[f]["tokens"] for f in fids}
+        homes = {f: fl0._ledger[f]["replica"] for f in fids}
+        flags = [m.events for m in fl0.monitors]
+        if fl0.counters["deaths"] or fl0.counters["redispatched"]:
+            raise AssertionError(f"path 9 (f0): a fault-free fleet counted "
+                                 f"{fl0.counters}")
+        if sorted(fl0.results) != sorted(fids):
+            raise AssertionError("path 9 (f0): a fleet id did not complete "
+                                 "exactly once")
+        out["f0"] = dict(counters=dict(fl0.counters), rounds=fl0._round,
+                         states=list(fl0.state), straggler_flags=flags,
+                         suspects=fl0.counters["suspects"])
+        log(f"[res] (f0) fault-free fleet: {fl0._round} rounds, states "
+            f"{fl0.state}, straggler flags per replica {flags}, suspects "
+            f"{fl0.counters['suspects']}, deaths 0, journal lag "
+            f"{fl0.counters['journal_lag_records']}")
+        del fl0
+        fl1, _ = counted("f1 primary killed", lambda: fleet_run(
+            "f1", FleetFaultInjector([(RES_KILL_ROUND, 0, "kill")])))
+        mem("after the promotion")
+        if fl1.counters["promotions"] != 1 or \
+                {f: fl1.results[f]["tokens"] for f in fids} != f0:
+            raise AssertionError(f"path 9 (f1): promotions "
+                                 f"{fl1.counters['promotions']}, or the "
+                                 f"promoted streams differ from (f0)'s")
+        _res_complete("f1", fl1.results, fids, gen_len)
+        out["f1"] = dict(counters=dict(fl1.counters), rounds=fl1._round,
+                         graph_captures=fl1.replicas[0].stats()[
+                             "graph_captures"])
+        log(f"[res] (f1) primary killed at round {RES_KILL_ROUND}: 1 "
+            f"promotion in {fl1.counters['time_to_promote_s'] * 1e3:.1f} ms, "
+            f"journal lag {fl1.counters['journal_lag_records']} records, "
+            f"streams identical to (f0)'s")
+        del fl1
+        fl2, _ = counted("f2 secondary killed", lambda: fleet_run(
+            "f2", FleetFaultInjector([(RES_KILL_ROUND, 1, "kill")])))
+        _res_complete("f2", fl2.results, fids, gen_len)
+        moved = [f for f in fids if fl2._ledger[f]["redispatched"]]
+        if fl2.counters["deaths"] != 1 or \
+                fl2.counters["redispatched"] != len(moved) or not moved:
+            raise AssertionError(f"path 9 (f2): {fl2.counters}")
+        got = [fl2.results[f]["tokens"] for f in moved]
+        ref = [f0[f] for f in moved]
+        gate = None
+        if got != ref:
+            lane = [f for f in fids if homes[f] == 1]
+            margins = plain_margins(torch, engine(graphs=False),
+                                    [prompts[f] for f in lane],
+                                    [f0[f] for f in lane])
+            gate = spec_gate("path 9 (f2)", got, ref,
+                             [margins[lane.index(f)] for f in moved])
+        out["f2"] = dict(counters=dict(fl2.counters), moved=len(moved),
+                         gate=gate)
+        log(f"[res] (f2) secondary killed at round {RES_KILL_ROUND}: "
+            f"{len(moved)} requests re-dispatched once, streams "
+            f"{'identical to' if gate is None else 'gated against'} (f0)'s")
+        del fl2
+
+        # device busy of one fleet round against one Engine's block
+        def warm(obj, submit):
+            for p, c in zip(prompts, RES_PRIOS):
+                submit(p, gen_len=gen_len, priority=c)
+            obj.try_admit()
+            obj.step_many(8)            # eager block and capture
+        fl = fleet("busy")
+        warm(fl, fl.submit)
+        fbusy, fk = _profiled_busy(torch, lambda: fl.step_many(8))
+        del fl
+        one = engine()
+        warm(one, one.submit)
+        ebusy, ek = _profiled_busy(torch, lambda: one.step_many(8))
+        del one
+        out["busy"] = dict(fleet_round_ms=fbusy, fleet_kernels=fk,
+                           engine_block_ms=ebusy, engine_kernels=ek)
+        log(f"[res] device busy of one 8-step fleet round (2 replicas + "
+            f"standby) {fmt_ms(fbusy)} ({fk} device kernels) against one "
+            f"Engine's 8-step block {fmt_ms(ebusy)} ({ek})")
+
+        # -- (q) a BATCH flood against a REALTIME floor -------------------
+        need = -(-(len(prompts[0]) + gen_len) // geometry["page_size"])
+        pool = int(0.7 * batch * need)
+        quotas = {"realtime": {"floor": 0.25}, "batch": {"cap": 0.75}}
+        eng = engine(num_pages=pool, class_quotas=quotas)
+        cap = eng.allocator.cap_pages("batch")
+        per_round = []
+
+        def flood():
+            for p in prompts[:8]:
+                eng.submit(p, gen_len=gen_len, priority="batch")
+            eng.try_admit()
+            eng.step_many(8)
+            rt = [eng.submit(p, gen_len=gen_len, priority="realtime")
+                  for p in prompts[8:10]]
+            eng.try_admit()
+            while eng.live.any() or eng.waiting:
+                used = {c: eng.allocator.class_used(c)
+                        for c in ("realtime", "standard", "batch")}
+                running = {m["priority"].name.lower()
+                           for m in eng._req_meta.values()}
+                queued = sum(1 for r in eng.waiting
+                             if eng._rec_priority(r).name == "BATCH")
+                per_round.append(dict(used=used, running=sorted(running),
+                                      batch_queued=queued))
+                if used["batch"] > cap:
+                    raise AssertionError(f"path 9 (q): batch holds "
+                                         f"{used['batch']} pages over its "
+                                         f"cap {cap}")
+                eng.step_many(8)
+            eng.retire_finished()
+            return rt
+
+        rt = counted("q quotas", flood)
+        _res_complete("q", eng.results, rt, gen_len)
+        first_rt = next(i for i, r in enumerate(per_round)
+                        if "realtime" in r["running"])
+        if first_rt != 0 or per_round[first_rt]["batch_queued"] == 0:
+            raise AssertionError(f"path 9 (q): the first realtime request "
+                                 f"ran at sweep {first_rt}, flood queued "
+                                 f"{per_round[first_rt]['batch_queued']}")
+        admitted = {c.name.lower(): row["admitted"]
+                    for c, row in eng.class_counters.items()}
+        out["q"] = dict(pool=pool, quotas=quotas, cap_pages=cap,
+                        floor_pages=eng.allocator.floor_pages("realtime"),
+                        admitted=admitted, per_round=per_round)
+        log(f"[res] (q) pool {pool} pages, realtime floor "
+            f"{out['q']['floor_pages']}, batch cap {cap}: realtime running "
+            f"from the first block after its submission while "
+            f"{per_round[0]['batch_queued']} batch requests queue; pages "
+            f"per class by block {[r['used'] for r in per_round]}; "
+            f"admissions {admitted}")
+        del eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.environ.pop("REPRO_TORCH_AUTOTUNE", None)
+    mem("after path 9")
+    grew = (out["memory_gib"]["after path 9"]
+            - out["memory_gib"]["before path 9"])
+    if grew > 0.1:
+        raise AssertionError(f"path 9: {grew:.3f} GiB more on the card after "
+                             f"it than before (a dead Engine, or weights, "
+                             f"still referenced)")
     return out
 
 

@@ -1,23 +1,30 @@
-"""Atomic snapshots of host objects (port of ``save_blob``, ``load_blob``
-and ``latest_step`` of ``repro.checkpoint.store``).
+"""Atomic snapshots of host objects and the append-only journal (port of
+``save_blob``, ``load_blob``, ``latest_step``, ``BlobLog`` and
+``BlobLogFollower`` of ``repro.checkpoint.store``).
 
 One directory per step, ``<dir>/step_%08d/``, holding the object as one
 pickled ``.npy`` and a ``manifest.json``; a save writes ``<step>.tmp``
 and renames it, so a crash mid-save never corrupts the newest complete
-snapshot.  Pickle: only for trusted, self-written state.  The durable
-journal (``BlobLog``) is ROADMAP.md queue 1, item 12b.
+snapshot.  ``BlobLog`` is the serving engine's write-ahead journal
+(``<u32 length><u32 crc32>`` + pickle, fsync'd per append); a
+``BlobLogFollower`` tails it for a hot standby.  Pickle: only for
+trusted, self-written state.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["save_blob", "load_blob", "latest_step"]
+__all__ = ["save_blob", "load_blob", "latest_step", "BlobLog",
+           "BlobLogFollower"]
 
 
 def save_blob(obj, directory: str, step: int, *, name: str = "blob") -> str:
@@ -40,6 +47,183 @@ def load_blob(directory: str, step: int, *, name: str = "blob"):
     """Load a :func:`save_blob` snapshot."""
     path = os.path.join(directory, f"step_{step:08d}", name + ".npy")
     return np.load(path, allow_pickle=True)[()]
+
+
+class BlobLog:
+    """Append-only write-ahead log of pickled records (the journal
+    primitive under the serving engine's crash-safe warm restart).
+
+    Framing: each record is ``<u32 length><u32 crc32>`` followed by the
+    pickled payload.  :meth:`append` flushes AND ``os.fsync``\\ s before
+    returning, so an append that returned is durable — kill -9 the
+    process the next instruction and the record replays.
+
+    Torn-tail tolerance: a crash *mid-append* leaves a short or
+    CRC-mismatched frame at the end of the file.  Opening for append
+    scans the existing frames, keeps every complete one, and truncates
+    the torn tail (an os.replace-style atomicity guarantee built from
+    sequential appends: the prefix of durable records is always
+    intact).  Corruption anywhere *before* the tail cannot be repaired
+    and raises — silently resuming past a hole would replay a wrong
+    history.
+
+    Only for trusted self-written state (pickle), like every
+    checkpoint in this module.
+    """
+
+    _HEADER = struct.Struct("<II")
+
+    def __init__(self, path: str, *, fresh: bool = False):
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        if fresh or not os.path.exists(path):
+            self._f = open(path, "wb")
+            self.count = 0
+        else:
+            self.count, good = self._scan()
+            with open(path, "r+b") as f:
+                f.truncate(good)        # drop a torn tail, keep the rest
+            self._f = open(path, "ab")
+
+    def _scan(self):
+        """(record count, byte offset after the last complete record).
+
+        Stops at the first short/CRC-broken frame ONLY if it is the
+        file's tail (an interrupted append); a broken frame with valid
+        data after it is real corruption and raises.
+        """
+        count, good = 0, 0
+        with open(self.path, "rb") as f:
+            data = f.read()
+        off, end = 0, len(data)
+        while off + self._HEADER.size <= end:
+            length, crc = self._HEADER.unpack_from(data, off)
+            body = data[off + self._HEADER.size:
+                        off + self._HEADER.size + length]
+            if len(body) < length or zlib.crc32(body) != crc:
+                break
+            count += 1
+            off += self._HEADER.size + length
+        good = off
+        # anything after the torn frame means mid-file damage, not an
+        # interrupted append — refuse to silently drop committed history
+        tail = data[good:]
+        max_torn = self._HEADER.size + (self._HEADER.unpack_from(
+            data, good)[0] if good + self._HEADER.size <= end else len(tail))
+        if len(tail) > max_torn:
+            raise IOError(
+                f"journal {self.path} corrupt at byte {good}: broken "
+                f"frame followed by {len(tail) - max_torn} more bytes "
+                f"(not a torn tail)")
+        # second net, for damage the length bound can't see: a bit flip
+        # that ENLARGES a mid-file length field makes every committed
+        # record after it look like one huge torn frame.  A torn tail is
+        # a partial write of ONE record, so a complete CRC-valid frame
+        # anywhere inside it proves the break happened before committed
+        # history — refuse rather than drop it.  (Non-empty frames only:
+        # crc32(b"") == 0, so eight zero bytes inside a genuinely torn
+        # pickle body would otherwise masquerade as a valid empty frame.)
+        for probe in range(good + 1, end - self._HEADER.size + 1):
+            length, crc = self._HEADER.unpack_from(data, probe)
+            if length == 0:
+                continue
+            body = data[probe + self._HEADER.size:
+                        probe + self._HEADER.size + length]
+            if len(body) == length and zlib.crc32(body) == crc:
+                raise IOError(
+                    f"journal {self.path} corrupt at byte {good}: broken "
+                    f"frame with a complete valid frame at byte {probe} "
+                    f"after it (mid-file damage, not a torn tail)")
+        return count, good
+
+    def follow(self) -> "BlobLogFollower":
+        """A cursor over this journal for another engine to tail."""
+        return BlobLogFollower(self.path)
+
+    def append(self, obj) -> int:
+        """Durably append one record; returns its index."""
+        body = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        self._f.write(self._HEADER.pack(len(body), zlib.crc32(body)))
+        self._f.write(body)
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        idx = self.count
+        self.count += 1
+        return idx
+
+    def read(self, start: int = 0) -> list:
+        """Records ``start..`` re-read from disk (tail-tolerant)."""
+        out = []
+        with open(self.path, "rb") as f:
+            data = f.read()
+        off, end, i = 0, len(data), 0
+        while off + self._HEADER.size <= end:
+            length, crc = self._HEADER.unpack_from(data, off)
+            body = data[off + self._HEADER.size:
+                        off + self._HEADER.size + length]
+            if len(body) < length or zlib.crc32(body) != crc:
+                break
+            if i >= start:
+                out.append(pickle.loads(body))
+            i += 1
+            off += self._HEADER.size + length
+        return out
+
+    def close(self) -> None:
+        if not self._f.closed:
+            self._f.close()
+
+
+class BlobLogFollower:
+    """Incremental cursor over a :class:`BlobLog` another engine appends
+    to — the journal-shipping primitive under the fleet's hot standby.
+
+    :meth:`poll` returns every record that became durable since the
+    last call, advancing a (byte offset, record index) cursor.  The
+    writer only ever appends, so the follower distinguishes two tail
+    states it can observe:
+
+    * a **short frame** (header or body not fully on disk yet) is an
+      append in flight — stop, keep the cursor, pick it up next poll;
+    * a **complete frame with a CRC mismatch** can never be an append
+      in flight (bytes land in order, so a frame whose full claimed
+      length is on disk was fully written) — that is corruption, and
+      silently skipping it would ship the standby a wrong history, so
+      it raises.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self.offset = 0         # byte offset of the next unread frame
+        self.count = 0          # records consumed so far
+
+    def poll(self, max_records: Optional[int] = None) -> list:
+        """New durable records since the last poll (possibly none)."""
+        out: list = []
+        if not os.path.exists(self.path):
+            return out
+        with open(self.path, "rb") as f:
+            f.seek(self.offset)
+            data = f.read()
+        hdr = BlobLog._HEADER
+        off, end = 0, len(data)
+        while off + hdr.size <= end:
+            if max_records is not None and len(out) >= max_records:
+                break
+            length, crc = hdr.unpack_from(data, off)
+            body = data[off + hdr.size: off + hdr.size + length]
+            if len(body) < length:
+                break               # append in flight: wait for the rest
+            if zlib.crc32(body) != crc:
+                raise IOError(
+                    f"journal {self.path} corrupt at byte "
+                    f"{self.offset + off}: CRC mismatch on a complete "
+                    f"frame while following")
+            out.append(pickle.loads(body))
+            off += hdr.size + length
+            self.count += 1
+        self.offset += off
+        return out
 
 
 def latest_step(directory: str) -> Optional[int]:

@@ -24,7 +24,8 @@ launches that ran.
 :func:`zeroed_scratch` hands out the int32 buffers that a kernel leaves
 zeroed after every launch (split-K workspaces, split tickets), one per
 (device, stream), so that the wrappers are safe on several streams and
-under CUDA-graph capture.
+under CUDA-graph capture; :func:`captured_scratch` gives a captured
+graph's buffers to its owner, to be freed with the graph.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import torch
 __all__ = ["SOURCES", "LAUNCHES", "launch_counts", "reset_launch_counts",
            "recorded_launches", "add_launches",
            "build", "library", "check", "stream_of", "sm_count", "BUILD_LOG",
-           "zeroed_scratch", "SCRATCH"]
+           "zeroed_scratch", "captured_scratch", "SCRATCH"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmatmul": CSRC / "qmatmul.cu",
@@ -227,8 +228,23 @@ def sm_count(device: torch.device) -> int:
 #: kernels leave zeroed after every launch; grown, never shrunk
 SCRATCH: Dict[tuple, torch.Tensor] = {}
 #: buffers handed out under CUDA-graph capture: a graph keeps their
-#: addresses, so they are held for the life of the process
+#: addresses, so they are held for the life of the process, unless a
+#: :func:`captured_scratch` block hands them to the graph's owner
 _CAPTURED: List[torch.Tensor] = []
+
+
+@contextlib.contextmanager
+def captured_scratch():
+    """Collect the scratch buffers that captures inside the block hand
+    out: they move from the process-wide list to the yielded list, which
+    the caller keeps as long as it keeps the graph (and frees with it)."""
+    n0 = len(_CAPTURED)
+    held: List[torch.Tensor] = []
+    try:
+        yield held
+    finally:
+        held.extend(_CAPTURED[n0:])
+        del _CAPTURED[n0:]
 
 
 def zeroed_scratch(name: str, device: torch.device, n: int) -> torch.Tensor:

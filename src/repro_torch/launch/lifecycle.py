@@ -19,8 +19,8 @@ unrecoverable engine faults.  ``PREEMPTED`` is the one non-terminal exit:
 the request re-enters the queue with its full restart state, so resuming
 it is a restore, never a recompute.
 
-Class quotas (``normalize_class_quotas``) come with the fleet (ROADMAP.md
-queue 1, item 13).
+``normalize_class_quotas`` validates the per-class floors and caps that
+partition a paged engine's page pool.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ import time
 import numpy as np
 
 __all__ = ["RequestStatus", "TERMINAL_STATUSES", "PriorityClass",
-           "coerce_priority", "normalize_slo_targets", "validate_request",
+           "coerce_priority", "normalize_slo_targets",
+           "normalize_class_quotas", "validate_request",
            "request_row", "now"]
 
 
@@ -127,6 +128,73 @@ def normalize_slo_targets(targets) -> dict:
             clean[k] = float(v)
         if clean:
             out[cls] = clean
+    return out
+
+
+def normalize_class_quotas(quotas) -> dict:
+    """Validate per-class page-pool quotas into
+    ``{PriorityClass: {"floor": f, "cap": f}}``.
+
+    ``quotas`` maps a class (enum / name / int, via
+    :func:`coerce_priority`) to ``{"floor": fraction, "cap": fraction}``:
+
+    * ``floor`` *reserves* that fraction of the pool — other classes may
+      never allocate into it, so the class always has room to admit
+      (the REALTIME working-set guarantee);
+    * ``cap`` *bounds* the fraction the class may occupy at admission
+      (a soft cap: it blocks new allocations, it never evicts running
+      requests when traffic shifts — the BATCH-flood limiter).
+
+    Fractions must lie in (0, 1]: zero is a no-op spelled as a
+    guarantee, above one can never be satisfied.  The floors must sum
+    to at most 1 (you cannot reserve more than the pool), and a floor
+    above the same class's cap is contradictory (the class could never
+    fill its own reservation).
+    """
+    out: dict = {}
+    total_floor = 0.0
+    for key, quota in (quotas or {}).items():
+        cls = coerce_priority(key)
+        if quota is None:
+            continue
+        if not isinstance(quota, dict):
+            raise ValueError(
+                f"class quota for {cls.name.lower()} must be a dict "
+                f"with 'floor'/'cap' keys (got {type(quota).__name__})")
+        unknown = set(quota) - {"floor", "cap"}
+        if unknown:
+            raise ValueError(
+                f"unknown class-quota keys {sorted(unknown)} for "
+                f"{cls.name.lower()} (valid: floor, cap)")
+        if cls in out:
+            raise ValueError(
+                f"duplicate class quota for {cls.name.lower()} "
+                f"(the same class named twice under different spellings)")
+        clean = {}
+        for k in ("floor", "cap"):
+            v = quota.get(k)
+            if v is None:
+                continue
+            v = float(v)
+            if not 0.0 < v <= 1.0:
+                raise ValueError(
+                    f"class-quota {k} for {cls.name.lower()} must lie in "
+                    f"(0, 1] (got {v}): 0 is a no-op spelled as a "
+                    f"guarantee, above 1 can never be satisfied")
+            clean[k] = v
+        if ("floor" in clean and "cap" in clean
+                and clean["floor"] > clean["cap"]):
+            raise ValueError(
+                f"class-quota floor {clean['floor']} above cap "
+                f"{clean['cap']} for {cls.name.lower()}: the class could "
+                f"never fill its own reservation")
+        total_floor += clean.get("floor", 0.0)
+        if clean:
+            out[cls] = clean
+    if total_floor > 1.0 + 1e-9:
+        raise ValueError(
+            f"class-quota floors sum to {total_floor:.3f} > 1: cannot "
+            f"reserve more than the whole pool")
     return out
 
 

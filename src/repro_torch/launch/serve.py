@@ -59,13 +59,25 @@ of the core of ``repro.launch.serve``).
   snapshot (``fault_injector`` / ``recover``).  Every cache edit of the
   lifecycle (copy-on-write, resume, restore, the chaos hook's poison) is
   made in place, so the captured decode graphs stay valid.
+* **Class quotas** (``class_quotas``, paged): per-class floors reserve
+  pool pages for a class and caps bound a class's pages, at admission
+  and in prefix eviction, so a BATCH flood cannot take REALTIME's pages.
+* **Crash-safe warm restart** (``durable_dir``): every externally driven
+  transition (submit, add, admit, block, cancel, finish, retire) goes to
+  an fsync'd journal (a block's record ahead of its device work) and a
+  full snapshot with the journal cursor lands every ``snapshot_every``
+  blocks; :meth:`Engine.recover` on a fresh Engine restores the newest
+  snapshot and replays the journal's tail, so every stream resumes as if
+  never interrupted.  ``launch.fleet.Fleet`` builds replicas and a
+  journal-tailing hot standby on top of it.
+* **The autotuner** (``autotune="analytic"`` or ``"fitted"``): the knob
+  vector (``kv_split``, ``pages_per_step``, ``decode_block``) resolved at
+  construction by ``launch.autotune``, and ``spec_k`` adapted online
+  from the measured acceptance (on the card, one graph per k).
 
-Out of this slice (ROADMAP.md):
-the durable journal and warm restart (``durable_dir``), class quotas and
-the fleet, the autotuner (and with it the adaptive ``spec_k``) and
-non-``lm`` families (the ``encdec`` family serves through the step
-builders of ``repro_torch.train.step``, as the reference Engine never runs
-an encoder).  The Engine and the CLI refuse them by name.
+Non-``lm`` families are out of this port (the ``encdec`` family serves
+through the step builders of ``repro_torch.train.step``, as the reference
+Engine never runs an encoder); so is the ``fake`` quantization mode.
 
 Usage::
 
@@ -82,13 +94,19 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --quant int8 --paged --prefix-cache --preempt --num-pages 56 \\
         [--deadline-s 30 --priority-class realtime --slo-ttft-s 1]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
+        --quant int8 --paged --durable-dir /tmp/d --snapshot-every 2 \\
+        [--replicas 2 --standby-dir /tmp/s] \\
+        [--class-quota realtime:floor=0.25] [--autotune fitted]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -105,7 +123,7 @@ from ..data.pipeline import SyntheticLM
 from ..kernels import launch_counts
 from ..kernels.flash_attention import _resolve_knobs
 from ..kernels.prng import PRNGKey
-from ..checkpoint.store import latest_step, load_blob, save_blob
+from ..checkpoint.store import BlobLog, latest_step, load_blob, save_blob
 from ..ft.straggler import StragglerMonitor
 from ..models.api import (cache_leaves, copy_pages_fn, get_family,
                           init_cache_fn, init_paged_cache_fn, invalidate_fn,
@@ -113,8 +131,10 @@ from ..models.api import (cache_leaves, copy_pages_fn, get_family,
 from ..nn.context import QuantContext
 from ..train.graphs import DecodeBlocks
 from ..train.step import build_prefill_step
+from .autotune import SpecKAdapter, WorkloadShape, load_estimator, resolve
 from .lifecycle import (PriorityClass, RequestStatus, coerce_priority,
-                        normalize_slo_targets, request_row, validate_request)
+                        normalize_class_quotas, normalize_slo_targets,
+                        request_row, validate_request)
 from .lifecycle import now as _now
 from .paging import PageAllocator
 from .prefix import PREFIX_OWNER, ROOT, PrefixIndex
@@ -225,8 +245,20 @@ class Engine:
     snapshot and replay a faulted block, at most ``max_replays`` times;
     ``straggler`` (a :class:`~repro_torch.ft.StragglerMonitor`, one by
     default) flags slow blocks; ``clock`` replaces the engine's wall
-    clock (deadlines and telemetry).  Class quotas (ROADMAP.md queue 1,
-    item 13) and the durable journal (item 12b) are refused by name.
+    clock (deadlines and telemetry).  ``class_quotas`` (paged;
+    ``{class: {"floor": f, "cap": f}}``, see
+    :func:`~repro_torch.launch.lifecycle.normalize_class_quotas`)
+    partition the page pool by priority class.
+
+    ``durable_dir`` journals every transition there and snapshots every
+    ``snapshot_every`` blocks (0: journal only); building an Engine with
+    it starts a new run (the journal is truncated): a killed run is
+    rebuilt by :meth:`recover` on an Engine built with the same
+    arguments and without ``durable_dir``.  ``autotune``: ``"off"`` (the
+    knobs as given or from the cost model), ``"analytic"`` or
+    ``"fitted"`` (the knob vector from ``launch.autotune``, explicit
+    knobs winning, ``decode_block`` resolved, ``spec_k`` adapted online
+    within ``[1, spec_k]``).
     """
 
     def __init__(self, cfg, ctx: QuantContext, params, *, batch: int,
@@ -240,21 +272,25 @@ class Engine:
                  preempt_after: int = 2, shed_threshold=None,
                  slo_targets=None, class_quotas=None, fault_injector=None,
                  recover=None, max_replays: int = 8, straggler=None,
-                 clock=None, durable_dir=None, device=None, graphs=None):
+                 clock=None, durable_dir=None, snapshot_every: int = 8,
+                 device=None, graphs=None):
         if kv_bits not in (None, 8):
             raise ValueError(f"kv_bits must be None or 8, not {kv_bits!r}")
-        if autotune != "off":
-            raise NotImplementedError(
-                f"autotune={autotune!r}: the autotuner is not ported yet "
-                f"(ROADMAP.md queue 1, item 9); use 'off'")
-        if durable_dir is not None:
-            raise NotImplementedError(
-                "durable_dir: the durable journal and warm restart are not "
-                "ported yet (ROADMAP.md queue 1, item 12b)")
-        if class_quotas:
-            raise NotImplementedError(
-                "class_quotas: per-class partitions of the page pool are "
-                "not ported yet (ROADMAP.md queue 1, item 13)")
+        self.autotune = str(autotune)
+        if self.autotune not in ("off", "analytic", "fitted"):
+            raise ValueError(
+                f"autotune={autotune!r}: expected 'off' (the knobs as "
+                f"given), 'analytic' (the resolver on hand-set constants) "
+                f"or 'fitted' (the resolver on the card's measured fit)")
+        if int(snapshot_every) < 0:
+            raise ValueError(
+                f"snapshot_every must be >= 0 (got {snapshot_every}); "
+                f"0 disables periodic snapshots, a negative period has "
+                f"no meaning")
+        if class_quotas and not paged:
+            raise ValueError(
+                "class_quotas need the paged cache: quotas partition the "
+                "page pool, and dense slots have no pool to partition")
         if not spec and (spec_draft is not None or drafter_fn is not None):
             raise ValueError(
                 "spec_draft/drafter_fn were given but spec=False -- a "
@@ -278,6 +314,20 @@ class Engine:
         self.spec, self.spec_k = bool(spec), max(1, int(spec_k))
         self.spec_ngram = max(1, int(spec_ngram))
         self.drafter_fn = drafter_fn
+        # the autotuner: "off" keeps the knobs as given (explicit kwarg >
+        # ctx > the cost model) and resolves no block length; the other
+        # modes resolve the whole knob vector and adapt spec_k within
+        # [1, spec_k] (the margin and history are sized for the cap)
+        self._autotune_est = None
+        self._spec_adapter = None
+        self._spec_k_init = self.spec_k
+        self._last_spec_obs = (0, 0)
+        self.decode_block: Optional[int] = None
+        if self.autotune != "off":
+            self._autotune_est = load_estimator(self.autotune)
+            if self.spec:
+                self._spec_adapter = SpecKAdapter(k_init=self.spec_k,
+                                                  k_max=self.spec_k)
         if self.spec:
             margin = max(margin, self.spec_k + 2)
         #: committed tokens per slot at their absolute positions (prompt
@@ -312,7 +362,8 @@ class Engine:
             ps = max(1, int(page_size))
             if num_pages is None:
                 num_pages = -(-(batch * max_len) // ps)
-            self.allocator = PageAllocator(num_pages, ps)
+            self.allocator = PageAllocator(num_pages, ps,
+                                           class_quotas=class_quotas)
             self._trash = num_pages          # reserved garbage page id
             # the table covers every reachable write position: decode
             # holds a dead lane at pos <= max_len; prefill margin writes
@@ -330,6 +381,14 @@ class Engine:
             req_s = (int(kv_split) if kv_split not in (None, "auto")
                      else ctx.kv_split)
             hkv = cfg.n_kv_heads or cfg.n_heads or 1
+            if self.autotune != "off":
+                # the resolver fills what the caller left on auto
+                kv = resolve(WorkloadShape(
+                    pages=width, page_size=ps, hkv=max(1, hkv), batch=batch,
+                    gen_len=max_len, spec=self.spec), self._autotune_est)
+                req_t = kv.pages_per_step if req_t is None else req_t
+                req_s = kv.kv_split if req_s is None else req_s
+                self.decode_block = kv.decode_block
             self.pages_per_step, self.kv_split = _resolve_knobs(
                 width, ps, max(1, hkv), batch, req_s, req_t)
             ctx = dataclasses.replace(ctx, kv_split=self.kv_split,
@@ -337,6 +396,12 @@ class Engine:
         else:
             self.cache = init_cache_fn(cfg, batch, max_len + margin,
                                        cache_dtype, self.device)
+            if self.autotune != "off":
+                # dense: no kv knobs, the block length only
+                self.decode_block = resolve(
+                    WorkloadShape(pages=0, page_size=1, hkv=1, batch=batch,
+                                  gen_len=max_len, spec=self.spec),
+                    self._autotune_est).decode_block
         # -- prefix caching: committed, page-aligned prompt pages are
         # published to a hash index and mapped read-only into later
         # requests that share the prefix (admission of a hit allocates and
@@ -397,7 +462,8 @@ class Engine:
                          "spilled_pages": 0, "shed_spec_rounds": 0,
                          "straggler_blocks": 0, "prefix_hits": 0,
                          "prefix_hit_pages": 0, "prefix_tokens_saved": 0,
-                         "cow_copies": 0}
+                         "cow_copies": 0, "spec_k_rejits": 0,
+                         "recoveries": 0}
         self.request_log: List[dict] = []
         self._req_meta: Dict[int, dict] = {}    # slot -> live request row
         # -- the request lifecycle -------------------------------------------
@@ -427,6 +493,9 @@ class Engine:
                           else straggler)
         self.clock = _now if clock is None else clock
         self._t_start = self.clock()
+        #: journal records a fleet's hot standby has not applied yet
+        #: (None: no fleet feeds it)
+        self.journal_lag_records = None
         self.results: Dict[int, dict] = {}
         self._next_id = 0
         self._round = 0             # decode-block counter (chaos schedule)
@@ -434,6 +503,18 @@ class Engine:
         self._slow_penalty = 1.0    # synthetic straggler seconds
         #: per class, (request id, blocked admission sweeps) of its head
         self._head_blocked: Dict[PriorityClass, tuple] = {}
+        # -- the durable journal ----------------------------------------------
+        self._journal = None
+        self._jmute = 0             # > 0: nested or replayed calls log nothing
+        self._durable_dir = None
+        self.snapshot_every = int(snapshot_every)
+        self._durable_step = 0
+        self._blocks_since_snap = 0
+        if durable_dir is not None:
+            os.makedirs(durable_dir, exist_ok=True)
+            self._durable_dir = str(durable_dir)
+            self._journal = BlobLog(os.path.join(durable_dir, "journal.log"),
+                                    fresh=True)
 
     @staticmethod
     def _fresh_class_row() -> dict:
@@ -443,6 +524,29 @@ class Engine:
 
     def _class_count(self, cls, key: str, n: int = 1) -> None:
         self.class_counters[coerce_priority(cls)][key] += n
+
+    @contextlib.contextmanager
+    def _journal_scope(self, *record, ahead: bool = False):
+        """Journal one externally driven transition, at the outermost call
+        only: what a journaled call does inside (a block's admission
+        sweep, retire's finishes, a replayed record) follows from the
+        record on replay.  ``ahead`` (blocks) appends before the call, so
+        that a crash inside the block finds it durable and re-runs it;
+        otherwise the record is appended when the call returns (a call
+        that raised at validation never happened)."""
+        log = self._journal is not None and self._jmute == 0
+        if log and ahead:
+            self._journal.append(record)
+        self._jmute += 1
+        try:
+            yield
+        except BaseException:
+            log = False
+            raise
+        finally:
+            self._jmute -= 1
+            if log and not ahead:
+                self._journal.append(record)
 
     # -- admission ------------------------------------------------------------
     def add_requests(self, requests: Dict[int, np.ndarray], *,
@@ -459,10 +563,26 @@ class Engine:
         ``priority`` the SLO class (default STANDARD).  Paged: the whole
         token budget's pages are allocated here, less a prefix hit's
         shared pages (MemoryError when the pool is short, after evicting
-        cold prefixes and, with ``preempt``, spilling victims; queue
-        through :meth:`submit` to wait instead).  An empty prompt is a
-        single pad token (id 0).
+        cold prefixes and, with ``preempt``, spilling victims, or when a
+        class quota refuses it; queue through :meth:`submit` to wait
+        instead).  An empty prompt is a single pad token (id 0).
         """
+        with self._journal_scope(
+                "add", {"requests": {int(s): np.asarray(p)
+                                     for s, p in requests.items()},
+                        "gen_len": gen_len, "temperature": temperature,
+                        "top_k": top_k, "deadline_s": deadline_s,
+                        "priority": priority}):
+            return self._add_requests(
+                requests, gen_len=gen_len, temperature=temperature,
+                top_k=top_k, deadline_s=deadline_s, priority=priority,
+                _t_submit=_t_submit, _ids=_ids, _deadlines=_deadlines,
+                _prefix=_prefix)
+
+    def _add_requests(self, requests, *, gen_len=None, temperature=None,
+                      top_k=None, deadline_s=None, priority=None,
+                      _t_submit=None, _ids=None, _deadlines=None,
+                      _prefix=None):
         t_call = self.clock()
         reqs = {int(s): validate_request(p, vocab=self.cfg.vocab,
                                          temperature=temperature,
@@ -574,7 +694,10 @@ class Engine:
 
         if short() > 0 and self.prefix_cache:
             # cold index entries yield before any running request does
-            self.prefix_index.evict(self.allocator, short())
+            # (with quotas, only entries at or below the admitted classes)
+            self.prefix_index.evict(
+                self.allocator, short(),
+                floor=floor if self.allocator.class_quotas else None)
         if short() > 0 and self.preempt:
             self._preempt_until(sum(needs.values()) - recyclable,
                                 exclude=set(reqs), floor=floor)
@@ -587,6 +710,25 @@ class Engine:
                 f"{sum(needs.values())} pages, free "
                 f"{self.allocator.free_pages} of {self.allocator.num_pages} "
                 f"(queue through submit() to wait for pages)")
+        if self.allocator.class_quotas:
+            # the group's quota check before any state moves; the pages
+            # the recycle loop below releases count as credit
+            needs_cls: Dict[PriorityClass, int] = {}
+            for s in reqs:
+                needs_cls[cls_of[s]] = needs_cls.get(cls_of[s], 0) + needs[s]
+            release = [p for s in reqs for p in
+                       (self._slot_shared.get(s, [])
+                        if self.prefix_cache else [])
+                       + self._slot_pages.get(s, [])]
+            freed, uncharge = self.allocator.release_credit(release)
+            qmsg = self.allocator.quota_violation(needs_cls, freed=freed,
+                                                  uncharge=uncharge)
+            if qmsg is not None:
+                for h in held.values():
+                    if h:
+                        self.allocator.free(h)
+                raise MemoryError(f"class quota exceeded: {qmsg} (queue "
+                                  f"through submit() to wait)")
         for s in reqs:
             # a slot admitted over one that still holds pages recycles them
             if self.prefix_cache:
@@ -755,7 +897,23 @@ class Engine:
                     f"request needs {need} pages but the pool only has "
                     f"{self.allocator.num_pages}; raise num_pages or lower "
                     f"gen_len")
+            cap = self.allocator.cap_pages(req["priority"])
+            if cap is not None and need > cap:
+                raise ValueError(
+                    f"request needs {need} pages but class "
+                    f"{req['priority'].name.lower()} is capped at {cap} "
+                    f"of {self.allocator.num_pages}; raise the cap or "
+                    f"lower gen_len")
         self.waiting.append(req)
+        if self._journal is not None and self._jmute == 0:
+            # with the minted id, which replay checks; the deadline rides
+            # relative (a clock value does not survive a process), so a
+            # recovered request's TTL restarts at recovery
+            self._journal.append(("submit", {
+                "id": req["id"], "prompt": prompt, "gen_len": gen_len,
+                "temperature": temperature, "top_k": top_k,
+                "deadline_s": deadline_s,
+                "priority": req["priority"].name.lower()}))
         return req["id"]
 
     def status(self, req_id: int):
@@ -776,17 +934,18 @@ class Engine:
         it leaves the queue CANCELLED with the tokens it had committed;
         running, its lane finishes now with its partial output.  Unknown
         or terminal ids return False."""
-        for i, r in enumerate(self.waiting):
-            if r["id"] == req_id:
-                del self.waiting[i]
-                self._finalize_queued(r, RequestStatus.CANCELLED)
-                return True
-        for s, m in list(self._req_meta.items()):
-            if m["id"] == req_id:
-                self.live[s] = False
-                self.finish(s, status=RequestStatus.CANCELLED)
-                return True
-        return False
+        with self._journal_scope("cancel", int(req_id)):
+            for i, r in enumerate(self.waiting):
+                if r["id"] == req_id:
+                    del self.waiting[i]
+                    self._finalize_queued(r, RequestStatus.CANCELLED)
+                    return True
+            for s, m in list(self._req_meta.items()):
+                if m["id"] == req_id:
+                    self.live[s] = False
+                    self.finish(s, status=RequestStatus.CANCELLED)
+                    return True
+            return False
 
     def _finalize_queued(self, rec: dict, status: RequestStatus) -> None:
         """Terminal outcome of a request that holds no lane: a results
@@ -830,12 +989,13 @@ class Engine:
 
     def retire_finished(self) -> int:
         """finish() every lane whose generation ended."""
-        n = 0
-        for s in range(self.batch):
-            if self.outputs[s] is not None and not self.live[s]:
-                self.finish(s)
-                n += 1
-        return n
+        with self._journal_scope("retire"):
+            n = 0
+            for s in range(self.batch):
+                if self.outputs[s] is not None and not self.live[s]:
+                    self.finish(s)
+                    n += 1
+            return n
 
     def _rec_priority(self, rec: dict) -> PriorityClass:
         """SLO class of a queue record (fresh or a preempted resume)."""
@@ -864,13 +1024,20 @@ class Engine:
         first evicts cold prefixes; with ``preempt``, after
         ``preempt_after`` blocked sweeps of the same head (at once when
         its class is past its TTFT target), victims at or below its class
-        spill until it fits."""
+        spill until it fits.  With class quotas a head whose class is over
+        its cap, or that would take another class's reserved pages,
+        waits as a pool-short head does."""
+        with self._journal_scope("admit"):
+            return self._try_admit()
+
+    def _try_admit(self) -> int:
         free = [s for s in range(self.batch)
                 if self.outputs[s] is None and not self.live[s]]
         admit: Dict[int, np.ndarray] = {}
         kw = {"gen_len": {}, "temperature": {}, "top_k": {}, "priority": {},
               "_t_submit": {}, "_ids": {}, "_deadlines": {}, "_prefix": {}}
         planned = 0
+        planned_cls: Dict[PriorityClass, int] = {}
         resumed = 0
         placed: set = set()
         while self.waiting and free:
@@ -887,14 +1054,31 @@ class Engine:
                         # a hit's shared pages are mapped, not allocated
                         pre = self._match_prefix(req["prompt"])
                         need -= len(pre["shared"])
-                if not self.allocator.can_alloc(planned + need, cls=cls):
+                # the pool first, then the quotas with the head's own class
+                # (the reference asks can_alloc without a class here, which
+                # under quotas checks the head as STANDARD: a REALTIME head
+                # then waits on its own floor; ROADMAP, reference hazards)
+                fits = planned + need <= self.allocator.free_pages
+                if fits and self.allocator.class_quotas:
+                    want = dict(planned_cls)
+                    want[cls] = want.get(cls, 0) + need
+                    fits = self.allocator.quota_violation(want) is None
+                if not fits:
                     if self.prefix_cache:
                         # pages promised this sweep are held (refcount >=
-                        # 2); the current head's match is protected here
+                        # 2); the current head's match is protected here.
+                        # The sweep covers the pool's shortfall or, quota-
+                        # blocked, the class's own published pages; it
+                        # evicts entries at or below the head's class only
                         mine = set(self._hit_pages(pre)) if pre else set()
-                        want = planned + need - self.allocator.free_pages
-                        if self.prefix_index.evict(self.allocator, want,
-                                                   protect=mine):
+                        want = max(
+                            planned + need - self.allocator.free_pages,
+                            self.allocator.quota_evict_want(
+                                cls, need, planned=planned_cls))
+                        if self.prefix_index.evict(
+                                self.allocator, want, protect=mine,
+                                floor=(cls if self.allocator.class_quotas
+                                       else None)):
                             continue    # freed pages; recheck the head
                     if self._maybe_preempt(req, cls, planned + need, free,
                                            exclude=placed):
@@ -913,6 +1097,7 @@ class Engine:
                 continue
             if self.paged:
                 planned += need
+                planned_cls[cls] = planned_cls.get(cls, 0) + need
             if pre is not None:
                 # hold the matched pages now: a later head's eviction must
                 # not free them while this admission is pending
@@ -1174,7 +1359,24 @@ class Engine:
         finish FAILED with their valid prefix, and host faults propagate.
         With requests waiting, finished lanes are retired and the queue
         admitted at the end.
+
+        Durable (``durable_dir``): the block's journal record is fsync'd
+        before any device work, so a crash inside the block (a graph
+        replay included) re-runs the whole block on recovery; every
+        ``snapshot_every`` blocks a durable snapshot bounds the replay.
         """
+        if self._journal is not None and self._jmute == 0:
+            self._blocks_since_snap += 1
+            if (self.snapshot_every
+                    and self._blocks_since_snap > self.snapshot_every):
+                # before this block's record: the cursor must not cover a
+                # block the snapshot has not run
+                self._save_durable()
+                self._blocks_since_snap = 1
+        with self._journal_scope("block", int(n), ahead=True):
+            return self._step_many(n)
+
+    def _step_many(self, n: int):
         self._round += 1
         self._sweep_deadlines()
         n_eff, spec_now = self._shed_policy(n)
@@ -1220,6 +1422,16 @@ class Engine:
         self.counters["decode_s"] += t1 - t0
         self.counters["decode_steps"] += n_eff
         self.counters["gen_tokens"] += int(block_live.sum())
+        if spec_now and self._spec_adapter is not None:
+            # adaptive spec_k: this block's acceptance (observed once, after
+            # the fault check) re-ranks k for the next block; committed
+            # tokens do not depend on k, only the cost of a round does
+            rounds, acc = self._last_spec_obs
+            self._spec_adapter.observe(rounds, acc)
+            k_new = self._spec_adapter.propose()
+            if k_new != self.spec_k:
+                self.spec_k = int(k_new)
+                self.counters["spec_k_rejits"] += 1
         # straggler telemetry: wall time per step, plus the injector's
         # synthetic penalty for a deterministic slow block
         dur = (t1 - t0) / max(1, n_eff)
@@ -1344,6 +1556,7 @@ class Engine:
         """One speculative block of ``n`` rounds: one upload (with the
         drafting history), one graph replay on the card, one download
         (with the accepted counts and the new history)."""
+        self.blocks.set_spec_k(self.spec_k)
         state = self.blocks.pack(self.tokens, self.pos, self.live,
                                  self.stop_pos, self.temperature, self.top_k,
                                  self._gen_step, self.eos_id, hist=self.hist)
@@ -1357,8 +1570,13 @@ class Engine:
             self.hist = hist
         # rounds in which a slot was live, and the drafts each committed
         step_live = block_live.reshape(n, self.spec_k + 1, self.batch)[:, 0]
-        self.counters["verify_steps"] += int(step_live.sum())
-        self.counters["draft_accepted"] += int(accepted[step_live].sum())
+        rounds = int(step_live.sum())
+        acc = int(accepted[step_live].sum())
+        self.counters["verify_steps"] += rounds
+        self.counters["draft_accepted"] += acc
+        # for the spec_k adapter, read by step_many once the block has
+        # passed the fault check (a replayed block is observed once)
+        self._last_spec_obs = (rounds, acc)
         return block, block_live, fault
 
     def step(self):
@@ -1374,6 +1592,10 @@ class Engine:
         list, its shared prefix pages lose its reference only, and its
         table row points at the trash page (the device table is rewritten
         lazily, once per sweep)."""
+        with self._journal_scope("finish", int(slot), status.value):
+            self._finish(slot, status)
+
+    def _finish(self, slot: int, status: RequestStatus) -> None:
         meta = self._req_meta.pop(slot, None)
         if meta is not None:
             cls = coerce_priority(meta.get("priority"))
@@ -1518,6 +1740,111 @@ class Engine:
                                         f"{directory}")
         self.restore(load_blob(directory, step))
 
+    # -- crash-safe warm restart ------------------------------------------------
+    def _save_durable(self) -> str:
+        """One durable snapshot: :meth:`snapshot` plus the journal cursor
+        (the records it already reflects), through ``save_blob``'s tmp +
+        rename, so a crash mid-save leaves the previous one in force."""
+        snap = self.snapshot()
+        snap["journal_cursor"] = self._journal.count
+        path = save_blob(snap, self._durable_dir, self._durable_step)
+        self._durable_step += 1
+        return path
+
+    def recover(self, directory: str) -> dict:
+        """Rebuild this freshly built Engine from a killed run's durable
+        directory and journal on into it.
+
+        Build the Engine with the dead one's arguments but without
+        ``durable_dir`` (that would truncate the journal), then call
+        ``recover``: the newest durable snapshot is restored (in place:
+        the cache keeps its tensors), the journal's records past its
+        cursor run again (muted, not journaled twice) and the journal
+        reopens for append, a torn tail truncated.  Greedy and sampled
+        streams resume exactly (``gen_step`` rides the snapshot).  The
+        dead Engine gave up its device state where it died
+        (:meth:`release`, called by the fault injector).
+
+        Returns ``{"snapshot_step", "replayed"}``.
+        """
+        if self._journal is not None:
+            raise RuntimeError(
+                "recover() on an engine constructed with durable_dir: "
+                "construction already truncated the journal -- build "
+                "the engine without durable_dir and recover into it")
+        directory = str(directory)
+        log = BlobLog(os.path.join(directory, "journal.log"))
+        step = latest_step(directory)
+        cursor = 0
+        if step is not None:
+            snap = load_blob(directory, step)
+            cursor = int(snap.get("journal_cursor", 0))
+            self.restore(snap)
+            self._durable_step = step + 1
+        records = log.read(cursor)
+        self._jmute += 1
+        try:
+            for rec in records:
+                self._replay_event(rec)
+        finally:
+            self._jmute -= 1
+        self._adopt_journal(log, directory)
+        self.counters["recoveries"] += 1
+        return {"snapshot_step": step, "replayed": len(records)}
+
+    def _adopt_journal(self, log: BlobLog, directory: str) -> None:
+        """Journal on into ``log`` under ``directory`` (recovery and a
+        fleet's promotion)."""
+        self._journal = log
+        self._durable_dir = str(directory)
+        self._blocks_since_snap = 0
+
+    def _replay_event(self, rec: tuple) -> None:
+        """Run one journaled transition again (muted by the caller)."""
+        kind = rec[0]
+        if kind == "submit":
+            p = rec[1]
+            rid = self.submit(p["prompt"], gen_len=p["gen_len"],
+                              temperature=p["temperature"],
+                              top_k=p["top_k"], deadline_s=p["deadline_s"],
+                              priority=p["priority"])
+            if rid != p["id"]:
+                raise RuntimeError(
+                    f"journal replay diverged: submit re-minted id {rid}, "
+                    f"the journal says {p['id']} (snapshot and journal "
+                    f"from different runs?)")
+        elif kind == "add":
+            p = rec[1]
+            self.add_requests(p["requests"], gen_len=p["gen_len"],
+                              temperature=p["temperature"], top_k=p["top_k"],
+                              deadline_s=p["deadline_s"],
+                              priority=p["priority"])
+        elif kind == "admit":
+            self.try_admit()
+        elif kind == "block":
+            self.step_many(rec[1])
+        elif kind == "retire":
+            self.retire_finished()
+        elif kind == "cancel":
+            self.cancel(rec[1])
+        elif kind == "finish":
+            self.finish(rec[1], status=RequestStatus(rec[2]))
+        else:
+            raise RuntimeError(f"unknown journal record kind {kind!r}")
+
+    def release(self) -> None:
+        """Give up the device state of an Engine that died in this process
+        (a crash, a fleet replica's death): its decode graphs (and the
+        scratch they captured), caches and params references, and its
+        journal handle.  The Engine serves nothing afterwards."""
+        if self._journal is not None:
+            self._journal.close()
+        for blocks in (self.blocks, self._plain_blocks):
+            if blocks is not None:
+                blocks.release()
+        self.cache = self.draft_cache = self.params = None
+        self.draft = None
+
     def _poison_cache(self, value: float) -> None:
         """Chaos hook: fill every float leaf of the serving cache with
         ``value``, in place (block tables and int8 payloads stay)."""
@@ -1534,12 +1861,15 @@ class Engine:
         dense), whether blocks run as CUDA graphs, how many were captured
         and the seconds that took (inside ``decode_s``), and the kernel
         launch counts since the last reset (a graph replay counts every
-        launch it runs).  Under ``spec``: the live verify rounds and the
-        mean drafts accepted per round.  The lifecycle: prefix-cache hits,
-        pages and tokens saved and copy-on-write copies; preemptions,
-        cancellations, timeouts, failures, replays, spilled pages, shed
-        spec rounds and straggler blocks; per-class rows (``classes``)
-        for every class with any activity."""
+        launch it runs).  Under ``spec``: the live verify rounds, the
+        mean drafts accepted per round and ``spec_k`` (now, at
+        construction, and the switches the adapter made).  The autotuner's
+        mode, its estimator's source and the resolved ``decode_block``.
+        The lifecycle: prefix-cache hits, pages and tokens saved and
+        copy-on-write copies; preemptions, cancellations, timeouts,
+        failures, replays, spilled pages, shed spec rounds and straggler
+        blocks; recoveries from a journal and the standby's journal lag;
+        per-class rows (``classes``) for every class with any activity."""
         c = self.counters
         captures = self.blocks.captures + (self._plain_blocks.captures
                                            if self._plain_blocks else 0)
@@ -1565,6 +1895,13 @@ class Engine:
             out["accepted_per_step"] = (c["draft_accepted"]
                                         / max(c["verify_steps"], 1))
             out["spec_k"] = self.spec_k
+            out["spec_k_init"] = self._spec_k_init
+            out["spec_k_rejits"] = c["spec_k_rejits"]
+        out["autotune"] = self.autotune
+        if self._autotune_est is not None:
+            out["autotune_source"] = self._autotune_est.source
+        if self.decode_block is not None:
+            out["decode_block"] = self.decode_block
         if self.request_log:
             out["ttft_mean_s"] = float(np.mean(
                 [r["ttft_s"] for r in self.request_log]))
@@ -1585,6 +1922,8 @@ class Engine:
         out["straggler_events"] = (len(self.straggler.events)
                                    if self.straggler is not None else 0)
         out["uptime_s"] = float(self.clock() - self._t_start)
+        out["recoveries"] = c["recoveries"]
+        out["journal_lag_records"] = self.journal_lag_records
         classes = {}
         for cls in PriorityClass:
             row = dict(self.class_counters[cls])
@@ -1623,12 +1962,26 @@ def build_ctx(args) -> QuantContext:
                                        else torch.bfloat16))
 
 
-#: reference CLI flags outside this slice -> the ROADMAP.md item porting them
-_REFUSED = {"--durable-dir": "queue 1, item 12b",
-            "--snapshot-every": "queue 1, item 12b",
-            "--replicas": "queue 1, item 13",
-            "--standby-dir": "queue 1, item 13",
-            "--class-quota": "queue 1, item 13"}
+def _parse_class_quotas(specs) -> Optional[dict]:
+    """``--class-quota CLASS:KIND=FRACTION`` strings -> the quotas
+    :func:`normalize_class_quotas` validates (None without the flag)."""
+    if not specs:
+        return None
+    quotas: Dict[str, Dict[str, float]] = {}
+    for spec in specs:
+        head, sep, val = spec.partition("=")
+        cls, csep, kind = head.partition(":")
+        if not sep or not csep or not cls or not kind:
+            raise SystemExit(
+                f"--class-quota {spec!r}: expected CLASS:KIND=FRACTION "
+                f"(e.g. realtime:floor=0.25)")
+        try:
+            frac = float(val)
+        except ValueError:
+            raise SystemExit(
+                f"--class-quota {spec!r}: fraction {val!r} is not a number")
+        quotas.setdefault(cls, {})[kind] = frac
+    return normalize_class_quotas(quotas)
 
 
 def main(argv=None):
@@ -1648,7 +2001,9 @@ def main(argv=None):
     ap.add_argument("--kv-bits", type=int, default=None, choices=[8],
                     help="int8 KV cache (per-token scales)")
     ap.add_argument("--prefill-chunk", type=int, default=16)
-    ap.add_argument("--decode-block", type=int, default=8)
+    ap.add_argument("--decode-block", type=int, default=None,
+                    help="decode steps per block (default: the autotuner's "
+                         "resolved block; 8 with --autotune off)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache: shared page pool + block tables "
                          "(default: the dense cache)")
@@ -1656,7 +2011,15 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--kv-split", default="auto")
     ap.add_argument("--pages-per-step", default="auto")
-    ap.add_argument("--autotune", default="off")
+    ap.add_argument("--autotune", default="analytic",
+                    choices=("off", "analytic", "fitted"),
+                    help="knob resolution: 'off' = the knobs as given and "
+                         "the cost model; 'analytic' = the resolver on the "
+                         "hand-set constants (same knobs); 'fitted' = the "
+                         "resolver on the card's measured fit "
+                         "(AUTOTUNE_H100.json; analytic without it).  Other "
+                         "split knobs sum attention in another order: with "
+                         "int8 weights greedy streams can change")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -1707,16 +2070,30 @@ def main(argv=None):
                     default=None,
                     help="decode blocks as CUDA graph replays (default: on "
                          "for cuda; --no-graphs runs them eagerly)")
-    for flag in _REFUSED:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--durable-dir", default=None,
+                    help="crash-safe warm restart: journal every request "
+                         "and block (fsync'd, write-ahead) and snapshot "
+                         "the engine every --snapshot-every blocks under "
+                         "this directory; Engine.recover(dir) rebuilds a "
+                         "killed engine")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="blocks between durable snapshots (0: journal "
+                         "only)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve through a Fleet of N engine replicas "
+                         "(least-pressure routing, heartbeat failure "
+                         "detection)")
+    ap.add_argument("--standby-dir", default=None,
+                    help="a journal-shipped hot standby (implies a fleet): "
+                         "the primary journals here, the standby tails it "
+                         "and is promoted when the primary dies")
+    ap.add_argument("--class-quota", action="append", default=None,
+                    metavar="CLASS:KIND=FRACTION",
+                    help="partition the page pool per class (repeatable; "
+                         "needs --paged): 'realtime:floor=0.25' reserves a "
+                         "quarter of the pages for realtime, "
+                         "'batch:cap=0.5' caps batch at half")
     args = ap.parse_args(argv)
-    for flag, item in _REFUSED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported yet (ROADMAP.md {item})")
-    if args.autotune != "off":
-        ap.error("--autotune other than 'off' is not ported yet "
-                 "(ROADMAP.md queue 1, item 9)")
 
     cfg = get_config(args.arch)
     if cfg.family == "encdec":
@@ -1754,35 +2131,68 @@ def main(argv=None):
     def knob(v):
         return "auto" if v == "auto" else int(v)
 
-    eng = Engine(cfg, ctx, params, batch=args.batch,
-                 max_len=args.prompt_len + args.gen_len + 1,
-                 kv_bits=args.kv_bits, prefill_chunk=args.prefill_chunk,
-                 seed=args.seed, paged=args.paged, page_size=args.page_size,
-                 num_pages=args.num_pages, kv_split=knob(args.kv_split),
-                 pages_per_step=knob(args.pages_per_step), spec=args.spec,
-                 spec_k=args.spec_k, spec_draft=spec_draft,
-                 spec_ngram=args.spec_ngram, prefix_cache=args.prefix_cache,
-                 preempt=args.preempt, shed_threshold=args.shed_threshold,
-                 slo_targets=({"realtime": {"ttft_s": args.slo_ttft_s,
-                                            "tok_per_s": args.slo_tok_per_s}}
-                              if (args.slo_ttft_s is not None
-                                  or args.slo_tok_per_s is not None)
-                              else None),
-                 device=device, graphs=args.graphs)
+    fleet_mode = args.replicas > 1 or args.standby_dir is not None
+    eng_kw = dict(
+        batch=args.batch, max_len=args.prompt_len + args.gen_len + 1,
+        kv_bits=args.kv_bits, prefill_chunk=args.prefill_chunk,
+        seed=args.seed, paged=args.paged, page_size=args.page_size,
+        num_pages=args.num_pages, kv_split=knob(args.kv_split),
+        pages_per_step=knob(args.pages_per_step),
+        autotune=args.autotune, spec=args.spec,
+        spec_k=args.spec_k, spec_draft=spec_draft,
+        spec_ngram=args.spec_ngram, prefix_cache=args.prefix_cache,
+        preempt=args.preempt, shed_threshold=args.shed_threshold,
+        class_quotas=_parse_class_quotas(args.class_quota),
+        slo_targets=({"realtime": {"ttft_s": args.slo_ttft_s,
+                                   "tok_per_s": args.slo_tok_per_s}}
+                     if (args.slo_ttft_s is not None
+                         or args.slo_tok_per_s is not None) else None),
+        # a fleet owns durability (the primary journals under
+        # --standby-dir): replicas sharing one --durable-dir would
+        # clobber each other's journal
+        durable_dir=None if fleet_mode else args.durable_dir,
+        snapshot_every=args.snapshot_every, device=device,
+        graphs=args.graphs)
+
+    def make_engine(**over):
+        return Engine(cfg, ctx, params, **dict(eng_kw, **over))
+
+    fleet = None
+    if fleet_mode:
+        from .fleet import Fleet
+        fleet = Fleet(make_engine, args.replicas,
+                      standby_dir=args.standby_dir)
+        eng = fleet.replicas[0]
+    else:
+        eng = make_engine()
     src = SyntheticLM(cfg.vocab, seed=args.seed)
     prompts = [src.tokens(i, 1, args.prompt_len)[0, :-1]
                for i in range(args.requests)]
+    # explicit flag > the autotuner's resolved block > 8
+    block = max(1, args.decode_block if args.decode_block is not None
+                else (eng.decode_block or 8))
     t0 = time.perf_counter()
-    for p in prompts:
-        eng.submit(p, gen_len=args.gen_len, temperature=args.temperature,
-                   top_k=args.top_k, deadline_s=args.deadline_s,
-                   priority=args.priority_class)
-    eng.try_admit()
-    gen_tokens = 0
-    while eng.live.any() or eng.waiting:
-        _, block_live = eng.step_many(max(1, args.decode_block))
-        gen_tokens += int(block_live.sum())
-    eng.retire_finished()
+    sub = dict(gen_len=args.gen_len, temperature=args.temperature,
+               top_k=args.top_k, deadline_s=args.deadline_s,
+               priority=args.priority_class)
+    if fleet is not None:
+        for p in prompts:
+            fleet.submit(p, **sub)
+        fleet.try_admit()
+        fleet.drain(block=block)
+        eng = fleet.replicas[0]     # a promotion may have replaced it
+        gen_tokens = sum(st["gen_tokens"]
+                         for st in fleet.stats()["per_replica"]
+                         if st is not None)
+    else:
+        for p in prompts:
+            eng.submit(p, **sub)
+        eng.try_admit()
+        gen_tokens = 0
+        while eng.live.any() or eng.waiting:
+            _, block_live = eng.step_many(block)
+            gen_tokens += int(block_live.sum())
+        eng.retire_finished()
     dt = time.perf_counter() - t0
     cache = (f"paged(ps={eng.allocator.page_size},"
              f"pages={eng.allocator.num_pages},kv_split={eng.kv_split},"
@@ -1795,13 +2205,22 @@ def main(argv=None):
         cache += " prefix-cache"
     if args.preempt:
         cache += " preempt"
-    print(f"served {len(eng.results)} requests, {gen_tokens} tokens in "
+    served = len(fleet.results) if fleet is not None else len(eng.results)
+    print(f"served {served} requests, {gen_tokens} tokens in "
           f"{dt:.2f}s ({gen_tokens / dt:.1f} tok/s), quant={args.quant} "
           f"lut={args.lut} kv_bits={args.kv_bits} device={device} {cache} "
+          f"decode_block={block} autotune={args.autotune} "
           f"temperature={args.temperature} top_k={args.top_k} "
           f"graphs={eng.blocks.graphs}")
+    if fleet is not None:
+        fs = fleet.stats()
+        print(f"fleet: {args.replicas} replicas (states "
+              f"{','.join(fs['states'])}), standby="
+              f"{'on' if fs['standby'] else 'off'}, deaths={fs['deaths']} "
+              f"promotions={fs['promotions']} "
+              f"redispatched={fs['redispatched']}")
     print(json.dumps(eng.stats(), default=str))
-    return eng.done
+    return fleet.results if fleet is not None else eng.done
 
 
 if __name__ == "__main__":

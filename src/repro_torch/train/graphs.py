@@ -24,12 +24,15 @@ the block tables are written in place, so a replay serves whatever the
 caller admitted or retired since the capture.  The graphs hold the
 addresses of the params' and the cache's tensors (and of a draft
 model's params and dense cache): when any is replaced, the graphs are
-dropped and captured again.  A capture that
-fails raises; nothing falls back to eager.
+dropped and captured again.  A capture runs with Python's cyclic
+garbage collector off (after one collection): a graph that the collector
+destroyed mid-capture would invalidate it.  A capture that fails raises;
+nothing falls back to eager.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Tuple
 
@@ -50,9 +53,21 @@ class BlockGraph:
 
     def __init__(self, fn: Callable[[], torch.Tensor]):
         self.graph = torch.cuda.CUDAGraph()
-        with _cuda.recorded_launches() as self.launches:
-            with torch.cuda.graph(self.graph):
-                self.out = fn()
+        # a graph destroyed while another is being captured (a dead
+        # Engine's, freed by the cyclic collector at any allocation)
+        # invalidates the capture: collect first, and keep the collector
+        # off until the capture ends
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with _cuda.captured_scratch() as self.scratch:
+                with _cuda.recorded_launches() as self.launches:
+                    with torch.cuda.graph(self.graph):
+                        self.out = fn()
+        finally:
+            if enabled:
+                gc.enable()
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
@@ -81,7 +96,9 @@ class DecodeBlocks:
     ``spec``: None, or ``build_spec_decode_loop``'s keywords (``k``,
     ``drafter``, ``ngram``, ``draft_cfg``, ``draft_ctx``) with
     ``hist_len``, the width of the drafting history (the model drafter
-    keeps none here: its state is the draft cache).
+    keeps none here: its state is the draft cache).  :meth:`set_spec_k`
+    changes ``k`` between blocks (an adaptive ``spec_k``): each k gets
+    its own loop and graph.
 
     Call with the params, the cache, the host state packed by
     :meth:`pack`, the device key (None: every slot greedy), the block
@@ -115,11 +132,22 @@ class DecodeBlocks:
         end = 6 * b + b * h
         self.step0, self.eos_id = s[end], s[end + 1]
         self.key = s[end + 2:]
-        self._loops: Dict[int, Callable] = {}
+        self._loops: Dict[Tuple, Callable] = {}
         self._graphs: Dict[Tuple, BlockGraph] = {}
         self._owner = None
         self.captures = 0
         self.capture_s = 0.0         # host seconds spent capturing
+
+    def set_spec_k(self, k: int) -> None:
+        """Drafts per round of the next speculative blocks."""
+        self.spec["k"] = int(k)
+
+    def release(self) -> None:
+        """Drop every captured graph (and the scratch it holds) and every
+        loop: an Engine that died gives its device memory back."""
+        self._graphs.clear()
+        self._loops.clear()
+        self._owner = None
 
     def pack(self, tokens, pos, live, stop_pos, temperature, top_k,
              step0: int, eos_id: int, hist=None) -> np.ndarray:
@@ -186,9 +214,10 @@ class DecodeBlocks:
     def _block(self, params, cache, steps: int, sampled: bool, draft=None):
         """One block on the buffer's views; its outputs packed in one int32
         tensor."""
-        loop = self._loops.get(steps)
+        lkey = (steps, None if self.spec is None else self.spec["k"])
+        loop = self._loops.get(lkey)
         if loop is None:
-            loop = self._loops[steps] = (
+            loop = self._loops[lkey] = (
                 build_decode_loop(self.cfg, self.ctx, steps)
                 if self.spec is None else
                 build_spec_decode_loop(self.cfg, self.ctx, steps,

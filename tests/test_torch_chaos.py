@@ -125,9 +125,15 @@ def test_int8_weights_chaos():
 
 
 def test_crash_kind_is_refused():
-    from repro_torch.ft import ServingFaultInjector
-    with pytest.raises(NotImplementedError, match="12b"):
-        ServingFaultInjector({1: "crash"})
+    """``crash`` is a fault kind (recovered across Engines from the
+    durable journal, ``test_torch_warm_restart.py``); an unknown kind is
+    still refused by name."""
+    from repro_torch.ft import (CRASH_KIND, InjectedCrash,
+                                ServingFaultInjector)
+    inj = ServingFaultInjector({1: "crash"})
+    assert inj.schedule == {1: [CRASH_KIND]}
+    assert issubclass(InjectedCrash, BaseException)
+    assert not issubclass(InjectedCrash, Exception)
     with pytest.raises(ValueError, match="unknown fault kind"):
         ServingFaultInjector({1: "melt"})
 
@@ -324,14 +330,25 @@ def test_preempt_under_chaos_still_conforms():
     assert got == ref and replays == 2 and pre > 0
 
 
-def test_engine_refuses_journal_and_quotas():
-    """The durable journal and class quotas are refused by name."""
+def test_engine_refuses_journal_and_quotas(tmp_path):
+    """The durable journal and class quotas are accepted; their bad
+    values are refused by name (a negative snapshot period, quotas on a
+    dense cache, a floor over its cap)."""
     from repro_torch.launch.paging import PageAllocator
     cfg, make = lifecycle_makers()
-    with pytest.raises(NotImplementedError, match="12b"):
-        make["torch"](batch=2, max_len=24, durable_dir="x")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make["torch"](batch=2, max_len=24, paged=True,
+    eng = make["torch"](batch=2, max_len=24, durable_dir=str(tmp_path),
+                        snapshot_every=2)
+    assert eng._journal is not None and eng.snapshot_every == 2
+    eng = make["torch"](batch=2, max_len=24, paged=True,
+                        class_quotas={"realtime": {"floor": 0.5}})
+    assert eng.allocator.class_quotas
+    assert PageAllocator(8, 4, class_quotas={
+        "realtime": {"floor": 0.5}}).floor_pages("realtime") == 4
+    with pytest.raises(ValueError, match="snapshot_every"):
+        make["torch"](batch=2, max_len=24, snapshot_every=-1)
+    with pytest.raises(ValueError, match="paged"):
+        make["torch"](batch=2, max_len=24,
                       class_quotas={"realtime": {"floor": 0.5}})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PageAllocator(8, 4, class_quotas={"realtime": {"floor": 0.5}})
+    with pytest.raises(ValueError, match="floor"):
+        PageAllocator(8, 4, class_quotas={
+            "batch": {"floor": 0.8, "cap": 0.5}})

@@ -79,11 +79,18 @@ def _fused_epilogue_case(card, indexing, gated, domain):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("knobs", [(1, 1), (2, 1), (3, 2), (2, 8)])
+@pytest.mark.parametrize("knobs", [(1, 1), (2, 1), (3, 2), (2, 8), (4, 1),
+                                   (16, 1), (32, 1)])
 @pytest.mark.parametrize("s,group", [(1, 8), (16, 8), (3, 2), (1, 1)])
 def test_paged_attention_kernels_match_plain(card, knobs, s, group):
+    """(split, tile) pairs: the reference's points, and the one-page tiles
+    with 4 to 32 partitions that the fitted autotuner picks; a table wider
+    than the split, so that no split is clamped away."""
     from repro_torch.kernels import ops
-    b, hkv, d, ps, width, npg = 3, 2, 64, 16, 7, 30
+    split, tile = knobs
+    b, hkv, d, ps = 3, 2, 64, 16
+    width = max(7, split + 3)
+    npg = max(30, b * width + 1)
     q = torch.randn((b, hkv * group, s, d), generator=card, device="cuda")
     kp = torch.randn((npg, hkv, ps, d), generator=card, device="cuda")
     vp = torch.randn((npg, hkv, ps, d), generator=card, device="cuda")
@@ -92,7 +99,6 @@ def test_paged_attention_kernels_match_plain(card, knobs, s, group):
     bt[2] = npg - 1                         # a dead lane on the trash page
     qpos = torch.tensor([5, width * ps - s, 0], dtype=torch.int32,
                         device="cuda")
-    split, tile = knobs
     got = ops.paged_attention(q, kp, vp, bt, qpos, kv_split=split,
                               pages_per_step=tile)
     want = ops.paged_attention(q, kp, vp, bt, qpos, kv_split=split,
@@ -1558,3 +1564,195 @@ def test_restore_and_replay_keep_graph_captures(card):
     assert ch["replays"] == 3 and cc["replays"] == 0
     assert chaos == clean
     assert sh["graph_captures"] == sc["graph_captures"] > 0
+
+
+def _int8_smoke():
+    """gemma-2b smoke with int8 weights, f32 compute, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.launch.serve import quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(mode="int8",
+                       policy=PrecisionPolicy.uniform(FixedPointType(8, 4)),
+                       compute_dtype=torch.float32)
+    params = quantize_for_serving(
+        lm.init(torch.Generator().manual_seed(0), cfg, device="cpu"), ctx)
+    rs = np.random.RandomState(31)
+    prompts = [rs.randint(0, cfg.vocab, (n,)) for n in (9, 5, 12, 3)]
+    return cfg, ctx, params, prompts
+
+
+#: the card suites' durable geometry: paged, graphs on (the card default)
+DURABLE_KW = dict(batch=2, max_len=32, paged=True, page_size=4,
+                  num_pages=16, prefill_chunk=5, device="cuda")
+DURABLE_PRIOS = ("batch", "realtime", None, "standard")
+
+
+def _durable_drive(eng, prompts):
+    ids = [eng.submit(p, gen_len=6, priority=c)
+           for p, c in zip(prompts, DURABLE_PRIOS)]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(4)
+    eng.retire_finished()
+    return ids
+
+
+def test_crash_at_every_round_recovers_bitwise_on_card(card, tmp_path):
+    """int8 weights, paged, graphs on: a crash at every block round,
+    recovered into a fresh card Engine, gives the uninterrupted streams
+    and ``done`` order bit for bit."""
+    from repro_torch.ft import InjectedCrash, ServingFaultInjector
+    from repro_torch.launch.serve import Engine
+    cfg, ctx, params, prompts = _int8_smoke()
+    clean = Engine(cfg, ctx, params, **DURABLE_KW)
+    ids = _durable_drive(clean, prompts)
+    assert clean.stats()["graph_captures"] > 0 and clean._round >= 3
+    for rnd in range(1, clean._round + 1):
+        d = str(tmp_path / str(rnd))
+        dead = Engine(cfg, ctx, params, durable_dir=d, snapshot_every=2,
+                      fault_injector=ServingFaultInjector({rnd: "crash"}),
+                      **DURABLE_KW)
+        with pytest.raises(InjectedCrash):
+            _durable_drive(dead, prompts)
+        rec = Engine(cfg, ctx, params, **DURABLE_KW)
+        rec.recover(d)
+        while rec.live.any() or rec.waiting:
+            rec.step_many(4)
+        rec.retire_finished()
+        assert dead.cache is None              # released at the crash
+        assert rec.done == clean.done, f"crash at round {rnd}"
+        assert [rec.results[i]["tokens"] for i in ids] == \
+            [clean.results[i]["tokens"] for i in ids]
+
+
+def test_promotion_at_every_round_on_card(card, tmp_path):
+    """Two replicas and a hot standby on the card: the primary killed at
+    every fleet round gives the fault-free fleet's streams.  The heartbeat
+    keeps the reference's thresholds.  The fault-free fleet reads the
+    wall clock, where eager prefill and graph-capture blocks are slow, and
+    must end with no death and no re-dispatch; the killed fleets read a
+    clock that stands still, so that only the kill can kill."""
+    from repro_torch.ft import FleetFaultInjector
+    from repro_torch.launch.fleet import Fleet
+    from repro_torch.launch.serve import Engine
+    cfg, ctx, params, prompts = _int8_smoke()
+
+    def run(tag, inj=None, clock=None):
+        fl = Fleet(lambda **kw: Engine(cfg, ctx, params,
+                                       **dict(DURABLE_KW, **kw)), 2,
+                   standby_dir=str(tmp_path / tag), fault_injector=inj,
+                   clock=clock)
+        fids = [fl.submit(p, gen_len=6, priority=c)
+                for p, c in zip(prompts, DURABLE_PRIOS)]
+        fl.drain(block=4)
+        return fl, fids
+
+    clean, fids = run("clean")
+    assert clean.counters["deaths"] == 0
+    assert clean.counters["redispatched"] == 0
+    for rnd in range(1, clean._round + 1):
+        fl, _ = run(str(rnd), FleetFaultInjector([(rnd, 0, "kill")]),
+                    clock=lambda: 0.0)
+        assert fl.counters["promotions"] == 1
+        assert {f: fl.results[f] for f in fids} == \
+            {f: clean.results[f] for f in fids}, f"round {rnd}"
+
+
+def test_durable_snapshot_restores_in_place_on_card(card, tmp_path):
+    """A durable snapshot written by one card Engine, recovered into
+    another that has already captured its decode graph: no tensor address
+    of the cache changes, no graph is captured again for the same block,
+    and the streams are the uninterrupted ones."""
+    from repro_torch.ft import InjectedCrash, ServingFaultInjector
+    from repro_torch.launch.serve import Engine
+    from repro_torch.train.graphs import _addresses
+    cfg, ctx, params, prompts = _int8_smoke()
+    clean = Engine(cfg, ctx, params, **DURABLE_KW)
+    ids = _durable_drive(clean, prompts)
+    d = str(tmp_path / "d")
+    dead = Engine(cfg, ctx, params, durable_dir=d, snapshot_every=1,
+                  fault_injector=ServingFaultInjector({4: "crash"}),
+                  **DURABLE_KW)
+    with pytest.raises(InjectedCrash):
+        _durable_drive(dead, prompts)
+    rec = Engine(cfg, ctx, params, **DURABLE_KW)
+    warm = rec.submit(prompts[0], gen_len=6)
+    rec.try_admit()
+    while rec.live.any():
+        rec.step_many(4)
+    rec.retire_finished()
+    assert warm in rec.results
+    before, captures = _addresses(rec.cache), rec.blocks.captures
+    info = rec.recover(d)
+    assert info["snapshot_step"] is not None
+    assert _addresses(rec.cache) == before
+    while rec.live.any() or rec.waiting:
+        rec.step_many(4)
+    rec.retire_finished()
+    assert _addresses(rec.cache) == before
+    assert rec.blocks.captures == captures
+    assert [rec.results[i]["tokens"] for i in ids] == \
+        [clean.results[i]["tokens"] for i in ids]
+
+
+def test_calibration_sweep_on_card(card, tmp_path):
+    """A 4-shape sweep of the paged-attention kernel: finite positive
+    rows on every admissible grid point and a fit with nonnegative
+    weights, written with the card's name."""
+    import math
+    from repro_torch.launch import autotune, calibrate
+    rows = calibrate.sweep(calibrate.SHAPES[:4], reps=5)
+    want = sum(len(autotune.kv_candidates(autotune.WorkloadShape(
+        pages=p, page_size=ps, hkv=h, batch=b)))
+        for p, ps, _, h, b, _ in calibrate.SHAPES[:4])
+    assert len(rows) == want
+    assert all(math.isfinite(r["us_per_call"]) and r["us_per_call"] > 0
+               for r in rows)
+    est, gates = calibrate.fit_and_gate(rows)
+    assert all(w >= 0 for w in est.weights) and math.isfinite(est.residual)
+    p = autotune.save_artifact(est, tmp_path / "a.json",
+                               device=calibrate.device_info(), rows=rows)
+    back = autotune.load_estimator("fitted", path=p)
+    assert back.source == "artifact"
+    print(f"calibration: {len(rows)} rows, gates {gates}, weights "
+          f"{est.weights}")
+
+
+def test_capture_survives_a_dead_graph_in_a_reference_cycle(card):
+    """A captured graph that only the cyclic collector frees (a dead
+    Engine's) must not be destroyed while another graph is captured: the
+    destruction is refused during a capture and invalidates it.  Here the
+    holder of a graph dies during the next capture, and the collector runs
+    there whenever it is on (as it may at any allocation)."""
+    import gc
+    from repro_torch.train.graphs import BlockGraph
+    x = torch.ones(4096, device="cuda")
+
+    def body():
+        y = x
+        for _ in range(64):
+            y = y * 1.0001 + 0.5
+        return y
+
+    want = body()
+    for _ in range(3):
+        keep = []
+        holder = {"graph": BlockGraph(body)}
+        holder["self"] = holder              # freed by the collector only
+        keep.append(holder)
+        del holder
+
+        def fn():
+            keep.clear()                     # the holder dies mid-capture
+            if gc.isenabled():
+                gc.collect()
+            return body()
+
+        g = BlockGraph(fn)
+        out = g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)

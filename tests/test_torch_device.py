@@ -82,3 +82,29 @@ def test_refusals_come_before_the_device():
         encdec.init_cache(cfg, 2, 16, torch.int8)
     with pytest.raises(NotImplementedError, match="paged"):
         api.init_paged_cache_fn(cfg, 2, 8, 4, 4)
+
+
+def test_fleet_and_calibration_resolve_to_the_card(monkeypatch):
+    """A Fleet's replicas, like every Engine, need the card unless the
+    factory names a device; the calibration sweep needs the card even
+    when the CPU is named (a CPU timing is not a fit of the kernel)."""
+    from repro_torch.launch import calibrate
+    from repro_torch.launch.fleet import Fleet
+    from repro_torch.nn.context import QuantContext
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("gemma-2b").smoke()
+    params = lm.init(_gen(), cfg, device="cpu")
+    ctx = QuantContext(compute_dtype=torch.float32)
+
+    def make(device=None):
+        return lambda **kw: serve.Engine(cfg, ctx, params, batch=2,
+                                         max_len=8, device=device, **kw)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Fleet(make(), 2)
+    fl = Fleet(make("cpu"), 2)
+    assert all(e.device.type == "cpu" for e in fl.replicas)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibrate.sweep()
+    with pytest.raises(RuntimeError, match="needs a card"):
+        calibrate.sweep(device="cpu")

@@ -100,16 +100,21 @@ def test_block_size_invariance_and_stop_rules():
     assert eng.outputs[0] == full[:full.index(eos)]
 
 
-def test_refusals():
-    """Out-of-slice options are refused by name (the durable journal, the
-    fleet and class quotas); ``--lut``, ``--kv-bits 8`` and the dense
-    cache (no ``--paged``) are served."""
+def test_refusals(tmp_path):
+    """Bad values are refused by name (an unknown autotune mode, int4 KV,
+    the ``fake`` mode); the autotuner, the journal, the fleet and class
+    quotas are accepted, by the Engine and the CLI; ``--lut``,
+    ``--kv-bits 8`` and the dense cache (no ``--paged``) are served."""
     from repro_torch.launch.serve import Engine, main
     cfg, _, tparams = smoke_params("none")
     _, tctx = contexts("none")
-    with pytest.raises(NotImplementedError, match="autotune"):
+    with pytest.raises(ValueError, match="autotune"):
         Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8,
-               autotune="analytic")
+               autotune="fast")
+    tuned = Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8,
+                   autotune="analytic")
+    assert tuned.stats()["autotune_source"] == "analytic"
+    assert tuned.decode_block == 8
     with pytest.raises(ValueError, match="kv_bits"):
         Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8,
                kv_bits=4)
@@ -130,11 +135,26 @@ def test_refusals():
         eng.submit(np.arange(4), gen_len=2, temperature=0.7, top_k=-1)
     with pytest.raises(ValueError, match="out-of-vocab"):
         eng.submit(np.asarray([cfg.vocab]), gen_len=2)
-    for flag in ("--durable-dir", "--snapshot-every", "--replicas",
-                 "--standby-dir", "--class-quota"):
-        with pytest.raises(SystemExit):
-            main(["--arch", "gemma-2b", "--smoke", "--paged", "--device",
-                  "cpu", flag, "8"])
+    base = ["--arch", "gemma-2b", "--smoke", "--paged", "--device", "cpu",
+            "--requests", "2", "--batch", "2", "--prompt-len", "5",
+            "--gen-len", "3"]
+    for flags in (["--durable-dir", str(tmp_path / "d"),
+                   "--snapshot-every", "1"],
+                  ["--replicas", "2", "--standby-dir", str(tmp_path / "s")],
+                  ["--class-quota", "realtime:floor=0.25",
+                   "--autotune", "fitted"]):
+        out = main(base + flags)
+        assert len(out) == 2 and all(len(r if isinstance(r, list)
+                                         else r["tokens"]) == 3
+                                     for r in (out.values()
+                                               if isinstance(out, dict)
+                                               else out))
+    for flags in (["--autotune", "fast"], ["--snapshot-every", "-1"],
+                  ["--class-quota", "realtime:floor"],
+                  ["--class-quota", "batch:floor=0.8",
+                   "--class-quota", "batch:cap=0.5"]):
+        with pytest.raises((SystemExit, ValueError)):
+            main(base + flags)
     with pytest.raises(SystemExit):
         main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
               "--kv-bits", "4"])
