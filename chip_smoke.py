@@ -18,17 +18,23 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    main path's shapes (gemma-2b at full width: qmatmul at M = 8 and 128
    over every projection and at a verify pass's M = 40, over
    whisper-base's at M = 8, 128 and 12000 with and without a bias, and
-   over the jet MLP's four layers at M = 1, 128 and 16384, all bitwise;
+   over the jet MLP's four layers at M = 1, 128 and 16384, and over the
+   rest of the lm family's projections (the untied heads at N = vocab,
+   command-r's MLP, glm4's q/k/v with bias, deepseek's MLA), all bitwise;
    paged attention at decode, verify (S = 5) and prefill, unsplit
-   and split, plus a ~4096-token decode, lut_activation on one layer's
+   and split, plus a ~4096-token decode, and at D 128 with query groups
+   of 8, 16 and 1 (path 10's heads); lut_activation on olmoe's experts'
+   gate activations (8 x 64 x cap x 1024) and on one layer's
    gate activations at decode and prefill with every indexing and the
    gelu, silu and softmax-exp tables; lut_gated_mul (the gated MLP's
    table pass) on the same shapes, bitwise, beside the unfused chain it
    replaces; quantize_rows at gemma-2b's decode and prefill rows and
    whisper-base's 12000 encoder rows, bitwise with zero, half-way and NaN
    rows; flash_attention at the whisper
-   encoder's shape, gemma-2b's cache-free prefill, ragged Sq/Skv and the
-   MLA width, bf16 and f32), with the kernel's, the plain version's and a
+   encoder's shape, gemma-2b's cache-free prefill, ragged Sq/Skv, the
+   MLA width, glm4's S 512 and deepseek's S 512 naive MLA form (128 heads,
+   D 192, V padded from 128), bf16 and f32), with the kernel's, the plain
+   version's and a
    library call's device time (median of cold-L2 launches, CUDA events)
    and the kernel/library factor beside the least time the card could
    take; then sampling (PyTorch ops, no kernel of the port) at (8,
@@ -102,7 +108,20 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    device busy of a fleet round against one Engine's; a batch flood
    against a realtime floor (admitted while the flood runs, no class over
    its cap); journal, snapshot, recovery and promotion times and memory
-   on the card after every rebuild logged;
+   on the card after every rebuild logged.
+   Path 10: yi-6b, glm4-9b, command-r-35b, olmoe-1b-7b and
+   deepseek-v2-236b at their published widths, 2 layers each (deepseek:
+   its dense first layer and one MoE layer), int8 weights, paged f32 KV,
+   batch 8, 8 requests, prompt 128, chunk 16, page 16, 16 greedy tokens,
+   graphed: every request completes, qmatmul and quantize_rows launch,
+   paged attention on the GQA configs and never on deepseek (its absorbed
+   decode attends with einsums), logits held as path 1's; prefill ms per
+   chunk, decode wall, device busy and kernels per step and peak memory
+   logged; a cache-free forward at S 512 of glm4 and deepseek (flash once
+   per layer, gated), deepseek in blocks of 4, 8, 4 (two graphs, one
+   memory pool) and eager, identical, olmoe under ``--lut
+   --paged`` with bf16 weights (lut_activation once per MoE layer and
+   model call);
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -140,6 +159,21 @@ WHISPER_PROJ = [("wq/wk/wv/wo", 512, 512), ("up", 512, 2048),
 #: 1, 128 and 16384 (path 7)
 JET_PROJ = [("fc0", 16, 64), ("fc1", 64, 32), ("fc2", 32, 32),
             ("fc3", 32, 5)]
+#: the rest of the lm family's int8 projections (path 10): the untied
+#: heads at N = vocab, command-r's MLP, glm4's q/k/v with their bias and
+#: deepseek's MLA projections; (name, K, N, bias)
+FAMILY_PROJ = [("yi head", 4096, 64000, False),
+               ("glm4 head", 4096, 151552, False),
+               ("deepseek head", 5120, 102400, False),
+               ("olmoe head", 2048, 50304, False),
+               ("command-r up/gate", 8192, 22528, False),
+               ("command-r down", 22528, 8192, False),
+               ("glm4 wq+bias", 4096, 4096, True),
+               ("glm4 wk/wv+bias", 4096, 256, True),
+               ("mla wq_a", 5120, 1536, False),
+               ("mla wq_b", 1536, 24576, False),
+               ("mla wkv_a", 5120, 576, False),
+               ("mla wo", 16384, 5120, False)]
 #: speculative decoding's draft depth on path 6: a verify pass runs the
 #: model at M = 8 x (SPEC_K + 1) = 40 rows and paged attention at S = 5
 SPEC_K = 4
@@ -224,6 +258,11 @@ def check_qmatmul(torch, timer, rows):
     # the jet MLP's layers (path 7), f32 out with the bias epilogue
     cases += [(m, f"jet {name}", k, n, torch.float32, None, True)
               for m in (1, 128, 16384) for name, k, n in JET_PROJ]
+    # path 10: a decode step's 8 rows everywhere, a prefill chunk's 128
+    # on the heads
+    cases += [(m, name, k, n, torch.bfloat16, None, bias)
+              for name, k, n, bias in FAMILY_PROJ
+              for m in ((8, 128) if "head" in name else (8,))]
     for m, name, k, n, out_dtype, spec, with_bias in cases:
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -338,6 +377,33 @@ def check_lut(torch, timer, rows):
                         f"library=none kernel/library={over_library(rows[-1])}"
                         f" (context: F.gelu tanh "
                         f"{gelu_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
+    # path 10: olmoe's experts' SiLU under --lut with float weights (act_fn
+    # on the (B, E, cap, F) gate activations): a decode step's 8 x 64
+    # expert rows of 1024, and a prefill chunk's capacity of 8
+    spec = TableSpec("silu_gate", 1024, -10.0, 10.0, None, "interp")
+    for cap in (1, 8):
+        x = (torch.randn((8, 64, cap, 1024), generator=g, device="cuda")
+             * 4).to(torch.bfloat16)
+        got, want = lut_activation(x, spec), lut_activation_plain(x, spec)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not (torch.equal(got, want) and torch.isfinite(got).all().item()):
+            raise AssertionError(f"lut_activation olmoe experts cap {cap}: "
+                                 f"max_abs_err {err} > tol 0")
+        ms = timer(lambda: lut_activation(x, spec))
+        plain_ms = timer(lambda: lut_activation_plain(x, spec), reps=5)
+        silu_ms = timer(lambda: F.silu(x))
+        bnd, by = bound_ms(2 * x.numel() * 2 + 4 * spec.n, 10.0 * x.numel(),
+                           F32_FLOP_PER_S)
+        rows.append(dict(kernel="lut_activation",
+                         case=f"olmoe experts silu_gate interp 8x64x{cap}x1024"
+                         f" bfloat16", max_abs_err=err, tol=0.0, ms=ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         silu_ms=silu_ms, bound_ms=bnd, bound_by=by))
+        log(f"[check] lut_activation {rows[-1]['case']}: max_abs_err="
+            f"{err:.3g} (tol 0) kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            f"library=none kernel/library={over_library(rows[-1])} "
+            f"(context: F.silu {silu_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
 
 
 def check_lut_gated(torch, timer, rows):
@@ -458,12 +524,21 @@ def check_quantize_rows(torch, timer, rows):
             f"bound={bnd:.5f}ms ({by})")
 
 
+#: paged attention's head layouts (Hq, Hkv, D): gemma-2b's, then path
+#: 10's at D 128 with query groups of 8 (yi, command-r), 16 (glm4) and 1
+#: (olmoe, MHA)
+GEMMA_HEADS = (8, 1, 256)
+FAMILY_HEADS = [("yi/command-r", (32, 4, 128)), ("glm4", (32, 2, 128)),
+                ("olmoe", (16, 16, 128))]
+
+
 def _attention_case(torch, g, b, s, tokens, dead_lane, width_tokens,
-                    q_dtype):
-    """Engine-shaped paged attention inputs: gemma-2b heads (8 q, 1 kv,
-    D 256), 16-row pages, distinct pages per lane, the trash page last,
-    qpos so that each lane's last query sees ``tokens`` positions."""
-    hq, hkv, d, ps = 8, 1, 256, 16
+                    q_dtype, heads=GEMMA_HEADS):
+    """Engine-shaped paged attention inputs: ``heads`` (Hq, Hkv, D), 16-row
+    pages, distinct pages per lane, the trash page last, qpos so that each
+    lane's last query sees ``tokens`` positions."""
+    hq, hkv, d = heads
+    ps = 16
     width = -(-width_tokens // ps)
     need = -(-tokens // ps)
     num_pages = b * need
@@ -497,19 +572,25 @@ def check_attention(torch, timer, rows):
     g = torch.Generator(device="cuda").manual_seed(2)
     # engine geometry: max_len 161 (prompt 128 + gen 32 + 1), prefill
     # chunk 16 of margin -> a 12-page table; the long case ~4096 tokens
-    cases = [("decode", 8, 1, 150, True, 177), ("prefill", 8, 16, 128, False,
-                                                177),
-             ("verify", 8, SPEC_K + 1, 150, True, 177),
-             ("decode-4096", 8, 1, 4096, False, 4096 + 16)]
-    for label, b, s, tokens, dead, width_tokens in cases:
+    cases = [("decode", 8, 1, 150, True, 177, GEMMA_HEADS),
+             ("prefill", 8, 16, 128, False, 177, GEMMA_HEADS),
+             ("verify", 8, SPEC_K + 1, 150, True, 177, GEMMA_HEADS),
+             ("decode-4096", 8, 1, 4096, False, 4096 + 16, GEMMA_HEADS)]
+    # path 10's geometry: max_len 145 (prompt 128 + gen 16 + 1), chunk 16
+    # of margin -> a 11-page table
+    for name, heads in FAMILY_HEADS:
+        cases += [(f"{name} decode", 8, 1, 134, True, 161, heads),
+                  (f"{name} prefill", 8, 16, 128, False, 161, heads)]
+    for label, b, s, tokens, dead, width_tokens, heads in cases:
+        hq, hkv, d = heads
         for q_dtype in (torch.bfloat16, torch.float32):
             q, kp, vp, bt, qpos = _attention_case(torch, g, b, s, tokens, dead,
-                                                  width_tokens, q_dtype)
+                                                  width_tokens, q_dtype, heads)
             np_ = bt.shape[1]
-            auto = _resolve_knobs(np_, 16, 1, b, None, None)
+            auto = _resolve_knobs(np_, 16, hkv, b, None, None)
             fk = autotune.resolve(autotune.WorkloadShape(
-                pages=np_, page_size=16, hkv=1, batch=b), fitted)
-            fk = _resolve_knobs(np_, 16, 1, b, fk.kv_split,
+                pages=np_, page_size=16, hkv=hkv, batch=b), fitted)
+            fk = _resolve_knobs(np_, 16, hkv, b, fk.kv_split,
                                 fk.pages_per_step)
             for t, split in dict.fromkeys(((1, 1), auto, fk)):
                 if (t, split) == (1, 1):
@@ -549,7 +630,8 @@ def check_attention(torch, timer, rows):
                 by = "+".join(k for k, v in (("auto", auto), ("fitted", fk))
                               if v == (t, split))
                 row = dict(kernel=name, case=f"{label} B={b} S={s} "
-                           f"tokens~{tokens} table={np_} knobs=(t={t},"
+                           f"tokens~{tokens} table={np_} heads={hq}/{hkv} "
+                           f"D={d} knobs=(t={t},"
                            f"split={split}{' ' + by if by else ''}) "
                            f"q={str(q_dtype)[6:]}",
                            max_abs_err=err, tol=[atol, rtol])
@@ -559,11 +641,10 @@ def check_attention(torch, timer, rows):
                     row["library_ms"] = _sdpa_ms(torch, F, timer, q, kp, vp,
                                                  bt, qpos)
                     vis = (torch.clamp(qpos + s, max=np_ * 16)
-                           .sum().item())           # visible kv rows
-                    rows_q = 8 * s
-                    nbytes = (q.numel() * 2 * 2 + 2 * vis * 256 * 4
+                           .sum().item())    # visible kv rows of a head
+                    nbytes = (q.numel() * 2 * 2 + 2 * vis * hkv * d * 4
                               + bt.numel() * 4 + b * 4)
-                    ops = 4.0 * rows_q * vis * 256
+                    ops = 4.0 * hq * s * vis * d
                     row["bound_ms"], row["bound_by"] = bound_ms(
                         nbytes, ops, F32_FLOP_PER_S)
                 rows.append(row)
@@ -590,6 +671,10 @@ FLASH_CASES = [
     ("c ragged Sq<Skv causal", 2, 8, 2, 77, 200, 64, True, ("bf16",), None),
     ("c ragged Sq>Skv", 2, 8, 2, 200, 77, 64, False, ("bf16",), None),
     ("c MLA-width", 1, 16, 16, 256, 256, 192, True, ("bf16",), 128),
+    # path 10's cache-free forwards at S 512: glm4's group of 16 at D 128,
+    # deepseek's MLA naive form (128 heads, D 192, V padded from 128)
+    ("e glm4 D128 group16", 1, 32, 2, 512, 512, 128, True, ("bf16",), None),
+    ("e deepseek MLA", 1, 128, 128, 512, 512, 192, True, ("bf16",), 128),
 ]
 
 
@@ -813,12 +898,12 @@ def _sdpa_ms(torch, F, timer, q, kp, vp, bt, qpos):
     """The library yardstick: SDPA over the gathered, head-expanded K/V
     (gathering not timed).  Never called by the port."""
     b, hq, s, d = q.shape
-    np_, ps = bt.shape[1], kp.shape[2]
+    np_, hkv, ps = bt.shape[1], kp.shape[1], kp.shape[2]
     idx = bt.to(torch.int64)
-    k = kp[idx].permute(0, 2, 1, 3, 4).reshape(b, 1, np_ * ps, d)
-    v = vp[idx].permute(0, 2, 1, 3, 4).reshape(b, 1, np_ * ps, d)
-    k, v = k.expand(b, hq, -1, -1).contiguous(), v.expand(b, hq, -1, -1) \
-        .contiguous()
+    k = kp[idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, np_ * ps, d)
+    v = vp[idx].permute(0, 2, 1, 3, 4).reshape(b, hkv, np_ * ps, d)
+    k = k.repeat_interleave(hq // hkv, dim=1).contiguous()
+    v = v.repeat_interleave(hq // hkv, dim=1).contiguous()
     kvpos = torch.arange(np_ * ps, device="cuda")
     mask = kvpos[None, None, :] <= (qpos[:, None].to(torch.int64)
                                     + torch.arange(s, device="cuda"))[:, :, None]
@@ -2238,6 +2323,286 @@ def graphs_ab(torch, cfg, paths, prompts, geometry):
     return out
 
 
+#: path 10: the rest of the lm family at its published widths, depth cut
+#: to fit the card and the run's time (deepseek: its dense first layer and
+#: one MoE layer), served as path 1 is but shorter
+FAMILY = (("yi-6b", 2), ("glm4-9b", 2), ("command-r-35b", 2),
+          ("olmoe-1b-7b", 2), ("deepseek-v2-236b", 2))
+FAMILY_RUN = dict(batch=8, plen=128, gen=16, chunk=16, ps=16)
+#: the cache-free forward of path 10 (deepseek's MLA naive form and glm4)
+FAMILY_FORWARD_S = 512
+
+
+def _family_cfg(arch: str, depth: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=depth)
+
+
+def _paged_launches(counts) -> int:
+    return counts["paged_attention_split"] + counts["paged_attention_unsplit"]
+
+
+def _busy_per_step(torch, eng, prompts, steps=8):
+    """(decode wall ms, device busy ms, device kernels and copies) per step
+    of one ``steps``-step block with every lane live: fresh requests (cut
+    to fit four blocks in ``max_len``) are admitted and warmed by one
+    block, then one block is timed on the host clock and one under the
+    profiler (which traces it twice); the lanes are drained after."""
+    plen = eng.max_len - 4 * steps - 2
+    for p in prompts[:eng.batch]:
+        eng.submit(p[:plen], gen_len=4 * steps + 1)
+    eng.try_admit()
+    eng.step_many(steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step_many(steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy, n = _profiled_busy(torch, lambda: eng.step_many(steps))
+    if not eng.live.all():
+        raise AssertionError("a lane finished inside the measured blocks")
+    while eng.live.any():
+        eng.step_many(steps)
+    eng.retire_finished()
+    return wall, (None if busy is None else busy / steps), n / steps
+
+
+def _cache_free_forward(torch, cfg, params, ctx, record):
+    """``lm.forward`` without a cache at S 512 through the kernels and the
+    plain versions: flash once per layer, logits gated as path 1's."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import prepare_params
+    from repro_torch.models import lm
+    tokens = torch.tensor(SyntheticLM(cfg.vocab, seed=1).tokens(
+        0, 1, FAMILY_FORWARD_S)[:, :FAMILY_FORWARD_S].astype("int32"),
+        device="cuda")
+    pp = prepare_params(params, ctx, "cuda")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lk, _, aux = lm.forward(pp, tokens, cfg, ctx)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    lp, _, aux_p = lm.forward(pp, tokens, cfg,
+                              dataclasses.replace(ctx, backend="ref"))
+    if counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} cache-free forward: "
+                             f"flash_attention launched "
+                             f"{counts['flash_attention']} times for "
+                             f"{cfg.n_layers} layers")
+    check = gate_logits(torch, "[family]", f"{cfg.name} cache-free forward "
+                        f"S {FAMILY_FORWARD_S}", lk.float(), lp.float(),
+                        ctx.compute_dtype)
+    check.update(ms=ms, launches=counts, aux=float(aux),
+                 aux_plain=float(aux_p))
+    log(f"[family] {cfg.name} cache-free forward S {FAMILY_FORWARD_S}: "
+        f"{ms:.1f} ms (first call, host clock), aux {float(aux):.4f} "
+        f"(plain {float(aux_p):.4f}), launches {json.dumps(counts)}")
+    record(counts)
+    del pp, lk, lp
+    return check
+
+
+def serve_family(torch, report) -> dict:
+    """Path 10: yi-6b, glm4-9b, command-r-35b, olmoe-1b-7b and
+    deepseek-v2-236b at their published widths (depth cut, FAMILY),
+    random int8 weights (the f32 tree freed after PTQ), bf16 compute,
+    the paged f32 KV cache, batch 8, 8 requests, prompt 128, prefill
+    chunk 16, pages of 16, 16 greedy tokens, graphed decode blocks, the
+    launch counters reset before each config: every request completes;
+    the GQA configs launch qmatmul, quantize_rows (one per qmatmul) and
+    paged attention, deepseek qmatmul and quantize_rows and no paged
+    attention (its absorbed decode attends with einsums, as the
+    reference's); logits of one prefill chunk and 4 decode steps through
+    the kernels against the plain versions at path 1's gates.  Logged per
+    config: prefill ms per chunk, decode wall, device busy and device
+    kernels per step, the card's peak memory.  Also a cache-free forward
+    at S 512 of deepseek and glm4 (flash once per layer, gated),
+    deepseek in blocks of 4, 8, 4 (two graphs sharing one memory pool)
+    and served eagerly too (identical streams and counts), and
+    olmoe under --lut --paged with bf16 weights (the standalone
+    lut_activation kernel once per MoE layer and model call, gated)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.serve import Engine, quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.models.lm import _split_layers
+    from repro_torch.nn.context import QuantContext
+
+    int8 = QuantContext(mode="int8",
+                        policy=PrecisionPolicy.uniform(FixedPointType(8, 4)),
+                        compute_dtype=torch.bfloat16)
+    r = FAMILY_RUN
+    batch, plen, gen_len = r["batch"], r["plen"], r["gen"]
+    max_len = plen + gen_len + 1
+    geometry = dict(batch=batch, max_len=max_len, prefill_chunk=r["chunk"],
+                    page_size=r["ps"], device="cuda")
+    out, total = {}, {}
+
+    def record(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for arch, depth in FAMILY:
+        cfg = _family_cfg(arch, depth)
+        n_dense, n_moe = _split_layers(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = quantize_for_serving(lm.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg,
+            device="cuda"), int8)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        log(f"[family] {arch}: {n_dense} dense + {n_moe} MoE layers of "
+            f"{get_config(arch).n_layers} (d_model {cfg.d_model}, "
+            f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}"
+            + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+               f"{cfg.moe.d_ff_expert}, {cfg.moe.n_shared} shared"
+               if cfg.moe else "")
+            + (f", MLA q_lora {cfg.mla.q_lora_rank} kv_lora "
+               f"{cfg.mla.kv_lora_rank}" if cfg.mla else "")
+            + f"); random int8 weights in {init_s:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card "
+            f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"with the f32 tree)")
+        src = SyntheticLM(cfg.vocab, seed=0)
+        prompts = [src.tokens(i, 1, plen)[0, :-1] for i in range(2 * batch)]
+        row = dict(depth=depth, n_dense=n_dense, n_moe=n_moe, init_s=init_s)
+        row["logit_checks"] = logit_check(torch, cfg, params, int8, prompts,
+                                          batch, max_len, r["chunk"],
+                                          r["ps"], steps=4, name=f"{arch} ")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"{arch} int8 paged"
+        eng = Engine(cfg, int8, params, paged=True, **geometry)
+        prefill = []
+        _timed(torch, eng, "_prefill_chunked", prefill)
+        walls = []
+        reserved0 = torch.cuda.memory_reserved()
+        # deepseek: blocks of 4, 8, 4 capture two graphs (4 and 8 steps)
+        # that share one memory pool for the dequantized expert banks
+        run, counts = run_path(torch, label, eng, prompts[:batch], gen_len,
+                               ("qmatmul", "quantize_rows"), walls=walls,
+                               first=(4,) if cfg.attn_kind == "mla" else ())
+        one_quantizer_per_qmatmul(label, counts)
+        paged = _paged_launches(counts)
+        if cfg.attn_kind == "mla" and paged:
+            raise AssertionError(f"{label}: paged attention launched {paged}"
+                                 f" times; the absorbed decode has none")
+        if cfg.attn_kind != "mla" and not paged:
+            raise AssertionError(f"{label}: paged attention never launched")
+        record(counts)
+        wall, busy, kernels = _busy_per_step(torch, eng, prompts[batch:])
+        steady = [w / n for w, _, _, n, cap in walls if not cap]
+        row.update(
+            run=run, prefill_ms=sum(ms for ms, _ in prefill),
+            prefill_chunks=run["prefill_chunks"],
+            prefill_ms_per_chunk=(sum(ms for ms, _ in prefill)
+                                  / max(1, run["prefill_chunks"])),
+            decode_wall_ms_per_step_run=(statistics.median(steady)
+                                         if steady else None),
+            decode_wall_ms_per_step=wall, device_busy_ms_per_step=busy,
+            device_kernels_per_step=kernels,
+            graph_captures=eng.blocks.captures,
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2**30, memory_reserved_gib=torch.cuda.memory_reserved()
+            / 2**30, serving_reserved_gib=(torch.cuda.memory_reserved()
+                                           - reserved0) / 2**30)
+        log(f"[family] {label}: prefill {row['prefill_ms_per_chunk']:.2f} ms"
+            f" per chunk ({run['prefill_chunks']} chunks of {batch} x "
+            f"{r['chunk']}), decode wall {wall:.3f} ms per step, device busy"
+            f" {fmt_ms(busy)} per step, {kernels:.1f} device kernels and "
+            f"copies per step, {eng.blocks.captures} graphs captured (one "
+            f"shared pool), peak memory "
+            f"{row['max_memory_allocated_gib']:.2f} GiB allocated, "
+            f"{row['memory_reserved_gib']:.2f} GiB reserved "
+            f"({row['serving_reserved_gib']:+.2f} GiB over the run)")
+        if cfg.attn_kind == "mla":
+            # the same requests served eagerly: identical streams, counts
+            eager = Engine(cfg, int8, params, paged=True, graphs=False,
+                           **geometry)
+            erun, ecounts = run_path(torch, f"{arch} int8 paged, eager",
+                                     eager, prompts[:batch], gen_len,
+                                     ("qmatmul", "quantize_rows"),
+                                     first=(4,))
+            if erun["streams"] != run["streams"] or ecounts != counts:
+                raise AssertionError(f"{arch}: eager streams or launch "
+                                     f"counts differ from the graphed run "
+                                     f"({ecounts} vs {counts})")
+            log(f"[family] {arch}: graphed and eager streams and launch "
+                f"counts identical")
+            record(ecounts)
+            row["eager_identical"] = True
+            del eager
+        run.pop("streams", None)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in ("glm4-9b", "deepseek-v2-236b"):
+            row["cache_free_forward"] = _cache_free_forward(
+                torch, cfg, params, int8, record)
+        del params
+        if arch == "olmoe-1b-7b":
+            row["lut"] = _family_lut(torch, cfg, geometry, prompts[:batch],
+                                     gen_len, r, record)
+        out[arch] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["family"] = out
+    log(f"[family] path 10 launches: {json.dumps(total)}")
+    return total
+
+
+def _family_lut(torch, cfg, geometry, prompts, gen_len, r, record):
+    """olmoe under ``--lut --paged`` with bf16 weights: the experts' SiLU
+    through the standalone lut_activation kernel, once per MoE layer and
+    model call; logits gated against the plain versions."""
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import lm
+    from repro_torch.models.lm import _split_layers
+    from repro_torch.nn.context import QuantContext
+    lutf = QuantContext(mode="none", use_lut=True,
+                        compute_dtype=torch.bfloat16)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     dtype=torch.bfloat16, device="cuda")
+    checks = logit_check(torch, cfg, params, lutf, prompts,
+                         geometry["batch"], geometry["max_len"], r["chunk"],
+                         r["ps"], steps=4, name=f"{cfg.name} ")
+    label = f"{cfg.name} --lut --paged, bf16 weights"
+    eng = Engine(cfg, lutf, params, paged=True, **geometry)
+    run, counts = run_path(torch, label, eng, prompts, gen_len,
+                           ("lut_activation",))
+    n_moe = _split_layers(cfg)[1]
+    want = n_moe * (run["decode_steps"] + run["prefill_chunks"])
+    stray = {k: counts[k] for k in ("lut_gated_mul", "qmatmul",
+                                    "quantize_rows") if counts[k]}
+    if counts["lut_activation"] != want or stray or not _paged_launches(
+            counts):
+        raise AssertionError(
+            f"{label}: lut_activation launched {counts['lut_activation']} "
+            f"times, expected {n_moe} MoE layers x ({run['decode_steps']} "
+            f"decode steps + {run['prefill_chunks']} prefill chunks) = "
+            f"{want}; paged attention {_paged_launches(counts)}; expected "
+            f"no {sorted(stray)} launches")
+    log(f"[family] {label}: lut_activation {counts['lut_activation']} "
+        f"launches = {n_moe} MoE layers x ({run['decode_steps']} + "
+        f"{run['prefill_chunks']}) model calls")
+    record(counts)
+    run.pop("streams", None)
+    del eng, params
+    return dict(logit_checks=checks, run=run)
+
+
 #: path 7: the jet-tagging MLP at a single event and at a large batch
 JET_BATCHES = (1, 16384)
 
@@ -2639,7 +3004,7 @@ LOGIT_TOL_REL, LOGIT_MIN_AGREE = 0.25, 0.75
 
 
 def logit_check(torch, cfg, params, ctx, prompts, batch, max_len, chunk, ps,
-                *, steps: int):
+                *, steps: int, name: str = ""):
     """Full-width logits of one prefill chunk and ``steps`` teacher-forced
     decode steps, in the serving dtype, through the kernels and through
     the plain versions, from the same weights, pages and tables.
@@ -2659,12 +3024,13 @@ def logit_check(torch, cfg, params, ctx, prompts, batch, max_len, chunk, ps,
     from repro_torch.models.api import set_block_table
 
     width = -(-(max_len + chunk) // ps)
-    t, split = _resolve_knobs(width, ps, 1, batch, None, None)
+    t, split = _resolve_knobs(width, ps, max(1, cfg.n_kv_heads), batch, None,
+                              None)
     ctxs = {name: dataclasses.replace(ctx, kv_split=split, pages_per_step=t,
                                       backend=backend)
             for name, backend in (("kernels", None), ("plain", "ref"))}
     pp = prepare_params(params, ctxs["kernels"], "cuda")
-    mode = f"{ctx.mode}{' +lut' if ctx.use_lut else ''}"
+    mode = f"{name}{ctx.mode}{' +lut' if ctx.use_lut else ''}"
     num_pages = batch * (-(-max_len // ps))
     bt = torch.full((batch, width), num_pages, dtype=torch.int32)
     bt[:, :num_pages // batch] = torch.arange(num_pages, dtype=torch.int32) \
@@ -3003,6 +3369,9 @@ def main(argv=None) -> int:
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
         for k, v in serve_jet(torch, report).items():
+            counts[k] = counts.get(k, 0) + v
+        torch.cuda.synchronize()
+        for k, v in serve_family(torch, report).items():
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
 

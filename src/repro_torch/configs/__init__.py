@@ -1,11 +1,12 @@
 """Architecture configs ported so far (``--arch <id>``).
 
-Copies of ``repro.configs`` with the exact published dimensions.
-``jet-mlp`` is the paper's own model, consumed by
-``repro_torch.models.mlp`` (no serving family).  The other reference
-architectures (yi, glm4, command-r, mamba2, deepseek-v2, olmoe,
-llama-vision, zamba2) wait for their families (ROADMAP.md queue 1,
-items 14, 15 and 17).
+Copies of ``repro.configs`` with the exact published dimensions: the
+whole ``lm`` family (gemma-2b, yi-6b, glm4-9b, command-r-35b, and the
+MoE configs olmoe-1b-7b and deepseek-v2-236b, the latter with MLA),
+whisper-base (``encdec``) and ``jet-mlp``, the paper's own model,
+consumed by ``repro_torch.models.mlp`` (no serving family).  The
+recurrent families (mamba2-370m, zamba2-1.2b; ROADMAP.md queue 1, item
+14) and the VLM (llama-3.2-vision-11b, item 17) remain.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from ..models.config import ModelConfig
 
 __all__ = ["get_config", "ARCH_IDS"]
 
-ARCH_IDS = ["gemma-2b", "whisper-base", "jet-mlp"]
+ARCH_IDS = ["gemma-2b", "yi-6b", "glm4-9b", "command-r-35b", "olmoe-1b-7b",
+            "deepseek-v2-236b", "whisper-base", "jet-mlp"]
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
@@ -26,4 +28,3 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"arch {name!r} is not ported yet (have {ARCH_IDS}; "
                        f"see ROADMAP.md queue 1)")
     return importlib.import_module(f".{_MODULE_FOR[name]}", __package__).CONFIG
-

@@ -39,7 +39,8 @@ def quantize_dynamic(x: torch.Tensor, qtype: FixedPointType,
     """Quantize with a calibrated (or provided) scale into a QTensor."""
     if scale is None:
         scale = calibrate_scale(x, qtype, channel_axes)
-    data = torch.clamp(torch.round(x / scale), qtype.int_min, qtype.int_max)
+    # one temporary of x's size: round and clamp in place
+    data = torch.div(x, scale).round_().clamp_(qtype.int_min, qtype.int_max)
     return QTensor(data.to(qtype.dtype), scale, qtype)
 
 

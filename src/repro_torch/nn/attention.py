@@ -1,5 +1,5 @@
 """GQA / MQA attention: the cache-free forward, cross-attention and the
-KV-cache regimes (port of the GQA part of ``repro.nn.attention``).
+KV-cache regimes, and MLA (port of ``repro.nn.attention``).
 
 * **cache-free** (prefill without a cache, training, the whisper
   encoder; cross-attention with fresh K/V from ``kv_input``) -- always
@@ -31,9 +31,18 @@ KV-cache regimes (port of the GQA part of ``repro.nn.attention``).
 Caches are updated **in place** (the reference returns new arrays): a
 decode step writes ``B`` rows, not a copy of every layer's cache.  RoPE
 is skipped where ``use_rope`` is off (learned positions, whisper) and
-for cross-attention.  MLA is not ported yet (ROADMAP.md); nor is the
-reference's ``seq_kv`` mesh constraint on the dense cache (distribution,
-ROADMAP.md queue 1).
+for cross-attention.  The reference's ``seq_kv`` mesh constraint on the
+dense cache is not ported (distribution, ROADMAP.md queue 1).
+
+MLA (deepseek-v2) keeps the reference's two forms.  Without a cache,
+the *naive* form materializes per-head K/V from the latent and attends
+through ``ops.attention`` with V zero-padded to the q/k width (the
+reference's TPU branch; the ``flash_attention`` kernel on the card, its
+plain version on the CPU).  With a cache, the *absorbed* form writes the
+new latent rows (dense ``(B, rows, lora)`` or paged ``(P+1, ps, lora)``,
+no head axis) first, then scores against the whole latent with einsums
+and :func:`~repro_torch.nn.activations.softmax` (the table softmax under
+``ctx.use_lut``); no kernel runs there, as in the reference.
 """
 
 from __future__ import annotations
@@ -43,13 +52,16 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.qtypes import QTensor
 from .activations import softmax
 from .context import DEFAULT_CTX, QuantContext
 from .linear import linear, linear_init
+from .norms import rmsnorm, rmsnorm_init
 from .rope import apply_rope
 
 __all__ = ["AttnDims", "gqa_init", "gqa_apply", "gqa_cache_spec",
-           "gqa_paged_cache_spec", "gqa_project_kv"]
+           "gqa_paged_cache_spec", "gqa_project_kv", "MLADims", "mla_init",
+           "mla_apply", "mla_cache_spec", "mla_paged_cache_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,3 +351,203 @@ def _cache_attention(q, k, v, d: AttnDims, ctx: QuantContext, cache,
                if quantized else rows(n)) for n in ("k", "v"))
     return _einsum_attention(q, ck, cv, ctx=ctx,
                              mask=_cache_mask(pos, s, ck.shape[2], d.causal))
+
+
+# ===========================================================================
+# MLA (deepseek-v2 multi-head latent attention)
+# ===========================================================================
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def mla_init(gen: torch.Generator, d: MLADims, *, dtype=torch.float32,
+             device="cpu"):
+    kw = dict(dtype=dtype, device=device)
+    h = d.n_heads
+    return {
+        "wq_a": linear_init(gen, d.d_model, d.q_lora_rank, **kw),
+        "q_norm": rmsnorm_init(d.q_lora_rank, **kw),
+        "wq_b": linear_init(gen, d.q_lora_rank, h * d.qk_dim, **kw),
+        "wkv_a": linear_init(gen, d.d_model, d.kv_lora_rank + d.qk_rope_dim,
+                             **kw),
+        "kv_norm": rmsnorm_init(d.kv_lora_rank, **kw),
+        "wkv_b": linear_init(gen, d.kv_lora_rank,
+                             h * (d.qk_nope_dim + d.v_head_dim), **kw),
+        "wo": linear_init(gen, h * d.v_head_dim, d.d_model, **kw),
+    }
+
+
+def _latent_dtype(dtype):
+    """The latent is the cache's compression (576 values a token at full
+    width) and precision-sensitive: an int8 request is served in bf16,
+    as the reference does."""
+    return torch.bfloat16 if dtype == torch.int8 else dtype
+
+
+def mla_cache_spec(d: MLADims, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device="cpu"):
+    """Dense latent cache: compressed KV (B, max_len, kv_lora) and the
+    shared RoPE key (B, max_len, rope_dim); int8 becomes bf16."""
+    dtype = _latent_dtype(dtype)
+    return {"ckv": torch.zeros((batch, max_len, d.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, max_len, d.qk_rope_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_paged_cache_spec(d: MLADims, batch: int, num_pages: int,
+                         page_size: int, table_width: int,
+                         dtype=torch.bfloat16, device="cpu"):
+    """Paged latent: (P+1, page_size, kv_lora / rope_dim) pages, the
+    trash page last, and the block table (the GQA scheme without a head
+    axis); int8 becomes bf16 as in the dense spec."""
+    dtype = _latent_dtype(dtype)
+    return {"pages": {
+                "ckv": torch.zeros((num_pages + 1, page_size,
+                                    d.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((num_pages + 1, page_size,
+                                      d.qk_rope_dim), dtype=dtype,
+                                     device=device)},
+            "block_table": torch.full((batch, table_width), num_pages,
+                                      dtype=torch.int32, device=device)}
+
+
+def _mla_qkv(p, x, d: MLADims, ctx: QuantContext, positions, path: str):
+    """Queries (nope and rotated rope parts, (B, S, H, .)), the normed
+    latent (B, S, lora) and the rotated shared key (B, S, rope_dim)."""
+    b, s, _ = x.shape
+    h = d.n_heads
+    q = linear(p["wq_b"], rmsnorm(p["q_norm"], linear(
+        p["wq_a"], x, ctx, path=f"{path}/wq_a")), ctx,
+        path=f"{path}/wq_b").reshape(b, s, h, d.qk_dim)
+    q_nope, q_rope = q[..., :d.qk_nope_dim], q[..., d.qk_nope_dim:]
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions[:, None],
+                        theta=d.rope_theta).transpose(1, 2)
+    kv_a = linear(p["wkv_a"], x, ctx, path=f"{path}/wkv_a")
+    ckv = rmsnorm(p["kv_norm"], kv_a[..., :d.kv_lora_rank])
+    krope = apply_rope(kv_a[..., None, d.kv_lora_rank:].transpose(1, 2),
+                       positions[:, None], theta=d.rope_theta)[:, 0]
+    return q_nope, q_rope, ckv, krope
+
+
+def _mla_naive(q_nope, q_rope, ckv, krope, w_uk, w_uv, d: MLADims,
+               ctx: QuantContext, dtype) -> torch.Tensor:
+    """The cache-free form: per-head K/V from the latent, causal
+    attention through ``ops.attention`` with V zero-padded to the q/k
+    width (the flash kernel takes one head width) and sliced after.
+    Returns (B, H, S, v_dim)."""
+    from ..kernels.ops import attention
+    b, s, h = q_nope.shape[:3]
+    f32 = torch.float32
+    k_nope = torch.einsum("bsl,lhd->bshd", ckv.to(f32),
+                          w_uk.to(f32)).to(dtype)
+    v = torch.einsum("bsl,lhd->bshd", ckv.to(f32), w_uv.to(f32)).to(dtype)
+    k = torch.cat([k_nope, krope[:, :, None].to(dtype).expand(
+        b, s, h, d.qk_rope_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    vp = torch.nn.functional.pad(v, (0, d.qk_dim - d.v_head_dim))
+    y = attention(q.transpose(1, 2), k.transpose(1, 2), vp.transpose(1, 2),
+                  causal=True, softmax_scale=d.qk_dim ** -0.5,
+                  backend=ctx.backend)
+    return y[..., :d.v_head_dim]
+
+
+def _latent_write(rows: torch.Tensor, u: torch.Tensor,
+                  pos: torch.Tensor) -> None:
+    """Write (B, s, X) latent rows into ``rows`` (B, R, X) in place at
+    each lane's ``pos``, clamped to ``R - s`` (``dynamic_update_slice``)."""
+    b, s = u.shape[:2]
+    start = torch.clamp(pos.to(torch.int64), 0, rows.shape[1] - s)
+    idx = start[:, None] + torch.arange(s, device=rows.device)[None, :]
+    lanes = torch.arange(b, device=rows.device)[:, None]
+    rows[lanes, idx] = u.to(rows.dtype)
+
+
+def _mla_absorbed(q_nope, q_rope, cckv, ckrope, w_uk, w_uv, d: MLADims,
+                  ctx: QuantContext, pos: torch.Tensor) -> torch.Tensor:
+    """Attention of (B, s, H, .) queries against the whole latent (B, T,
+    lora) and shared key (B, T, rope) with W_uk absorbed into the query
+    and W_uv applied to the attended latent; operands rounded to
+    ``compute_dtype``, products in f32.  Returns (B, s, H, v_dim) f32."""
+    cd = ctx.compute_dtype
+
+    def operand(t):
+        return t.to(cd).to(torch.float32)
+
+    s, t = q_nope.shape[1], cckv.shape[1]
+    q_abs = torch.einsum("bshd,lhd->bshl", operand(q_nope), operand(w_uk))
+    logits = (torch.einsum("bshl,btl->bhst", operand(q_abs), operand(cckv))
+              + torch.einsum("bshr,btr->bhst", operand(q_rope),
+                             operand(ckrope))) * (d.qk_dim ** -0.5)
+    mask = _cache_mask(pos, s, t, True)                      # (B, s, T)
+    logits = torch.where(mask[:, None], logits, -1e30)      # (B, H, s, T)
+    w = softmax(logits, ctx, axis=-1)
+    lat = torch.einsum("bhst,btl->bshl", operand(w), operand(cckv))
+    return torch.einsum("bshl,lhd->bshd", operand(lat), operand(w_uv))
+
+
+def mla_apply(p, x: torch.Tensor, d: MLADims, ctx: QuantContext = DEFAULT_CTX,
+              *, cache=None, cache_pos: Optional[torch.Tensor] = None,
+              path: str = "attn") -> Tuple[torch.Tensor, Optional[dict]]:
+    """MLA over ``x`` (B, S, D_model).  ``cache``: one layer's dense
+    latent ({"ckv", "krope"}) or paged latent ({"pages": {"ckv",
+    "krope"}, "block_table"}), written in place; ``cache_pos`` (B,) each
+    lane's position before this call.  Without a cache, the naive
+    cache-free causal form.  Returns ``(y, cache)``."""
+    b, s, _ = x.shape
+    h = d.n_heads
+    pos = (torch.zeros((b,), dtype=torch.int32, device=x.device)
+           if cache_pos is None else cache_pos)
+    positions = (torch.arange(s, device=x.device)[None, :]
+                 + pos.to(torch.int64)[:, None])
+    q_nope, q_rope, ckv, krope = _mla_qkv(p, x, d, ctx, positions, path)
+    # wkv_b is consumed raw (reshaped into the absorbed form), not through
+    # linear(): a PTQ'd payload is dequantized here
+    w_b = p["wkv_b"]["w"]
+    if isinstance(w_b, QTensor):
+        w_b = w_b.dequantize(ctx.compute_dtype)
+    wkv_b = w_b.reshape(d.kv_lora_rank, h, d.qk_nope_dim + d.v_head_dim)
+    w_uk, w_uv = wkv_b[..., :d.qk_nope_dim], wkv_b[..., d.qk_nope_dim:]
+
+    if cache is None:
+        y = _mla_naive(q_nope, q_rope, ckv, krope, w_uk, w_uv, d, ctx,
+                       x.dtype).transpose(1, 2)
+    else:
+        if "pages" in cache:
+            # paged latent: write this call's rows into the lane's pages,
+            # then score against the gathered logical view
+            pages, bt = cache["pages"], cache["block_table"]
+            page, row = _page_coords(bt, pos, s, pages["ckv"].shape[1])
+            pages["ckv"][page, row] = ckv.to(pages["ckv"].dtype)
+            pages["krope"][page, row] = krope.to(pages["krope"].dtype)
+            idx = bt.to(torch.int64)
+            cckv = pages["ckv"][idx].reshape(b, -1, d.kv_lora_rank)
+            ckrope = pages["krope"][idx].reshape(b, -1, d.qk_rope_dim)
+        else:
+            _latent_write(cache["ckv"], ckv, pos)
+            _latent_write(cache["krope"], krope, pos)
+            cckv, ckrope = cache["ckv"], cache["krope"]
+        if s > 1 and ctx.per_position_attention:
+            # a verify pass: each position at a decode step's shapes
+            y = torch.cat([
+                _mla_absorbed(q_nope[:, i:i + 1], q_rope[:, i:i + 1], cckv,
+                              ckrope, w_uk, w_uv, d, ctx, pos + i)
+                for i in range(s)], dim=1)
+        else:
+            y = _mla_absorbed(q_nope, q_rope, cckv, ckrope, w_uk, w_uv, d,
+                              ctx, pos)
+    y = y.reshape(b, s, h * d.v_head_dim).to(x.dtype)
+    return linear(p["wo"], y, ctx, path=f"{path}/wo"), cache

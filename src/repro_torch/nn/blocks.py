@@ -1,4 +1,12 @@
-"""Dense transformer block and the layer loop (port of ``repro.nn.blocks``).
+"""Dense and MoE transformer blocks and the layer loop (port of
+``repro.nn.blocks``).
+
+A block attends with GQA or MLA (``cfg.attn_kind``); command-r's
+``parallel_block`` shares ``ln1`` between attention and the MLP (no
+``ln2``) and returns ``x + a + m``.  A MoE block routes its second norm's
+output through :func:`~repro_torch.nn.moe.moe_apply` (dropless when it
+serves from a cache) and adds deepseek's shared experts, one gated MLP of
+``n_shared * d_ff_expert`` beside the routed ones.
 
 Stacks of identical blocks keep the reference's stacked ``(L, ...)``
 parameter leaves; :func:`scan_apply` is the ``lax.scan`` counterpart, a
@@ -13,14 +21,16 @@ import torch
 
 from ..core.qtypes import QTensor
 from ..core.tables import GATED_FORMS
-from .attention import gqa_apply, gqa_init
+from .attention import gqa_apply, gqa_init, mla_apply, mla_init
 from .context import DEFAULT_CTX, QuantContext
 from .linear import act_table, int8_qtype, linear, linear_init
+from .moe import MoEDims, moe_apply, moe_init
 from .norms import layernorm, layernorm_init, rmsnorm, rmsnorm_init
 
 __all__ = ["norm_init", "norm_apply", "mlp_init", "mlp_apply",
-           "dense_block_init", "dense_block_apply", "stack_init",
-           "layer_slice", "scan_apply"]
+           "dense_block_init", "dense_block_apply", "moe_dims_of",
+           "moe_block_init", "moe_block_apply", "stack_init", "layer_slice",
+           "scan_apply"]
 
 
 def norm_init(cfg, d: Optional[int] = None, device="cpu"):
@@ -74,39 +84,94 @@ def mlp_apply(p, x, act: str, ctx: QuantContext = DEFAULT_CTX, *,
     return linear(p["down"], h, ctx, path=f"{path}/down")
 
 
+def _attn_init(gen, cfg, causal: bool, dtype, device):
+    if cfg.attn_kind == "mla":
+        return mla_init(gen, cfg.mla, dtype=dtype, device=device)
+    return gqa_init(gen, cfg.attn_dims(causal=causal), dtype=dtype,
+                    device=device)
+
+
+def _attn_apply(p, h, cfg, ctx, causal: bool, cache, cache_pos, path: str):
+    if cfg.attn_kind == "mla":
+        return mla_apply(p, h, cfg.mla, ctx, cache=cache, cache_pos=cache_pos,
+                         path=path)
+    return gqa_apply(p, h, cfg.attn_dims(causal=causal), ctx, cache=cache,
+                     cache_pos=cache_pos, path=path)
+
+
 def dense_block_init(gen, cfg, *, causal: bool = True, dtype=torch.float32,
                      device="cpu"):
-    if cfg.attn_kind != "gqa" or cfg.parallel_block:
-        raise NotImplementedError("only the sequential GQA block is ported")
-    return {"ln1": norm_init(cfg, device=device),
-            "attn": gqa_init(gen, cfg.attn_dims(causal=causal), dtype=dtype,
-                             device=device),
-            "ln2": norm_init(cfg, device=device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated,
-                            dtype=dtype, device=device)}
+    p = {"ln1": norm_init(cfg, device=device),
+         "attn": _attn_init(gen, cfg, causal, dtype, device),
+         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated,
+                         dtype=dtype, device=device)}
+    if not cfg.parallel_block:
+        p["ln2"] = norm_init(cfg, device=device)
+    return p
 
 
 def dense_block_apply(p, x, cfg, ctx: QuantContext = DEFAULT_CTX, *,
                       causal: bool = True, cache=None, cache_pos=None,
                       path: str = "block"):
     h = norm_apply(cfg, p["ln1"], x)
-    a, new_cache = gqa_apply(p["attn"], h, cfg.attn_dims(causal=causal), ctx,
-                             cache=cache, cache_pos=cache_pos,
-                             path=f"{path}/attn")
+    a, new_cache = _attn_apply(p["attn"], h, cfg, ctx, causal, cache,
+                               cache_pos, f"{path}/attn")
+    if cfg.parallel_block:     # command-r: attention and MLP share ln1
+        m = mlp_apply(p["mlp"], h, cfg.mlp_act, ctx, path=f"{path}/mlp")
+        return x + a + m, new_cache
     x = x + a
     m = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg.mlp_act, ctx,
                   path=f"{path}/mlp")
     return x + m, new_cache
 
 
+def moe_dims_of(cfg) -> MoEDims:
+    m = cfg.moe
+    return MoEDims(d_model=cfg.d_model, d_ff=m.d_ff_expert,
+                   n_experts=m.n_experts, top_k=m.top_k,
+                   capacity_factor=m.capacity_factor,
+                   renormalize=m.renormalize, act=cfg.mlp_act,
+                   routed_scale=m.routed_scale)
+
+
+def moe_block_init(gen, cfg, *, dtype=torch.float32, device="cpu"):
+    p = {"ln1": norm_init(cfg, device=device),
+         "ln2": norm_init(cfg, device=device),
+         "attn": _attn_init(gen, cfg, True, dtype, device),
+         "moe": moe_init(gen, moe_dims_of(cfg), dtype=dtype, device=device)}
+    if cfg.moe.n_shared:
+        p["shared"] = mlp_init(gen, cfg.d_model,
+                               cfg.moe.n_shared * cfg.moe.d_ff_expert,
+                               gated=True, dtype=dtype, device=device)
+    return p
+
+
+def moe_block_apply(p, x, cfg, ctx: QuantContext = DEFAULT_CTX, *,
+                    cache=None, cache_pos=None, path: str = "moe_block"):
+    """-> (x', cache, aux loss)."""
+    h = norm_apply(cfg, p["ln1"], x)
+    a, new_cache = _attn_apply(p["attn"], h, cfg, ctx, True, cache,
+                               cache_pos, f"{path}/attn")
+    x = x + a
+    h2 = norm_apply(cfg, p["ln2"], x)
+    y, aux = moe_apply(p["moe"], h2, moe_dims_of(cfg), ctx,
+                       path=f"{path}/moe", dropless=cache is not None)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], h2, cfg.mlp_act, ctx,
+                          path=f"{path}/shared")
+    return x + y, new_cache, aux
+
+
 def stack_init(gen, n: int, init_fn: Callable):
-    """Stacked params for ``n`` identical blocks (leading L axis)."""
+    """Stacked params for ``n`` identical blocks (leading L axis); one
+    block's leaves gain the axis as views, not copies (a full-width
+    deepseek MoE layer holds 15 GB of f32 banks)."""
     layers = [init_fn(gen) for _ in range(n)]
 
     def stack(items):
         if isinstance(items[0], dict):
             return {k: stack([it[k] for it in items]) for k in items[0]}
-        return torch.stack(items)
+        return items[0][None] if len(items) == 1 else torch.stack(items)
 
     return stack(layers)
 

@@ -24,7 +24,11 @@ the block tables are written in place, so a replay serves whatever the
 caller admitted or retired since the capture.  The graphs hold the
 addresses of the params' and the cache's tensors (and of a draft
 model's params and dense cache): when any is replaced, the graphs are
-dropped and captured again.  A capture runs with Python's cyclic
+dropped and captured again.  The graphs of one :class:`DecodeBlocks`
+share one memory pool: a block's temporaries (deepseek's dequantized
+expert banks, 7.5 GB at full width) are held once, not once per block
+length; the blocks replay one at a time on one stream, and each graph
+keeps its own output and scratch alive.  A capture runs with Python's cyclic
 garbage collector off (after one collection): a graph that the collector
 destroyed mid-capture would invalidate it.  A capture that fails raises;
 nothing falls back to eager.
@@ -51,7 +55,7 @@ class BlockGraph:
     and returns the tensor it returned at capture (overwritten in place),
     and adds the kernel launches it recorded to the launch counts."""
 
-    def __init__(self, fn: Callable[[], torch.Tensor]):
+    def __init__(self, fn: Callable[[], torch.Tensor], pool=None):
         self.graph = torch.cuda.CUDAGraph()
         # a graph destroyed while another is being captured (a dead
         # Engine's, freed by the cyclic collector at any allocation)
@@ -63,7 +67,7 @@ class BlockGraph:
         try:
             with _cuda.captured_scratch() as self.scratch:
                 with _cuda.recorded_launches() as self.launches:
-                    with torch.cuda.graph(self.graph):
+                    with torch.cuda.graph(self.graph, pool=pool):
                         self.out = fn()
         finally:
             if enabled:
@@ -134,6 +138,7 @@ class DecodeBlocks:
         self.key = s[end + 2:]
         self._loops: Dict[Tuple, Callable] = {}
         self._graphs: Dict[Tuple, BlockGraph] = {}
+        self._pool = None            # the graphs' shared memory pool
         self._owner = None
         self.captures = 0
         self.capture_s = 0.0         # host seconds spent capturing
@@ -147,7 +152,7 @@ class DecodeBlocks:
         loop: an Engine that died gives its device memory back."""
         self._graphs.clear()
         self._loops.clear()
-        self._owner = None
+        self._pool = self._owner = None
 
     def pack(self, tokens, pos, live, stop_pos, temperature, top_k,
              step0: int, eos_id: int, hist=None) -> np.ndarray:
@@ -205,8 +210,11 @@ class DecodeBlocks:
             return graph.replay().cpu().numpy()
         out = self._block(params, cache, steps, sampled, draft).cpu().numpy()
         t0 = time.perf_counter()
+        if not self._graphs:
+            self._pool = torch.cuda.graph_pool_handle()
         self._graphs[gkey] = BlockGraph(
-            lambda: self._block(params, cache, steps, sampled, draft))
+            lambda: self._block(params, cache, steps, sampled, draft),
+            pool=self._pool)
         self.capture_s += time.perf_counter() - t0
         self.captures += 1
         return out

@@ -1756,3 +1756,185 @@ def test_capture_survives_a_dead_graph_in_a_reference_cycle(card):
         out = g.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+# -- the rest of the lm family: the kernels at its shapes, and its Engine ------
+#: (K, N, bias) of the int8 projections the family adds: the untied heads
+#: at N = vocab (yi, glm4, deepseek, olmoe), command-r's MLP, glm4's q/k/v
+#: with their bias, deepseek's MLA projections
+FAMILY_QMM = {"yi-head": (4096, 64000, False),
+              "glm4-head": (4096, 151552, False),
+              "deepseek-head": (5120, 102400, False),
+              "olmoe-head": (2048, 50304, False),
+              "command-r-up": (8192, 22528, False),
+              "command-r-down": (22528, 8192, False),
+              "glm4-wq-bias": (4096, 4096, True),
+              "glm4-wkv-bias": (4096, 256, True),
+              "mla-wq_b": (1536, 24576, False),
+              "mla-wkv_a": (5120, 576, False)}
+
+
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("proj", list(FAMILY_QMM))
+def test_qmatmul_family_shapes_bitwise(card, proj, m):
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
+    k, n, with_bias = FAMILY_QMM[proj]
+    a = torch.randint(-127, 128, (m, k), generator=card, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=card, device="cuda",
+                      dtype=torch.int8)
+    sa = (torch.rand((m, 1), generator=card, device="cuda") + 0.1) * 1e-3
+    sb = (torch.rand((1, n), generator=card, device="cuda") + 0.1) * 1e-3
+    bias = (torch.randn((n,), generator=card, device="cuda")
+            if with_bias else None)
+    got = qmatmul(a, b, sa, sb, bias, torch.bfloat16)
+    want = qmatmul_plain(a, b, sa, sb, bias, torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("knobs", [(1, 1), None], ids=["unsplit", "auto"])
+@pytest.mark.parametrize("s", [1, 16])
+@pytest.mark.parametrize("heads", [(32, 4), (32, 2), (16, 16)],
+                         ids=["group8", "group16", "group1"])
+def test_paged_attention_d128_groups(card, heads, s, knobs):
+    """Head dim 128 with query groups of 8 (yi, command-r), 16 (glm4) and
+    1 (olmoe), decode and a 16-row prefill chunk, both routes; the trash
+    page is poisoned with large finite values (dead-lane writes), the dead
+    lane stays finite, NaN past the live lanes' visible rows never leaks."""
+    from repro_torch.kernels import ops
+    hq, hkv = heads
+    b, d, ps, width = 3, 128, 16, 11
+    npg = 2 * width + 1
+    trash = npg - 1
+    kp = torch.randn((npg, hkv, ps, d), generator=card, device="cuda")
+    vp = torch.randn((npg, hkv, ps, d), generator=card, device="cuda")
+    kp[trash], vp[trash] = 1e4, -1e4
+    bt = torch.randperm(npg - 1, generator=card, device="cuda")[:2 * width] \
+        .reshape(2, width).to(torch.int32)
+    bt = torch.cat([bt, torch.full((1, width), trash, dtype=torch.int32,
+                                   device="cuda")])
+    qpos = torch.tensor([134 - s, 120 - s, 0], dtype=torch.int32,
+                        device="cuda")
+    q = torch.randn((b, hq, s, d), generator=card, device="cuda") \
+        .to(torch.bfloat16)
+    kw = {} if knobs is None else dict(kv_split=knobs[0],
+                                       pages_per_step=knobs[1])
+    got = ops.paged_attention(q, kp, vp, bt, qpos, **kw)
+    want = ops.paged_attention(q, kp, vp, bt, qpos, backend="ref", **kw)
+    torch.cuda.synchronize()
+    _unsplit_close(got[:2], want[:2])
+    assert torch.isfinite(got[2].float()).all()
+    kp2, vp2 = kp.clone(), vp.clone()
+    for lane in range(2):
+        for t in range(int(qpos[lane]) + s, width * ps):
+            pg = int(bt[lane, t // ps])
+            kp2[pg, :, t % ps] = float("nan")
+            vp2[pg, :, t % ps] = float("nan")
+    again = ops.paged_attention(q, kp2, vp2, bt, qpos, **kw)
+    assert torch.equal(again[:2], got[:2])
+
+
+@pytest.mark.parametrize("s", [77, 512])
+def test_flash_attention_mla_padded_v_bf16(card, s):
+    """deepseek's naive MLA form: D 192, V zero-padded from 128; the
+    padded columns come out 0 and the rest as the plain version's."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = (torch.randn((1, 16, s, 192), generator=card, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    v[..., 128:] = 0
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    _flash_close(got, want)
+    assert (got[..., 128:] == 0).all()
+
+
+@pytest.mark.parametrize("cap", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lut_activation_expert_shape(card, cap, dtype):
+    """olmoe's experts' SiLU table under --lut: (8, 64, cap, 1024), a
+    decode step's and a 16-token chunk's capacity; bitwise."""
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels.lut_activation import (lut_activation,
+                                                    lut_activation_plain)
+    spec = TableSpec("silu_gate", 1024, -10.0, 10.0, None, "interp")
+    x = (torch.randn((8, 64, cap, 1024), generator=card, device="cuda")
+         * 4).to(getattr(torch, dtype))
+    assert torch.equal(lut_activation(x, spec), lut_activation_plain(x, spec))
+
+
+FAMILY_ARCHS = ["yi-6b", "glm4-9b", "command-r-35b", "olmoe-1b-7b",
+                "deepseek-v2-236b"]
+
+
+@pytest.mark.parametrize("weights", ["f32", "int8"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_card_engine_streams_match_cpu_engine(card, arch, weights):
+    """The family's smoke configs, paged at the auto knobs, f32 compute,
+    graphed on the card: greedy streams equal the CPU Engine's, or first
+    part where the CPU's own top-2 margin is below ENGINE_MARGIN_BOUND."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.serve import quantize_for_serving
+    from repro_torch.models import lm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config(arch).smoke()
+    ctx = QuantContext(
+        mode="int8" if weights == "int8" else "none",
+        policy=(PrecisionPolicy.uniform(FixedPointType(8, 4))
+                if weights == "int8" else PrecisionPolicy()),
+        compute_dtype=torch.float32)
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if weights == "int8":
+        params = quantize_for_serving(params, ctx)
+    src = SyntheticLM(cfg.vocab, seed=0)
+    prompts = [src.tokens(i, 1, 14)[0, :-1] for i in range(3)]
+    kw, gen = dict(paged=True, page_size=4), 16
+    want = _greedy_streams(cfg, ctx, params, prompts, gen, "cpu", kw)
+    got = _greedy_streams(cfg, ctx, params, prompts, gen, "cuda", kw)
+    assert all(len(t) == gen for t in got)
+    for prompt, w, g in zip(prompts, want, got):
+        i = next((i for i, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        if i is None:
+            continue
+        tokens = torch.tensor(np.concatenate([prompt, w[:i]])[None],
+                              dtype=torch.int32)
+        # through a cache: MoE serving capacity (dropless), as the Engine
+        cache = lm.init_cache(cfg, 1, tokens.shape[1], torch.float32,
+                              device="cpu")
+        logits, _ = lm.prefill(params, tokens, cache, cfg, ctx)
+        top2 = logits[0, -1].float().topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"{arch} {weights}: first differing token {i} of {gen}, CPU "
+              f"top-2 margin {margin:.6g}")
+        assert margin < ENGINE_MARGIN_BOUND, (i, margin)
+
+
+
+def test_block_graphs_share_one_pool(card):
+    """Two graphs captured into one pool hold one copy of a temporary
+    that each frees inside its capture (deepseek's dequantized expert
+    banks, one per block length otherwise), and replay correctly."""
+    from repro_torch.train.graphs import BlockGraph
+    n = 256 << 20                              # 1 GiB of f32
+    x = torch.randn(16, device="cuda", generator=card)
+
+    def body(scale):
+        def fn():
+            tmp = torch.empty(n, device="cuda")
+            tmp[:16].copy_(x * scale)
+            return tmp[:16].sum()[None].clone()
+        return fn
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = torch.cuda.graph_pool_handle()
+    before = torch.cuda.memory_reserved()
+    graphs = [BlockGraph(body(s), pool=pool) for s in (2.0, 3.0)]
+    grown = torch.cuda.memory_reserved() - before
+    assert grown < 1.5 * 4 * n, grown          # one temporary, not two
+    x.copy_(torch.arange(16, dtype=torch.float32, device="cuda"))
+    outs = [g.replay().item() for g in graphs]
+    assert outs == [2.0 * 120, 3.0 * 120]

@@ -121,21 +121,21 @@ def serve_torch(cfg, ctx, params, prompts, kw):
     return [eng.results[i]["tokens"] for i in ids], eng
 
 
-#: (cfg, JAX ctx, JAX params, port ctx, port params) per weight mode
+#: (cfg, JAX ctx, JAX params, port ctx, port params) per (weight mode, arch)
 _LIFECYCLE = {}
 
 
-def lifecycle_makers(mode: str = "none"):
+def lifecycle_makers(mode: str = "none", arch: str = "gemma-2b"):
     """``(cfg, {"jax": make, "torch": make})`` for the lifecycle suites:
     ``make(**kw)`` builds the reference Engine (on :func:`auto_mesh`; call
     it and drive it inside ``use_mesh(auto_mesh())``) or the port's Engine
-    on the CPU, over the same gemma-2b smoke weights (``mode`` "none" or
+    on the CPU, over the same ``arch`` smoke weights (``mode`` "none" or
     "int8"), with f32 compute."""
-    if mode not in _LIFECYCLE:
-        cfg, jparams, tparams = smoke_params(mode)
+    if (mode, arch) not in _LIFECYCLE:
+        cfg, jparams, tparams = smoke_params(mode, arch=arch)
         jctx, tctx = contexts(mode)
-        _LIFECYCLE[mode] = (cfg, jctx, jparams, tctx, tparams)
-    cfg, jctx, jparams, tctx, tparams = _LIFECYCLE[mode]
+        _LIFECYCLE[mode, arch] = (cfg, jctx, jparams, tctx, tparams)
+    cfg, jctx, jparams, tctx, tparams = _LIFECYCLE[mode, arch]
 
     def make_jax(**kw):
         from repro.launch.serve import Engine
