@@ -18,13 +18,17 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    main path's shapes (gemma-2b at full width: qmatmul at M = 8 and 128
    over every projection and at a verify pass's M = 40, over
    whisper-base's at M = 8, 128 and 12000 with and without a bias, and
-   over the jet MLP's four layers at M = 1, 128 and 16384, and over the
+   over the jet MLP's four layers at M = 1, 128 and 16384, over the
    rest of the lm family's projections (the untied heads at N = vocab,
-   command-r's MLP, glm4's q/k/v with bias, deepseek's MLA), all bitwise;
+   command-r's MLP, glm4's q/k/v with bias, deepseek's MLA), and over
+   mamba2's and zamba2's at M = 8 and 128 (N 4384 and 8384: the N
+   tail), all bitwise;
    paged attention at decode, verify (S = 5) and prefill, unsplit
    and split, plus a ~4096-token decode, and at D 128 with query groups
-   of 8, 16 and 1 (path 10's heads); lut_activation on olmoe's experts'
-   gate activations (8 x 64 x cap x 1024) and on one layer's
+   of 8, 16 and 1 (path 10's heads), and zamba2's 32 heads at D 64
+   (group 1), decode and verify; lut_activation on olmoe's experts'
+   gate activations (8 x 64 x cap x 1024), on path 11's f32 softplus
+   and silu rows, and on one layer's
    gate activations at decode and prefill with every indexing and the
    gelu, silu and softmax-exp tables; lut_gated_mul (the gated MLP's
    table pass) on the same shapes, bitwise, beside the unfused chain it
@@ -32,8 +36,9 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    whisper-base's 12000 encoder rows, bitwise with zero, half-way and NaN
    rows; flash_attention at the whisper
    encoder's shape, gemma-2b's cache-free prefill, ragged Sq/Skv, the
-   MLA width, glm4's S 512 and deepseek's S 512 naive MLA form (128 heads,
-   D 192, V padded from 128), bf16 and f32), with the kernel's, the plain
+   MLA width, glm4's S 512, deepseek's S 512 naive MLA form (128 heads,
+   D 192, V padded from 128) and zamba2's forward (B 8, 32 heads, S 512,
+   D 64), bf16 and f32), with the kernel's, the plain
    version's and a
    library call's device time (median of cold-L2 launches, CUDA events)
    and the kernel/library factor beside the least time the card could
@@ -121,7 +126,29 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    per layer, gated), deepseek in blocks of 4, 8, 4 (two graphs, one
    memory pool) and eager, identical, olmoe under ``--lut
    --paged`` with bf16 weights (lut_activation once per MoE layer and
-   model call);
+   model call); olmoe and deepseek also with greedy n-gram speculation
+   (spec_k 4, graphed), gated against their plain streams as path 6's.
+   Path 11: the recurrent families, mamba2-370m (48 layers) and
+   zamba2-1.2b (38 mamba layers and the shared block every 6) at full
+   width and depth, batch 8, 8 requests, prompt 64 (the looped prefill:
+   one full-batch decode step per prompt token), 32 greedy tokens,
+   graphed blocks of 8: (a) mamba2 int8 on the dense state, (b) zamba2
+   int8 on the paged KV (auto knobs), each admitted once and snapshotted,
+   the snapshot restored into an eager engine (identical streams and
+   counts) and into speculative ones (d: n-gram, and a chain drafter
+   proposing (a)/(b)'s streams, >= 3 of 4 accepted; gated as path 6's),
+   (e) zamba2 with
+   preempt-and-spill over 70% of the pages (gated as path 6's), (c) both
+   under ``--lut`` with bf16 weights (zamba2 paged), (f) mamba2's
+   whole-prompt prefill through the step builders and zamba2's cache-free
+   forward at B 8, S 512 (flash once per application point); logits of
+   a whole-prompt prefill and 4 decode steps gated as path 1's; the
+   launch counts required per run (paged attention on zamba2 and never
+   on mamba2, one graph per (steps, sampled)); looped prefill ms per
+   admission, decode wall, device busy and kernels per step, state bytes
+   per lane, peak memory, spill and resume ms and the device time of the
+   SSD scan and the decode-state update (PyTorch ops: the reference has
+   no kernel for them) logged;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -174,6 +201,15 @@ FAMILY_PROJ = [("yi head", 4096, 64000, False),
                ("mla wq_b", 1536, 24576, False),
                ("mla wkv_a", 5120, 576, False),
                ("mla wo", 16384, 5120, False)]
+#: the recurrent families' int8 projections (path 11): mamba2-370m's and
+#: zamba2-1.2b's in/out projections (N 4384 and 8384 test the N tail) and
+#: zamba2's shared block; (name, K, N)
+RECURRENT_PROJ = [("mamba2 in_proj", 1024, 4384), ("mamba2 out_proj", 2048, 1024),
+                  ("zamba2 in_proj", 2048, 8384),
+                  ("zamba2 out_proj", 4096, 2048),
+                  ("zamba2 shared q/k/v/o", 2048, 2048),
+                  ("zamba2 shared up/gate", 2048, 8192),
+                  ("zamba2 shared down", 8192, 2048)]
 #: speculative decoding's draft depth on path 6: a verify pass runs the
 #: model at M = 8 x (SPEC_K + 1) = 40 rows and paged attention at S = 5
 SPEC_K = 4
@@ -263,6 +299,9 @@ def check_qmatmul(torch, timer, rows):
     cases += [(m, name, k, n, torch.bfloat16, None, bias)
               for name, k, n, bias in FAMILY_PROJ
               for m in ((8, 128) if "head" in name else (8,))]
+    # path 11: a decode step's 8 rows and 128
+    cases += [(m, name, k, n, torch.bfloat16, None, False)
+              for name, k, n in RECURRENT_PROJ for m in (8, 128)]
     for m, name, k, n, out_dtype, spec, with_bias in cases:
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -404,6 +443,34 @@ def check_lut(torch, timer, rows):
             f"{err:.3g} (tol 0) kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"library=none kernel/library={over_library(rows[-1])} "
             f"(context: F.silu {silu_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
+    # path 11 under --lut: a decode step's f32 softplus on dt (8 lanes x
+    # heads) and silu on the conv output (conv_dim) and on the gate
+    # (d_inner), mamba2's and zamba2's
+    for fn, lo, hi, cols in (("softplus", -16.0, 16.0, (32, 64)),
+                             ("silu_gate", -10.0, 10.0,
+                              (2304, 4224, 2048, 4096))):
+        spec = TableSpec(fn, 1024, lo, hi, None, "interp")
+        for n in cols:
+            x = torch.randn((8, n), generator=g, device="cuda") * 4
+            got, want = lut_activation(x, spec), lut_activation_plain(x, spec)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not (torch.equal(got, want) and torch.isfinite(got).all()
+                    .item()):
+                raise AssertionError(f"lut_activation {fn} 8x{n} float32: "
+                                     f"max_abs_err {err} > tol 0")
+            ms = timer(lambda: lut_activation(x, spec))
+            plain_ms = timer(lambda: lut_activation_plain(x, spec), reps=5)
+            bnd, by = bound_ms(2 * x.numel() * 4 + 4 * spec.n,
+                               10.0 * x.numel(), F32_FLOP_PER_S)
+            rows.append(dict(kernel="lut_activation",
+                             case=f"recurrent {fn} interp 8x{n} float32",
+                             max_abs_err=err, tol=0.0, ms=ms,
+                             plain_ms=plain_ms, library_ms=None,
+                             bound_ms=bnd, bound_by=by))
+            log(f"[check] lut_activation {rows[-1]['case']}: max_abs_err="
+                f"{err:.3g} (tol 0) kernel={ms:.4f}ms plain="
+                f"{plain_ms:.4f}ms library=none bound={bnd:.5f}ms ({by})")
 
 
 def check_lut_gated(torch, timer, rows):
@@ -528,6 +595,8 @@ def check_quantize_rows(torch, timer, rows):
 #: 10's at D 128 with query groups of 8 (yi, command-r), 16 (glm4) and 1
 #: (olmoe, MHA)
 GEMMA_HEADS = (8, 1, 256)
+#: zamba2-1.2b's shared block: 32 heads on 32 KV heads (group 1), D 64
+ZAMBA2_HEADS = (32, 32, 64)
 FAMILY_HEADS = [("yi/command-r", (32, 4, 128)), ("glm4", (32, 2, 128)),
                 ("olmoe", (16, 16, 128))]
 
@@ -581,6 +650,11 @@ def check_attention(torch, timer, rows):
     for name, heads in FAMILY_HEADS:
         cases += [(f"{name} decode", 8, 1, 134, True, 161, heads),
                   (f"{name} prefill", 8, 16, 128, False, 161, heads)]
+    # path 11's geometry: max_len 97 (prompt 64 + gen 32 + 1), no prefill
+    # margin (the looped prefill), spec_k + 2 rows under speculation ->
+    # a 7-page table
+    cases += [("zamba2 decode", 8, 1, 90, True, 103, ZAMBA2_HEADS),
+              ("zamba2 verify", 8, SPEC_K + 1, 90, True, 103, ZAMBA2_HEADS)]
     for label, b, s, tokens, dead, width_tokens, heads in cases:
         hq, hkv, d = heads
         for q_dtype in (torch.bfloat16, torch.float32):
@@ -675,6 +749,8 @@ FLASH_CASES = [
     # deepseek's MLA naive form (128 heads, D 192, V padded from 128)
     ("e glm4 D128 group16", 1, 32, 2, 512, 512, 128, True, ("bf16",), None),
     ("e deepseek MLA", 1, 128, 128, 512, 512, 192, True, ("bf16",), 128),
+    # path 11's zamba2 cache-free forward: batch 8, S 512, MHA at D 64
+    ("f zamba2 forward", 8, 32, 32, 512, 512, 64, True, ("bf16",), None),
 ]
 
 
@@ -925,7 +1001,7 @@ def yardstick(timer, fn):
 
 
 def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
-             first=(), block=8, walls=None):
+             first=(), block=8, walls=None, busy=None, ids=None):
     """Drive one path through the engine's entry points: the launch counts
     are set to 0 just before and read just after; every kernel named in
     ``expect`` must have launched, and a graphed engine must have run its
@@ -933,18 +1009,29 @@ def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
     (default greedy); blocks of the lengths in ``first``, then of
     ``block`` steps (rounds, under speculation).  ``walls``: a list that
     receives (wall ms, tokens, live lanes, steps, captured) per block.
-    Returns (run summary, counts)."""
+    ``busy``: a list that receives (device busy ms, device kernels and
+    copies) per step (round) of the third block, traced by the profiler
+    (which runs it twice: the third and fourth blocks).  ``ids``: the
+    request ids of an engine that has admitted (or restored) ``prompts``
+    already; only its blocks are driven and counted.  Returns (run
+    summary, counts)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.lifecycle import RequestStatus
     sampling = sampling or [(0.0, 0)] * len(prompts)
     reset_launch_counts()
     t1 = time.perf_counter()
-    ids = [eng.submit(p, gen_len=gen_len, temperature=t, top_k=k)
-           for p, (t, k) in zip(prompts, sampling)]
-    eng.try_admit()
+    if ids is None:
+        ids = [eng.submit(p, gen_len=gen_len, temperature=t, top_k=k)
+               for p, (t, k) in zip(prompts, sampling)]
+        eng.try_admit()
     blocks = 0
     while eng.live.any() or eng.waiting:
         n = first[blocks] if blocks < len(first) else block
+        if busy is not None and blocks == 2:
+            ms, nk = _profiled_busy(torch, lambda: eng.step_many(n))
+            busy.append((None if ms is None else ms / n, nk / n))
+            blocks += 2
+            continue
         live, captures = int(eng.live.sum()), eng.blocks.captures
         t0 = time.perf_counter()
         _, block_live = eng.step_many(n)
@@ -2329,6 +2416,9 @@ def graphs_ab(torch, cfg, paths, prompts, geometry):
 FAMILY = (("yi-6b", 2), ("glm4-9b", 2), ("command-r-35b", 2),
           ("olmoe-1b-7b", 2), ("deepseek-v2-236b", 2))
 FAMILY_RUN = dict(batch=8, plen=128, gen=16, chunk=16, ps=16)
+#: path 10's MoE configs that also run greedy n-gram speculation (a verify
+#: pass gives each expert another M)
+FAMILY_SPEC = ("olmoe-1b-7b", "deepseek-v2-236b")
 #: the cache-free forward of path 10 (deepseek's MLA naive form and glm4)
 FAMILY_FORWARD_S = 512
 
@@ -2544,6 +2634,10 @@ def serve_family(torch, report) -> dict:
             record(ecounts)
             row["eager_identical"] = True
             del eager
+        if arch in FAMILY_SPEC:
+            row["spec"] = _family_spec(torch, cfg, int8, params, geometry,
+                                       prompts[:batch], gen_len,
+                                       run["streams"], record)
         run.pop("streams", None)
         del eng
         gc.collect()
@@ -2601,6 +2695,504 @@ def _family_lut(torch, cfg, geometry, prompts, gen_len, r, record):
     run.pop("streams", None)
     del eng, params
     return dict(logit_checks=checks, run=run)
+
+
+def gate_streams(torch, label, streams, plain, make_plain, prompts):
+    """Greedy streams against the plain run's: identical, or parting only
+    where the plain Engine's own top-2 margin is below SPEC_MARGIN_BOUND
+    (path 6's gate; the margins are replayed, on ``make_plain()``, only
+    when a stream parts).  Returns the partings."""
+    if streams == plain:
+        log(f"[spec] {label}: streams identical to the plain run's")
+        return []
+    margins = plain_margins(torch, make_plain(), prompts, plain)
+    return spec_gate(label, streams, plain, margins)
+
+
+def _family_spec(torch, cfg, ctx, params, geometry, prompts, gen_len, plain,
+                 record):
+    """Path 10's MoE configs with n-gram speculation (spec_k 4, greedy,
+    graphed) on path 10's prompts: a verify pass gives each expert
+    another M; streams gated against the plain run's as path 6's."""
+    from repro_torch.launch.serve import Engine
+    label = f"{cfg.name} int8 paged, ngram spec k {SPEC_K}"
+    eng = Engine(cfg, ctx, params, paged=True, spec=True, spec_k=SPEC_K,
+                 **geometry)
+    run, counts = run_path(torch, label, eng, prompts, gen_len,
+                           ("qmatmul", "quantize_rows"))
+    one_quantizer_per_qmatmul(label, counts)
+    record(counts)
+    st = eng.stats()
+    accepted = eng.counters["draft_accepted"] / max(
+        1, eng.counters["verify_steps"])
+    parting = gate_streams(torch, label, run.pop("streams"), plain,
+                           lambda: Engine(cfg, ctx, params, paged=True,
+                                          **geometry), prompts)
+    log(f"[family] {label}: {accepted:.3f} drafts accepted per live round, "
+        f"{st['graph_captures']} graphs captured")
+    del eng
+    return dict(run=run, accepted_per_round=accepted, parting=parting)
+
+
+#: path 11: the recurrent families at their published widths and depths;
+#: batch 8, 8 requests, prompt 64, 32 greedy tokens, blocks of 8
+RECURRENT = ("mamba2-370m", "zamba2-1.2b")
+RECURRENT_RUN = dict(batch=8, plen=64, gen=32, ps=16)
+#: (f): the step builders' whole-prompt prefill (mamba2) and the cache-free
+#: forward (zamba2) at this length: two SSD chunks of 256
+RECURRENT_FORWARD_S = 512
+
+
+def _state_bytes_per_lane(eng) -> int:
+    """Bytes of one lane's recurrent state (every layer's conv window and
+    SSM state)."""
+    from repro_torch.models.api import cache_leaves, spec_state_fn
+    return sum(t[0].numel() * t.element_size() for _, t in
+               cache_leaves(spec_state_fn(eng.cache, eng.cfg)))
+
+
+def recurrent_logit_check(torch, cfg, params, ctx, prompts, geometry,
+                          paged, *, steps: int):
+    """Full-width logits of a whole-prompt prefill and ``steps`` teacher-
+    forced decode steps through the kernels and through the plain versions
+    (the recurrent families' ``prefill`` / ``decode_step``, on the
+    serving cache of the path: mamba2's dense state, zamba2's paged KV at
+    the auto knobs), gated as path 1's."""
+    from repro_torch.kernels.flash_attention import _resolve_knobs
+    from repro_torch.launch.serve import prepare_params
+    from repro_torch.models.api import get_family, set_block_table
+    fam = get_family(cfg)
+    batch, max_len, ps = (geometry["batch"], geometry["max_len"],
+                          geometry["page_size"])
+    ctxs = {"kernels": ctx, "plain": dataclasses.replace(ctx, backend="ref")}
+    if paged:
+        width = -(-(max_len + 1) // ps)
+        t, split = _resolve_knobs(width, ps, cfg.n_kv_heads, batch, None,
+                                  None)
+        ctxs = {k: dataclasses.replace(c, kv_split=split, pages_per_step=t)
+                for k, c in ctxs.items()}
+        num_pages = batch * (-(-max_len // ps))
+        bt = torch.full((batch, width), num_pages, dtype=torch.int32)
+        bt[:, :num_pages // batch] = torch.arange(
+            num_pages, dtype=torch.int32).reshape(batch, -1)
+    pp = prepare_params(params, ctx, "cuda")
+    tokens = torch.tensor(np_stack(prompts[:batch]), device="cuda")
+    pos = torch.zeros((batch,), dtype=torch.int32, device="cuda")
+    caches = {}
+    for name in ctxs:
+        if paged:
+            caches[name] = fam.init_paged_cache(cfg, batch, num_pages, ps,
+                                                width, torch.float32, "cuda")
+            set_block_table(caches[name], bt.cuda())
+        else:
+            caches[name] = fam.init_cache(cfg, batch, max_len,
+                                          torch.float32, "cuda")
+    mode = f"{cfg.name} {ctx.mode}{' +lut' if ctx.use_lut else ''}"
+    checks = []
+    for step in range(steps + 1):
+        logits = {}
+        for name, c in ctxs.items():
+            if step == 0:
+                logits[name], _ = fam.prefill(pp, tokens, caches[name], cfg,
+                                              c, pos=pos, full_logits=True)
+            else:
+                logits[name], _ = fam.decode_step(pp, tokens, caches[name],
+                                                  pos, cfg, c)
+        lp = logits["plain"].float()
+        checks.append(gate_logits(
+            torch, "[recurrent]", f"{mode}: " + (
+                f"whole-prompt prefill S {tokens.shape[1]}" if step == 0
+                else f"decode step {step}"),
+            logits["kernels"].float(), lp, ctx.compute_dtype))
+        pos = pos + tokens.shape[1]
+        tokens = lp[:, -1].argmax(-1).to(torch.int32)[:, None]
+    del pp, caches
+    torch.cuda.synchronize()
+    return checks
+
+
+def _recurrent_engine_run(torch, label, eng, prompts, gen_len, expect, *,
+                          paged_expected, record, ids=None):
+    """One path 11 run through ``run_path`` (blocks of 8, the third block
+    traced for device busy; ``ids``: an engine admitted or restored
+    already): the looped prefill timed per admission, the kernels of the
+    path required (paged attention on the hybrid's paged cache, never on
+    mamba2), one graph per (steps, sampled)."""
+    prefill, walls, busy = [], [], []
+    _timed(torch, eng, "_prefill_looped", prefill)
+    run, counts = run_path(torch, label, eng, prompts, gen_len, expect,
+                           walls=walls, busy=busy, ids=ids)
+    if "qmatmul" in expect:
+        one_quantizer_per_qmatmul(label, counts)
+    paged = _paged_launches(counts)
+    if paged_expected and not paged:
+        raise AssertionError(f"{label}: paged attention never launched")
+    if not paged_expected and paged:
+        raise AssertionError(f"{label}: paged attention launched {paged} "
+                             f"times on a cache without pages")
+    if eng.blocks.graphs and eng.blocks.captures != 1:
+        raise AssertionError(f"{label}: {eng.blocks.captures} graphs "
+                             f"captured, expected one per (steps, sampled)")
+    record(counts)
+    steady = [w / n for w, _, _, n, cap in walls if not cap]
+    run.update(
+        prefill_ms_per_admission=[ms for ms, _ in prefill],
+        decode_wall_ms_per_step=(statistics.median(steady) if steady
+                                 else None),
+        device_busy_ms_per_step=busy[0][0] if busy else None,
+        device_kernels_per_step=busy[0][1] if busy else None,
+        state_bytes_per_lane=_state_bytes_per_lane(eng),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30)
+    admissions = (", ".join(f"{ms:.0f}" for ms in
+                            run["prefill_ms_per_admission"]) + " ms"
+                  if prefill else "none here (admitted or restored before)")
+    log(f"[recurrent] {label}: looped prefill {admissions} per admission "
+        f"({len(prompts)} prompts of {len(prompts[0])}), "
+        f"decode wall {fmt_ms(run['decode_wall_ms_per_step'])} per step, "
+        f"device busy {fmt_ms(run['device_busy_ms_per_step'])} per step, "
+        f"{run['device_kernels_per_step'] or 0:.1f} device kernels and "
+        f"copies per step, state {run['state_bytes_per_lane'] / 2**20:.2f} "
+        f"MiB per lane, peak memory "
+        f"{run['max_memory_allocated_gib']:.2f} GiB allocated")
+    return run, counts
+
+
+def _xla_left_ops(torch, cfg, params, ctx, batch, report_row):
+    """Device time of what the reference leaves to XLA, at path 11's
+    shapes, beside its bound: the decode step's state update
+    (``decode_state_step``, batch 8) for one layer with a cold L2 (CUDA
+    events), and for every mamba layer of a step, each on its own state,
+    as one CUDA graph replay (the decode step's own conditions); the
+    whole-prompt SSD (``ssd_scan``, batch 8, S RECURRENT_FORWARD_S) per
+    layer, cold, and per prefill, times the mamba layers."""
+    from repro_torch.nn.blocks import layer_slice
+    from repro_torch.nn.ssm import decode_state_step, mamba2_state_spec, \
+        ssd_scan
+    d = cfg.ssm
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    stack = params["layers"] if cfg.family == "ssm" else \
+        layer_slice(params["groups"], 0)
+    p = layer_slice(stack, 0)["ssm"]
+    state = mamba2_state_spec(d, batch, "cuda")
+    xbc = torch.randn((batch, d.conv_dim), generator=g, device="cuda") \
+        .to(ctx.compute_dtype)
+    dt = torch.randn((batch, d.n_heads), generator=g, device="cuda") \
+        .to(ctx.compute_dtype)
+    dec_ms = timer(lambda: decode_state_step(p, xbc, dt, state, d, ctx))
+    # bytes: the state read and written, the new conv column and dt in
+    # (compute dtype), y out (f32), the layer's conv and head parameters
+    st_bytes = sum(t.numel() * 4 for t in state.values())
+    el = xbc.element_size()
+    dec_bytes = (2 * st_bytes + (xbc.numel() + dt.numel()) * el
+                 + batch * d.d_inner * 4
+                 + (d.d_conv + 1) * d.conv_dim * 4 + 3 * d.n_heads * 4)
+    dec_ops = batch * (2 * d.d_conv * d.conv_dim
+                       + 4 * d.n_heads * d.d_state * d.head_dim)
+    dec_bound, dec_by = bound_ms(dec_bytes, dec_ops, F32_FLOP_PER_S)
+    layers = cfg.n_layers
+    states = [mamba2_state_spec(d, batch, "cuda") for _ in range(layers)]
+
+    def every_layer():
+        for st in states:
+            decode_state_step(p, xbc, dt, st, d, ctx)
+    every_layer()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        every_layer()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 10
+    del graph, states
+    s = RECURRENT_FORWARD_S
+    q = min(d.chunk, s)
+    xbc_s = torch.randn((batch, s, d.conv_dim), generator=g,
+                        device="cuda").to(ctx.compute_dtype)
+    dt_s = torch.randn((batch, s, d.n_heads), generator=g,
+                       device="cuda").to(ctx.compute_dtype)
+    ssd_ms = timer(lambda: ssd_scan(p, xbc_s, dt_s, d, ctx), reps=5)
+    ph, n, hd = d.n_heads, d.d_state, d.head_dim
+    ssd_bytes = ((xbc_s.numel() + dt_s.numel()) * el + batch * s * d.d_inner
+                 * 4 + batch * ph * n * hd * 4)
+    # scores, y_intra (causal half of the q x q pairs), chunk states, y_inter
+    pairs = batch * (s // q) * q * (q + 1) // 2 * ph
+    ssd_ops = 2.0 * pairs * (n + hd) + 4.0 * batch * s * ph * n * hd
+    ssd_bound, ssd_by = bound_ms(ssd_bytes, ssd_ops, F32_FLOP_PER_S)
+    row = dict(decode_state_ms_per_layer_cold=dec_ms,
+               decode_state_ms_per_step_graph=step_ms,
+               decode_state_bound_ms_per_layer=dec_bound,
+               decode_state_bound_by=dec_by,
+               ssd_scan_ms_per_layer=ssd_ms,
+               ssd_scan_ms_per_prefill=ssd_ms * layers,
+               ssd_scan_bound_ms_per_layer=ssd_bound, ssd_scan_bound_by=ssd_by,
+               layers=layers, batch=batch, s=s)
+    report_row["xla_left_ops"] = row
+    log(f"[recurrent] {cfg.name} ops the reference leaves to XLA (PyTorch "
+        f"ops here, no kernel): decode-state update {dec_ms:.4f} ms for one "
+        f"layer (cold L2), {step_ms:.3f} ms for the {layers} layers of a "
+        f"decode step as one graph replay (bound {dec_bound:.5f} ms per "
+        f"layer, {dec_by}); SSD scan at B {batch} S "
+        f"{s} {ssd_ms:.3f} ms per layer x {layers} = {ssd_ms * layers:.1f} "
+        f"ms per prefill (bound {ssd_bound:.4f} ms per layer, {ssd_by})")
+    del timer
+
+
+def serve_recurrent(torch, report) -> dict:
+    """Path 11: mamba2-370m (``ssm``) and zamba2-1.2b (``hybrid``) at their
+    published widths and full depth, random weights from a seeded
+    generator on the card, bf16 compute, batch 8, 8 requests, prompt 64,
+    32 greedy tokens, graphed blocks of 8, through the Engine (the looped
+    prefill: one full-batch decode step per prompt token):
+
+    (a) mamba2 ``--quant int8``, dense state; (b) zamba2 ``--quant int8
+    --paged`` (f32 KV, pages of 16, auto knobs); both also served eagerly
+    (identical streams and counts) and with n-gram speculation (d,
+    ``spec_k`` 4: n-gram, and a chain drafter proposing (a)/(b)'s streams,
+    gated against them as path 6's; the eager and speculative runs restore
+    (a)/(b)'s snapshot taken after its admission); (e) zamba2 (b) with
+    ``preempt`` over a pool of 70% of 8 lanes' budgets (lanes spill their
+    pages and SSM lanes and resume; gated as (d)); (c) mamba2 ``--lut``
+    and zamba2 ``--lut --paged`` with bf16 weights; (f) mamba2's
+    whole-prompt prefill through the step builders and zamba2's cache-free
+    forward at S 512 (flash once per application point), kernels against
+    plain versions.  Logits of a whole-prompt prefill and 4 decode steps
+    are gated as path 1's for (a), (b) and (c).  Logged: looped prefill
+    ms per admission, decode wall, device busy and kernels per step,
+    state bytes per lane and peak memory, spec round busy, spill and
+    resume ms, and the device time of the ops the reference leaves to
+    XLA (the SSD scan, the decode-state update)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import (Engine, prepare_params,
+                                          quantize_for_serving)
+    from repro_torch.models.api import get_family
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.train.step import build_prefill_step
+
+    int8 = QuantContext(mode="int8",
+                        policy=PrecisionPolicy.uniform(FixedPointType(8, 4)),
+                        compute_dtype=torch.bfloat16)
+    lutf = QuantContext(mode="none", use_lut=True,
+                        compute_dtype=torch.bfloat16)
+    r = RECURRENT_RUN
+    batch, plen, gen_len = r["batch"], r["plen"], r["gen"]
+    max_len = plen + gen_len + 1
+    geometry = dict(batch=batch, max_len=max_len, page_size=r["ps"],
+                    device="cuda")
+    out, total = {}, {}
+
+    def record(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for arch in RECURRENT:
+        cfg = get_config(arch)
+        fam = get_family(cfg)
+        hybrid = cfg.family == "hybrid"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = quantize_for_serving(fam.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg,
+            device="cuda"), int8)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        log(f"[recurrent] {arch}: {cfg.n_layers} mamba layers (d_model "
+            f"{cfg.d_model}, d_state {cfg.ssm.d_state}, {cfg.ssm.n_heads} "
+            f"SSD heads of {cfg.ssm.head_dim}, vocab {cfg.vocab}"
+            + (f", shared block every {cfg.shared_attn_every}: "
+               f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+               f"d_ff {cfg.d_ff}" if hybrid else "")
+            + f"), {cfg.n_params() / 1e9:.3f} B params; random int8 weights "
+            f"in {init_s:.1f}s, {torch.cuda.memory_allocated() / 2**30:.2f} "
+            f"GiB on the card (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB with the f32 tree)")
+        src = SyntheticLM(cfg.vocab, seed=0)
+        prompts = [src.tokens(i, 1, plen)[0, :-1] for i in range(batch)]
+        row = dict(layers=cfg.n_layers, init_s=init_s)
+        row["logit_checks"] = recurrent_logit_check(
+            torch, cfg, params, int8, prompts, geometry, hybrid, steps=4)
+        expect = ("qmatmul", "quantize_rows")
+        kind = "int8 paged" if hybrid else "int8 dense"
+
+        def make(**kw):
+            return Engine(cfg, int8, params, paged=hybrid, **geometry, **kw)
+
+        # -- (a) / (b): one admission (the looped prefill), snapshotted;
+        # the eager and speculative runs restore it into their engines
+        base = make()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [base.submit(p, gen_len=gen_len) for p in prompts]
+        base.try_admit()
+        torch.cuda.synchronize()
+        admit_ms = (time.perf_counter() - t0) * 1e3
+        admit_counts = launch_counts()
+        record(admit_counts)
+        snap = base.snapshot()
+        log(f"[recurrent] {arch} {kind}: looped prefill {admit_ms:.0f} ms "
+            f"per admission ({batch} prompts of {plen}: {batch * plen} "
+            f"full-batch eager decode steps), launches "
+            f"{json.dumps(admit_counts)}")
+
+        def restored(**kw):
+            eng = make(**kw)
+            eng.restore(snap)
+            return eng
+
+        torch.cuda.reset_peak_memory_stats()
+        run, counts = _recurrent_engine_run(
+            torch, f"{arch} {kind}", base, prompts, gen_len, expect,
+            paged_expected=hybrid, record=record, ids=ids)
+        plain = run.pop("streams")
+        run.update(prefill_ms_per_admission=[admit_ms],
+                   admission_launches=admit_counts)
+        row["run"] = run
+        # four 8-step blocks, as the graphed run (whose last two are traced)
+        erun, ecounts = run_path(torch, f"{arch} {kind}, eager",
+                                 restored(graphs=False), prompts, gen_len,
+                                 expect, ids=ids)
+        if erun.pop("streams") != plain or ecounts != counts:
+            raise AssertionError(f"{arch}: eager streams or launch counts "
+                                 f"differ from the graphed run ({ecounts} "
+                                 f"vs {counts})")
+        log(f"[recurrent] {arch} {kind}: graphed and eager streams and "
+            f"launch counts identical")
+        record(ecounts)
+        # -- (d) speculation: n-gram, and a drafter proposing (a)/(b)'s
+        # streams (every draft accepted: the rollback to a late checkpoint)
+        row["spec"] = {}
+        for name, kw in (("ngram", {}), ("chain", dict(
+                drafter_fn=chain_drafter(torch, plain, plen)))):
+            spec = restored(spec=True, spec_k=SPEC_K, **kw)
+            srun, _ = _recurrent_engine_run(
+                torch, f"{arch} {kind}, {name} spec k {SPEC_K}", spec,
+                prompts, gen_len, expect, paged_expected=hybrid,
+                record=record, ids=ids)
+            srun["parting"] = gate_streams(
+                torch, f"path 11 {arch} {name} spec", srun.pop("streams"),
+                plain, make, prompts)
+            srun["accepted_per_round"] = spec.counters[
+                "draft_accepted"] / max(1, spec.counters["verify_steps"])
+            log(f"[recurrent] {arch} {name} spec: "
+                f"{srun['accepted_per_round']:.3f} drafts accepted per live "
+                f"round, device busy "
+                f"{fmt_ms(srun['device_busy_ms_per_step'])} per round")
+            if name == "chain" and srun["accepted_per_round"] < 3.0:
+                raise AssertionError(f"{arch} chain drafter: "
+                                     f"{srun['accepted_per_round']:.3f} "
+                                     f"drafts accepted per round, < 3")
+            row["spec"][name] = srun
+            del spec
+        del base, snap
+        # -- (e) preempt-and-spill over 70% of the pages ----------------
+        if hybrid:
+            pool = int(0.7 * batch * (-(-max_len // r["ps"])))
+            eng = make(preempt=True, preempt_after=1, num_pages=pool)
+            spills, resumes = [], []
+            _timed(torch, eng, "_preempt", spills)
+            _timed(torch, eng, "_resume", resumes)
+            prun, _ = _recurrent_engine_run(
+                torch, f"{arch} {kind}, preempt over {pool} pages", eng,
+                prompts, gen_len, expect, paged_expected=True,
+                record=record)
+            if not eng.counters["preemptions"]:
+                raise AssertionError(f"{arch} (e): no preemption over "
+                                     f"{pool} pages")
+            prun["parting"] = gate_streams(
+                torch, f"path 11 {arch} preempt", prun.pop("streams"), plain,
+                make, prompts)
+            prun.update(preemptions=eng.counters["preemptions"],
+                        spill_ms=[ms for ms, _ in spills],
+                        resume_ms=[ms for ms, _ in resumes])
+            log(f"[recurrent] {arch} (e): {eng.counters['preemptions']} "
+                f"preemptions, spill {_mean(prun['spill_ms']):.2f} ms and "
+                f"resume {_mean(prun['resume_ms']):.2f} ms a lane (mean; "
+                f"pages and the SSM lane through the host)")
+            row["preempt"] = prun
+            del eng
+        _xla_left_ops(torch, cfg, params, int8, batch, row)
+        # -- (f) whole-prompt prefill / cache-free forward at S 512 -----
+        tokens = torch.tensor(np_stack([
+            src.tokens(i, 1, RECURRENT_FORWARD_S)[0, :-1]
+            for i in range(batch)]), device="cuda")
+        pp = prepare_params(params, int8, "cuda")
+        logits = {}
+        for name, c in (("kernels", int8),
+                        ("plain", dataclasses.replace(int8, backend="ref"))):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if hybrid:
+                lg, _ = fam.forward(pp, tokens, cfg, c)
+                what = "cache-free forward"
+            else:
+                cache = fam.init_cache(cfg, batch, 0, torch.float32, "cuda")
+                lg, _ = build_prefill_step(cfg, c)(pp, {"tokens": tokens},
+                                                   cache)
+                what = "step builders' whole-prompt prefill"
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if name == "kernels":
+                counts_f, ms_f = launch_counts(), ms
+            logits[name] = lg[:, -1].float()
+            del lg
+        groups = cfg.n_layers // cfg.shared_attn_every if hybrid else 0
+        if counts_f["flash_attention"] != groups or not counts_f["qmatmul"]:
+            raise AssertionError(f"{arch} {what} S {RECURRENT_FORWARD_S}: "
+                                 f"flash_attention {counts_f}, expected "
+                                 f"{groups} (one per application point)")
+        one_quantizer_per_qmatmul(f"{arch} (f)", counts_f)
+        record(counts_f)
+        row["forward"] = dict(what=what, ms=ms_f, launches=counts_f,
+                              check=gate_logits(
+                                  torch, "[recurrent]", f"{arch} {what} S "
+                                  f"{RECURRENT_FORWARD_S}, last position",
+                                  logits["kernels"], logits["plain"],
+                                  torch.bfloat16))
+        log(f"[recurrent] {arch} (f) {what} B {batch} S "
+            f"{RECURRENT_FORWARD_S}: {ms_f:.1f} ms (first call, host "
+            f"clock), launches {json.dumps(counts_f)}")
+        del pp, params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- (c) --lut with bf16 weights ---------------------------------
+        lparams = fam.init(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, dtype=torch.bfloat16, device="cuda")
+        lchecks = recurrent_logit_check(torch, cfg, lparams, lutf, prompts,
+                                        geometry, hybrid, steps=4)
+        lexpect = ("lut_activation",) + (("lut_gated_mul",) if hybrid
+                                         else ())
+        lrun, lcounts = _recurrent_engine_run(
+            torch, f"{arch} --lut{' --paged' if hybrid else ''}, bf16 "
+            f"weights", Engine(cfg, lutf, lparams, paged=hybrid, **geometry),
+            prompts, gen_len, lexpect, paged_expected=hybrid, record=record)
+        if lcounts["qmatmul"] or lcounts["quantize_rows"]:
+            raise AssertionError(f"{arch} --lut: int8 kernels launched with "
+                                 f"bf16 weights ({lcounts})")
+        lrun.pop("streams")
+        row["lut"] = dict(run=lrun, logit_checks=lchecks)
+        del lparams
+        out[arch] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["recurrent"] = out
+    log(f"[recurrent] path 11 launches: {json.dumps(total)}")
+    return total
 
 
 #: path 7: the jet-tagging MLP at a single event and at a large batch
@@ -3372,6 +3964,9 @@ def main(argv=None) -> int:
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
         for k, v in serve_family(torch, report).items():
+            counts[k] = counts.get(k, 0) + v
+        torch.cuda.synchronize()
+        for k, v in serve_recurrent(torch, report).items():
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
 

@@ -3,10 +3,10 @@
 Copies of ``repro.configs`` with the exact published dimensions: the
 whole ``lm`` family (gemma-2b, yi-6b, glm4-9b, command-r-35b, and the
 MoE configs olmoe-1b-7b and deepseek-v2-236b, the latter with MLA),
+the recurrent families (mamba2-370m, ``ssm``; zamba2-1.2b, ``hybrid``),
 whisper-base (``encdec``) and ``jet-mlp``, the paper's own model,
-consumed by ``repro_torch.models.mlp`` (no serving family).  The
-recurrent families (mamba2-370m, zamba2-1.2b; ROADMAP.md queue 1, item
-14) and the VLM (llama-3.2-vision-11b, item 17) remain.
+consumed by ``repro_torch.models.mlp`` (no serving family).  The VLM
+(llama-3.2-vision-11b, ROADMAP.md queue 1, item 17) remains.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from ..models.config import ModelConfig
 __all__ = ["get_config", "ARCH_IDS"]
 
 ARCH_IDS = ["gemma-2b", "yi-6b", "glm4-9b", "command-r-35b", "olmoe-1b-7b",
-            "deepseek-v2-236b", "whisper-base", "jet-mlp"]
+            "deepseek-v2-236b", "mamba2-370m", "zamba2-1.2b", "whisper-base",
+            "jet-mlp"]
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

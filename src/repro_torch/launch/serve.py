@@ -13,7 +13,11 @@ of the core of ``repro.launch.serve``).
   full-batch model call per ``prefill_chunk`` tokens.  Lanes that are
   still generating keep their position; their chunk writes land at or
   past it (never attended before decode overwrites them) or on the trash
-  page.
+  page.  The recurrent families (``ssm``, ``hybrid``) rebuild their state
+  from one call's tokens, so they take the **looped prefill** instead, as
+  the reference: one full-batch decode step per prompt token, slot by
+  slot, every other lane's state put back afterwards
+  (``models.api.merge_slot_fn``).
 * **Device-resident decode**: ``step_many(n)`` runs ``n`` steps whose
   tokens, positions, live mask, fault lane and draws stay on the card,
   with one host sync per block.  On the card each block is one CUDA
@@ -28,10 +32,11 @@ of the core of ``repro.launch.serve``).
 * **Speculative decoding** (``spec=True``): each block runs ``n``
   draft -> verify rounds (``train.step.build_spec_decode_loop``): ``spec_k``
   drafts a round from prompt lookup over the committed history
-  (``spec_ngram``), from a draft model of the ``lm`` family
-  (``spec_draft=(cfg, params, ctx)``, its own dense cache, prefilled with
-  the target), or from a caller's ``drafter_fn``; the target verifies them
-  in one call over ``spec_k + 1`` positions.  Greedy streams are the plain
+  (``spec_ngram``), from a draft model (``spec_draft=(cfg, params,
+  ctx)``, any served family, its own dense cache, prefilled with the
+  target), or from a caller's ``drafter_fn``; the target verifies them
+  in one call over ``spec_k + 1`` positions (a recurrent target in
+  ``spec_k + 1`` decode steps with per-position state checkpoints).  Greedy streams are the plain
   engine's; sampled ones keep its distribution.  On the card a block is
   one CUDA graph replay too.
 * **Continuous batching**: ``submit`` queues requests; each block
@@ -53,8 +58,9 @@ of the core of ``repro.launch.serve``).
   duplicates its boundary page (copy-on-write) before writing it.
 * **The request lifecycle**: ``status``/``cancel`` by request id,
   deadlines (TTLs checked at block boundaries), preempt-and-spill under
-  page pressure (``preempt=True``: a victim's pages go to host memory and
-  come back into fresh pages, a restore, never a recompute), pressure and
+  page pressure (``preempt=True``: a victim's pages, and a recurrent
+  family's state lane, go to host memory and come back into fresh pages,
+  a restore, never a recompute), pressure and
   SLO shedding, and restore-and-replay of a faulted block from a pre-block
   snapshot (``fault_injector`` / ``recover``).  Every cache edit of the
   lifecycle (copy-on-write, resume, restore, the chaos hook's poison) is
@@ -75,9 +81,10 @@ of the core of ``repro.launch.serve``).
   construction by ``launch.autotune``, and ``spec_k`` adapted online
   from the measured acceptance (on the card, one graph per k).
 
-Non-``lm`` families are out of this port (the ``encdec`` family serves
-through the step builders of ``repro_torch.train.step``, as the reference
-Engine never runs an encoder); so is the ``fake`` quantization mode.
+The Engine serves the ``lm``, ``ssm`` and ``hybrid`` families; the
+``encdec`` family serves through the step builders of
+``repro_torch.train.step``, as the reference Engine never runs an
+encoder.  The ``fake`` quantization mode is not ported.
 
 Usage::
 
@@ -98,6 +105,8 @@ Usage::
         --quant int8 --paged --durable-dir /tmp/d --snapshot-every 2 \\
         [--replicas 2 --standby-dir /tmp/s] \\
         [--class-quota realtime:floor=0.25] [--autotune fitted]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+        --quant int8 --paged --preempt [--spec --spec-k 4]
 """
 
 from __future__ import annotations
@@ -127,10 +136,12 @@ from ..checkpoint.store import BlobLog, latest_step, load_blob, save_blob
 from ..ft.straggler import StragglerMonitor
 from ..models.api import (cache_leaves, copy_pages_fn, get_family,
                           init_cache_fn, init_paged_cache_fn, invalidate_fn,
-                          page_leaves, set_block_table)
+                          lane_leaves_fn, merge_slot_fn, page_leaves,
+                          set_block_table, spec_state_fn,
+                          supports_chunked_prefill)
 from ..nn.context import QuantContext
 from ..train.graphs import DecodeBlocks
-from ..train.step import build_prefill_step
+from ..train.step import build_prefill_step, build_serve_step
 from .autotune import SpecKAdapter, WorkloadShape, load_estimator, resolve
 from .lifecycle import (PriorityClass, RequestStatus, coerce_priority,
                         normalize_class_quotas, normalize_slo_targets,
@@ -231,7 +242,7 @@ class Engine:
     Speculative decoding, as the reference: ``spec`` on, ``spec_k`` drafts
     a round, prompt lookup over ``spec_ngram`` tokens by default;
     ``spec_draft=(cfg, params, ctx or None)`` drafts with a second model
-    (``lm`` family, the target's vocab); ``drafter_fn(hist, tok, pos) ->
+    (any served family, the target's vocab); ``drafter_fn(hist, tok, pos) ->
     (B, k)`` drafts for tests.  ``step_many(n)`` then runs ``n`` rounds.
 
     The lifecycle: ``prefix_cache`` (paged) maps committed prompt pages
@@ -302,6 +313,9 @@ class Engine:
         self.cfg = cfg
         self.batch, self.max_len = batch, max_len
         self.prefill_chunk = max(1, prefill_chunk)
+        # chunked prefill continues a cache across calls: the attention
+        # families only (a recurrent state is rebuilt from one call)
+        self.chunked = supports_chunked_prefill(cfg)
         self.seed = seed
         self.params = prepare_params(params, ctx, self.device)
         self.kv_bits = kv_bits
@@ -310,7 +324,7 @@ class Engine:
         # also at a generating lane's (ignored) one, and a verify pass
         # k + 1 rows from a (possibly held) position: the margin keeps
         # those writes past max_len (dense rows, or table entries)
-        margin = self.prefill_chunk
+        margin = self.prefill_chunk if self.chunked else 0
         self.spec, self.spec_k = bool(spec), max(1, int(spec_k))
         self.spec_ngram = max(1, int(spec_ngram))
         self.drafter_fn = drafter_fn
@@ -341,20 +355,20 @@ class Engine:
                 raise ValueError(
                     f"draft model vocab {d_cfg.vocab} != target vocab "
                     f"{cfg.vocab}; drafts would be meaningless")
-            if d_cfg.family != "lm":
-                raise NotImplementedError(
-                    f"draft model {d_cfg.name} ({d_cfg.family}): only lm "
-                    f"drafters are ported (ROADMAP.md queue 1, item 14)")
+            _refuse_encdec(d_cfg)
             d_ctx = d_ctx or ctx
             self.draft = (d_cfg, prepare_params(d_params, d_ctx, self.device),
                           d_ctx)
+            self.draft_chunked = supports_chunked_prefill(d_cfg)
             # the drafter's cache is dense: one model's rows, rolled back by
-            # pos, never paged (paging meters the target's admission)
+            # pos (or its recurrent checkpoints), never paged (paging meters
+            # the target's admission)
+            d_margin = max(self.prefill_chunk if self.draft_chunked else 0,
+                           self.spec_k + 2)
             self.draft_cache = init_cache_fn(
-                d_cfg, batch, max_len + max(self.prefill_chunk,
-                                            self.spec_k + 2),
-                torch.float32, self.device)
+                d_cfg, batch, max_len + d_margin, torch.float32, self.device)
             self._draft_prefill = build_prefill_step(d_cfg, d_ctx)
+            self._draft_decode = build_serve_step(d_cfg, d_ctx)
         self.paged = bool(paged)
         self._bt_dirty = False
         self.kv_split = self.pages_per_step = None
@@ -405,14 +419,18 @@ class Engine:
         # -- prefix caching: committed, page-aligned prompt pages are
         # published to a hash index and mapped read-only into later
         # requests that share the prefix (admission of a hit allocates and
-        # prefills only the suffix); page sharing needs the page pool
-        self.prefix_cache = bool(prefix_cache)
-        if self.prefix_cache:
+        # prefills only the suffix); page sharing needs the page pool.  A
+        # recurrent family cannot skip a prefix (its state is sequential):
+        # the flag is accepted there and inert, as in the reference
+        self.prefix_cache = False
+        if prefix_cache:
             if not self.paged:
                 raise ValueError(
                     "prefix_cache=True needs the paged cache: prefix "
                     "reuse IS page sharing (dense lanes have no pages "
                     "to share)")
+            self.prefix_cache = self.chunked
+        if self.prefix_cache:
             self.prefix_index = PrefixIndex(self.allocator.page_size)
             #: slot -> index pages mapped read-only into its table (one
             #: reference held on each; the table holds them first)
@@ -421,6 +439,7 @@ class Engine:
             self._pub: Dict[int, tuple] = {}
         self.ctx = ctx
         self.prefill = build_prefill_step(cfg, self.ctx)
+        self.decode = build_serve_step(cfg, self.ctx)
         if graphs is None:
             graphs = self.device.type == "cuda"
         spec_kw = None
@@ -440,7 +459,8 @@ class Engine:
         self.live = np.zeros((batch,), bool)
         self.tokens = np.zeros((batch, 1), np.int32)
         #: lanes known zeroed since a block last touched them: a block
-        #: advances dead lanes too, so admission zeroes a dirty dense lane
+        #: advances dead lanes too (a recurrent state decays under the held
+        #: pad token), so admission zeroes a dirty lane
         self._clean = np.ones((batch,), bool)
         self.stop_pos = np.full((batch,), max_len, np.int32)
         self.eos_id = int(eos_id)
@@ -616,14 +636,15 @@ class Engine:
                                for s in reqs}, prefix_of, _prefix)
         for s in reqs:
             if not self._clean[s]:
-                # a dirty dense lane: blocks advanced it since finish()
+                # a dirty lane: blocks advanced it since finish()
                 self.cache = invalidate_fn(self.cache, s, self.cfg)
                 if self.draft is not None:
                     self.draft_cache = invalidate_fn(self.draft_cache, s,
                                                      self.draft[0])
         starts = {s: info["start"] for s, info in prefix_of.items()
                   if info["start"]}
-        first = self._prefill_chunked(reqs, starts)
+        first = (self._prefill_chunked(reqs, starts) if self.chunked
+                 else self._prefill_looped(reqs))
         if self.draft is not None:
             self._prefill_draft(reqs)
         t_first = self.clock()
@@ -1198,16 +1219,33 @@ class Engine:
                                   device=leaf.device)
             leaf.index_copy_(1, ids, data.to(leaf.device))
 
+    def _lane_state(self, slot: int):
+        """Host copy of ``slot``'s recurrent lane (None for a KV-only
+        family), through the batch-leading views speculative rollback
+        uses."""
+        rec = spec_state_fn(self.cache, self.cfg)
+        if rec is None:
+            return None
+        return {p: t[slot].to("cpu", copy=True) for p, t in cache_leaves(rec)}
+
+    def _write_lane(self, slot: int, lane) -> None:
+        """Copy a :meth:`_lane_state` back into ``slot``'s lane, in place."""
+        if lane is None:
+            return
+        for p, t in cache_leaves(spec_state_fn(self.cache, self.cfg)):
+            t[slot].copy_(lane[p])
+
     def _preempt(self, slot: int) -> None:
         """Spill ``slot``'s request to host memory and queue it again, at
         the back.  Every page its table maps (shared prefix pages first,
         then its own) is copied to the host and every reference it holds
-        dropped; the resumed request gets private pages.  The lm family
-        keeps no recurrent lane state (the reference's ``_lane_state``)."""
+        dropped; the resumed request gets private pages.  A recurrent
+        family's state lane is copied out too, and the lane zeroed."""
         meta = self._req_meta.pop(slot)
         row = self.block_tables[slot]
         mapped = [int(p) for p in row[row != self._trash]]
         payload = self._page_payload(mapped) if mapped else {}
+        lane = self._lane_state(slot)
         shared = (self._slot_shared.pop(slot, [])
                   if self.prefix_cache else [])
         if shared:
@@ -1221,7 +1259,7 @@ class Engine:
         self._bt_dirty = True
         rec = {"resume": True, "id": meta["id"], "meta": meta,
                "deadline": meta.get("deadline"),
-               "n_pages": len(mapped), "payload": payload,
+               "n_pages": len(mapped), "payload": payload, "lane": lane,
                "pub": (self._pub.pop(slot, (0, ROOT))
                        if self.prefix_cache else None),
                "outputs": self.outputs[slot],
@@ -1238,6 +1276,7 @@ class Engine:
         self.temperature[slot] = 0.0
         self.top_k[slot] = 0
         self.stop_pos[slot] = self.max_len
+        self.cache = invalidate_fn(self.cache, slot, self.cfg)
         self._clean[slot] = True
         self.waiting.append(rec)
         self.counters["preemptions"] += 1
@@ -1246,9 +1285,10 @@ class Engine:
 
     def _resume(self, slot: int, rec: dict) -> None:
         """Re-admit a preempted request: fresh pages take the spilled
-        payload (in place) and the table re-targets them; ``pos``, the
-        held token, outputs, drafting history and sampling params are
-        exactly as spilled, so the stream goes on as if never spilled."""
+        payload and the recurrent lane its state (in place), and the table
+        re-targets them; ``pos``, the held token, outputs, drafting history
+        and sampling params are exactly as spilled, so the stream goes on
+        as if never spilled."""
         pages = self.allocator.alloc(rec["n_pages"], owner=slot,
                                      cls=self._rec_priority(rec))
         self._slot_pages[slot] = pages
@@ -1260,8 +1300,12 @@ class Engine:
         self.block_tables[slot, :] = self._trash
         self.block_tables[slot, :len(pages)] = pages
         self._flush_block_tables()
+        if not self._clean[slot]:
+            # blocks advanced the idle lane since its last occupant left
+            self.cache = invalidate_fn(self.cache, slot, self.cfg)
         if rec["payload"]:
             self._write_pages(rec["payload"], pages)
+        self._write_lane(slot, rec.get("lane"))
         self.pos[slot] = rec["pos"]
         self.tokens[slot, 0] = rec["token"]
         self.live[slot] = True
@@ -1321,10 +1365,55 @@ class Engine:
         ids = torch.cat(picks, dim=1).cpu().numpy()
         return {s: int(ids[s, t.shape[0] - 1]) for s, t in sufs.items()}
 
+    def _prefill_looped(self, reqs) -> Dict[int, int]:
+        """Per-token prefill of the families without chunked prefill;
+        returns each slot's first token.  Slot by slot (:meth:`_loop_slot`),
+        as the reference; the slot's position then stays at its prompt
+        length, so later slots' loops never write over its rows."""
+        first: Dict[int, int] = {}
+        for s, p in reqs.items():
+            self.cache, last = self._loop_slot(
+                self.decode, self.params, self.cache, self.cfg, s, p,
+                int(self.pos[s]))
+            self.pos[s] += p.shape[0]
+            first[s] = int(torch.argmax(last.to(torch.float32)))
+            self.counters["prefill_tokens"] += p.shape[0]
+        return first
+
+    def _loop_slot(self, step, params, cache, cfg, slot: int, prompt,
+                   start: int):
+        """Ingest ``prompt`` into ``slot``'s lane from position ``start``:
+        one full-batch decode step (``step``) per token, the slot's token
+        at its position and a pad token at every other lane's.  The steps
+        advance every lane's state, so every other lane is put back as it
+        was before the loop (:func:`~repro_torch.models.api.merge_slot_fn`,
+        in place): the slot's prefill is a solo prefill, and neighbours
+        are untouched.  Returns (cache, the slot's last logits)."""
+        before = [t.clone() for t, _ in lane_leaves_fn(cache, cfg)]
+        n = prompt.shape[0]
+        toks = np.zeros((n, self.batch, 1), np.int32)
+        toks[:, slot, 0] = prompt
+        pos = np.repeat(self.pos[None, :], n, axis=0)
+        pos[:, slot] = start + np.arange(n, dtype=np.int32)
+        toks_d = torch.from_numpy(toks).to(self.device)
+        pos_d = torch.from_numpy(pos).to(self.device)
+        for t in range(n):
+            logits, cache = step(params, cache, toks_d[t], pos_d[t])
+        return merge_slot_fn(cache, before, slot, cfg), logits[slot, -1]
+
     def _prefill_draft(self, reqs) -> None:
         """Ingest the admitted prompts, whole, into the draft model's
         cache: it then sits one token behind the held first token, which
-        the first draft step consumes."""
+        the first draft step consumes.  Chunked for an attention drafter;
+        looped with the lane isolation for a recurrent one, as the
+        target."""
+        if not self.draft_chunked:
+            d_cfg, d_params, _ = self.draft
+            for s, p in reqs.items():
+                self.draft_cache, _ = self._loop_slot(
+                    self._draft_decode, d_params, self.draft_cache, d_cfg, s,
+                    p, 0)
+            return
         chunk = self.prefill_chunk
         plen = max(p.shape[0] for p in reqs.values())
         n_chunks = -(-plen // chunk)
@@ -2035,7 +2124,7 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens per verify round")
     ap.add_argument("--spec-draft", default=None,
-                    help="arch of an lm draft model sharing the target's "
+                    help="arch of a draft model sharing the target's "
                          "vocab (implies --spec); default: prompt lookup")
     ap.add_argument("--spec-ngram", type=int, default=2,
                     help="context length of the prompt-lookup match")
@@ -2119,9 +2208,9 @@ def main(argv=None):
     spec_draft = None
     if args.spec_draft:
         d_cfg = get_config(args.spec_draft)
-        if d_cfg.family != "lm":
-            ap.error(f"--spec-draft {args.spec_draft}: only lm drafters are "
-                     f"ported (ROADMAP.md queue 1, item 14)")
+        if d_cfg.family == "encdec":
+            ap.error(f"--spec-draft {args.spec_draft}: an encdec model "
+                     f"cannot draft (the Engine never runs an encoder)")
         if args.smoke:
             d_cfg = d_cfg.smoke()
         d_gen = torch.Generator(device=device).manual_seed(args.seed + 1)

@@ -1,5 +1,8 @@
 """Family registry and serving-cache helpers (port of ``repro.models.api``;
-the ``lm`` and ``encdec`` families)."""
+the ``lm``, ``encdec``, ``ssm`` and ``hybrid`` families).
+
+Every helper edits a cache in place: the tensors keep their addresses, so
+captured decode graphs stay valid."""
 
 from __future__ import annotations
 
@@ -8,14 +11,16 @@ from types import ModuleType
 import torch
 
 from ..core.device import resolve_device
-from . import encdec, lm
+from . import encdec, hybrid, lm, ssm_lm
 
 __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
-           "init_cache_fn", "init_paged_cache_fn", "set_block_table",
-           "invalidate_fn", "spec_state_fn", "spec_restore_fn",
-           "copy_pages_fn", "cache_leaves", "page_leaves"]
+           "supports_chunked_prefill", "init_cache_fn",
+           "init_paged_cache_fn", "set_block_table", "lane_leaves_fn",
+           "invalidate_fn", "merge_slot_fn", "spec_state_fn",
+           "spec_restore_fn", "copy_pages_fn", "cache_leaves",
+           "page_leaves"]
 
-FAMILIES = {"lm": lm, "encdec": encdec}
+FAMILIES = {"lm": lm, "encdec": encdec, "ssm": ssm_lm, "hybrid": hybrid}
 
 
 def get_family(cfg) -> ModuleType:
@@ -42,6 +47,12 @@ def prefill_fn(params, batch, cache, cfg, ctx, *, pos=None,
 def decode_fn(params, tokens, cache, pos, cfg, ctx):
     """Family-dispatched single decode step."""
     return get_family(cfg).decode_step(params, tokens, cache, pos, cfg, ctx)
+
+
+def supports_chunked_prefill(cfg) -> bool:
+    """Families whose cache continues across prefill calls (attention KV);
+    the recurrent families rebuild their state from one call's tokens."""
+    return cfg.family == "lm"
 
 
 def init_cache_fn(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -119,25 +130,44 @@ def _is_paged(cache) -> bool:
                for key, val in cache.items())
 
 
-def invalidate_fn(cache, slot: int, cfg):
-    """Zero one slot's dense KV rows, in place, so a recycled slot can
-    never observe its previous occupant.  Dense leaves are (L, B, ...),
-    so the slot is batch axis 1: the lm rows, and encdec's self rows and
-    cross K/V alike.  A paged cache is returned unchanged: its pages
-    carry no batch axis, and a retired slot's pages are unreachable once
-    the engine resets its block-table row.  ``cfg`` is the reference's
-    argument (its families with other cache layouts bring their own
-    hook); the ported families need none."""
+def lane_leaves_fn(cache, cfg):
+    """``(tensor, batch axis)`` of every per-lane leaf of a serving cache:
+    what :func:`invalidate_fn` zeroes and :func:`merge_slot_fn` restores.
+    A family whose cache mixes batch axes brings its ``lane_leaves`` hook
+    (the hybrid: grouped SSM states at axis 2, dense lanes beside paged
+    attention pages), consulted first.  Otherwise dense leaves are (L, B,
+    ...), batch axis 1 (the lm rows, encdec's self rows and cross K/V,
+    the ssm states), and a paged lm cache has none: its pages carry no
+    batch axis, and a retired slot's pages are unreachable once the
+    engine resets its block-table row."""
+    fam = get_family(cfg)
+    if hasattr(fam, "lane_leaves"):
+        return fam.lane_leaves(cache)
     if _is_paged(cache):
-        return cache
+        return []
+    return [(t, 1) for _, t in cache_leaves(cache)]
 
-    def walk(node):
-        for val in node.values():
-            if isinstance(val, dict):
-                walk(val)
-            else:
-                val[:, slot].zero_()
-    walk(cache)
+
+def invalidate_fn(cache, slot: int, cfg):
+    """Zero one slot's lanes (KV rows, recurrent state), in place, so a
+    recycled slot can never observe its previous occupant."""
+    for t, ax in lane_leaves_fn(cache, cfg):
+        t.select(ax, slot).zero_()
+    return cache
+
+
+def merge_slot_fn(cache, before, slot: int, cfg):
+    """Every lane but ``slot``'s back to ``before`` (clones of the same
+    cache's :func:`lane_leaves_fn` tensors), in place: the per-slot isolation of a looped
+    prefill, whose full-batch decode calls advance every lane's state
+    (pad tokens included).  Restoring the others makes the slot's prefill
+    a solo prefill and leaves generating neighbours as they were; paged
+    attention pages keep the new payload (the reference's
+    ``merge_slot``)."""
+    for (t, ax), old in zip(lane_leaves_fn(cache, cfg), before):
+        keep = t.select(ax, slot).clone()
+        t.copy_(old)
+        t.select(ax, slot).copy_(keep)
     return cache
 
 
@@ -146,9 +176,10 @@ def spec_state_fn(cache, cfg):
     speculative decoding checkpoints per block position, because recurrent
     state cannot un-consume a rejected token.  KV rows rewind by the
     ``pos`` edit alone (the next block overwrites rejected rows before any
-    query attends them), so the ported families, KV-only, return None.
-    The recurrent families bring their ``spec_state`` hook (ROADMAP.md
-    queue 1, item 14)."""
+    query attends them), so the KV-only families return None; the
+    recurrent families (``ssm``, the hybrid's mamba lanes) bring their
+    ``spec_state`` hook, views of the cache (a checkpoint must clone
+    them)."""
     fam = get_family(cfg)
     if hasattr(fam, "spec_state"):
         return fam.spec_state(cache)
@@ -157,7 +188,8 @@ def spec_state_fn(cache, cfg):
 
 def spec_restore_fn(cache, state, cfg):
     """Write a checkpoint of :func:`spec_state_fn`'s layout back into
-    ``cache``; families that checkpoint nothing return the cache."""
+    ``cache``, in place; families that checkpoint nothing return the
+    cache."""
     fam = get_family(cfg)
     if hasattr(fam, "spec_restore"):
         return fam.spec_restore(cache, state)

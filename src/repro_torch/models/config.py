@@ -3,9 +3,9 @@
 The dataclass keeps the reference's fields so configs read the same,
 with the MoE and MLA sections (:class:`MoEConfig`,
 :class:`~repro_torch.nn.attention.MLADims`) and the analytic parameter
-counts.  The recurrent families' section (SSM, ROADMAP.md queue 1, item
-14) stays ``None``: :meth:`ModelConfig.smoke` refuses a config that sets
-it.
+counts; the recurrent families' section is
+:class:`~repro_torch.nn.ssm.SSMDims`, the port's own copy of the
+reference's.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import dataclasses
 from typing import Optional
 
 from ..nn.attention import AttnDims, MLADims
+from ..nn.ssm import SSMDims
 
 __all__ = ["MoEConfig", "ModelConfig"]
 
@@ -58,7 +59,7 @@ class ModelConfig:
     attn_kind: str = "gqa"
     mla: Optional[MLADims] = None
     moe: Optional[MoEConfig] = None
-    ssm: Optional[object] = None
+    ssm: Optional[SSMDims] = None
     shared_attn_every: int = 0
     cross_attn_every: int = 0
     n_img_tokens: int = 1024
@@ -153,11 +154,7 @@ class ModelConfig:
 
     def smoke(self) -> "ModelConfig":
         """Reduced config of the same family for CPU smoke tests (the
-        reference's reductions; the SSM section is not ported)."""
-        if self.ssm is not None:
-            raise NotImplementedError(
-                f"{self.name}: the recurrent families are not ported yet "
-                f"(ROADMAP.md queue 1, item 14)")
+        reference's reductions)."""
         kw = dict(name=self.name + "-smoke", n_layers=min(self.n_layers, 2),
                   d_model=128, vocab=512, d_ff=256 if self.d_ff else 0,
                   max_position=4096, enc_layers=min(self.enc_layers, 2),
@@ -175,6 +172,9 @@ class ModelConfig:
                 self.moe, n_experts=8, top_k=min(self.moe.top_k, 2),
                 d_ff_expert=64, n_shared=min(self.moe.n_shared, 1),
                 first_k_dense=min(self.moe.first_k_dense, 1))
+        if self.ssm is not None:
+            kw["ssm"] = SSMDims(d_model=128, d_state=16, head_dim=32,
+                                expand=2, n_groups=1, d_conv=4, chunk=16)
         if self.shared_attn_every:
             kw["n_layers"] = 4
             kw["shared_attn_every"] = 2

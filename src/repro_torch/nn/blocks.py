@@ -8,6 +8,11 @@ output through :func:`~repro_torch.nn.moe.moe_apply` (dropless when it
 serves from a cache) and adds deepseek's shared experts, one gated MLP of
 ``n_shared * d_ff_expert`` beside the routed ones.
 
+A Mamba-2 block (the recurrent families) is a pre-norm residual around
+:func:`~repro_torch.nn.ssm.mamba2_apply` or, decoding, around
+:func:`~repro_torch.nn.ssm.mamba2_decode_step`, which advances the
+layer's state in place.
+
 Stacks of identical blocks keep the reference's stacked ``(L, ...)``
 parameter leaves; :func:`scan_apply` is the ``lax.scan`` counterpart, a
 Python loop that slices layer ``l`` out of every leaf (views, no copies).
@@ -26,11 +31,12 @@ from .context import DEFAULT_CTX, QuantContext
 from .linear import act_table, int8_qtype, linear, linear_init
 from .moe import MoEDims, moe_apply, moe_init
 from .norms import layernorm, layernorm_init, rmsnorm, rmsnorm_init
+from .ssm import mamba2_apply, mamba2_decode_step, mamba2_init
 
 __all__ = ["norm_init", "norm_apply", "mlp_init", "mlp_apply",
            "dense_block_init", "dense_block_apply", "moe_dims_of",
-           "moe_block_init", "moe_block_apply", "stack_init", "layer_slice",
-           "scan_apply"]
+           "moe_block_init", "moe_block_apply", "mamba_block_init",
+           "mamba_block_apply", "stack_init", "layer_slice", "scan_apply"]
 
 
 def norm_init(cfg, d: Optional[int] = None, device="cpu"):
@@ -160,6 +166,26 @@ def moe_block_apply(p, x, cfg, ctx: QuantContext = DEFAULT_CTX, *,
         y = y + mlp_apply(p["shared"], h2, cfg.mlp_act, ctx,
                           path=f"{path}/shared")
     return x + y, new_cache, aux
+
+
+def mamba_block_init(gen, cfg, *, dtype=torch.float32, device="cpu"):
+    return {"ln": norm_init(cfg, device=device),
+            "ssm": mamba2_init(gen, cfg.ssm, dtype=dtype, device=device)}
+
+
+def mamba_block_apply(p, x, cfg, ctx: QuantContext = DEFAULT_CTX, *,
+                      state=None, decode: bool = False,
+                      path: str = "mamba"):
+    """-> (x', new state): decoding, ``state`` itself, advanced in place;
+    else the whole sequence's final state (``state`` is not read)."""
+    h = norm_apply(cfg, p["ln"], x)
+    if decode:
+        y = mamba2_decode_step(p["ssm"], h, state, cfg.ssm, ctx,
+                               path=f"{path}/ssm")
+        return x + y, state
+    y, new_state = mamba2_apply(p["ssm"], h, cfg.ssm, ctx,
+                                path=f"{path}/ssm")
+    return x + y, new_state
 
 
 def stack_init(gen, n: int, init_fn: Callable):

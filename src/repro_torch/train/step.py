@@ -10,7 +10,9 @@ block's tokens back, and the whole block can be captured in one CUDA
 graph (:mod:`repro_torch.train.graphs`), the port's counterpart of the
 reference's single compiled dispatch.  The speculative loop keeps the
 same rule over its draft -> verify rounds.  Every step carries either
-serving cache, dense or paged, which the model updates in place.
+serving cache, dense or paged, which the model updates in place; a
+recurrent family's speculative rollback copies a per-position checkpoint
+back into it, in place too.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 from ..kernels.ops import sample_tokens, verify_tokens
 from ..kernels.prng import fold_in
 from ..kernels.speculative import draft_ngram
-from ..models.api import decode_fn, prefill_fn, spec_state_fn
+from ..models.api import (decode_fn, get_family, prefill_fn,
+                          spec_restore_fn, spec_state_fn)
 
 __all__ = ["build_serve_step", "build_prefill_step", "build_decode_loop",
            "build_spec_decode_loop", "LOOP_BUILDS"]
@@ -110,14 +113,28 @@ def build_decode_loop(cfg, ctx, steps: int) -> Callable:
     return decode_loop
 
 
-def _refuse_recurrent(cache, cfg, role: str) -> None:
-    """Rollback here is the ``pos`` rewind of a KV cache; a family whose
-    cache has recurrent state (``spec_state_fn`` not None) needs per-token
-    checkpoints, which come with those families."""
-    if spec_state_fn(cache, cfg) is not None:
-        raise NotImplementedError(
-            f"{role} {cfg.name}: speculative rollback of recurrent state is "
-            f"not ported yet (ROADMAP.md queue 1, item 14)")
+def _checkpoints(state, steps: int):
+    """Empty (steps, ...) buffers for per-position copies of every leaf of
+    a :func:`spec_state_fn` tree."""
+    if isinstance(state, dict):
+        return {k: _checkpoints(v, steps) for k, v in state.items()}
+    return state.new_empty((steps, *state.shape))
+
+
+def _record(buf, state, j: int) -> None:
+    """Copy ``state`` (views of the cache) into checkpoint ``j``."""
+    if isinstance(buf, dict):
+        for k in buf:
+            _record(buf[k], state[k], j)
+    else:
+        buf[j].copy_(state)
+
+
+def _pick(buf, idx, lane):
+    """Per lane, the checkpoint ``idx[lane]``."""
+    if isinstance(buf, dict):
+        return {k: _pick(v, idx, lane) for k, v in buf.items()}
+    return buf[idx, lane]
 
 
 def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
@@ -131,9 +148,13 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
     attention of a dense or int8 cache one position at a time, under
     ``per_position_attention``, so its rows are plain decode's), accepts the
     longest agreeing prefix through ``ops.verify_tokens`` and advances each
-    slot by what it committed.  Greedy slots emit the target's argmax
-    stream (the plain engine's); sampled slots keep its temperature /
-    top-k distribution.  KV rows rewind by the ``pos`` edit alone:
+    slot by what it committed.  A recurrent family (``ssm``, the hybrid)
+    cannot un-consume a token: its verify pass is ``k + 1`` decode steps,
+    each followed by a copy of the recurrent state (the checkpoints), and
+    after acceptance each lane's state is copied back, in place, from the
+    checkpoint of its last committed position.  Greedy slots emit the
+    target's argmax stream (the plain engine's); sampled slots keep its
+    temperature / top-k distribution.  KV rows rewind by the ``pos`` edit alone:
     rejected rows are overwritten before any query attends them.
 
     ``drafter``: ``"ngram"`` (prompt lookup over the ``hist`` (B, H)
@@ -142,8 +163,7 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
     ``"model"``: ``draft_cfg`` / ``draft_ctx`` (default ``ctx``) draft
     greedily, k + 1 steps a round on their own dense cache, so a fully
     accepted round leaves the drafter one token behind the new input, as
-    the target.  Draft models of the ``lm`` family only (item 14 brings
-    the recurrent ones).
+    the target.  A recurrent draft model is rolled back as the target.
 
     ``spec_loop(params, cache, tokens, pos, live, stop_pos, sample_params,
     key, step0, eos_id, hist) -> (cache, tokens, pos, live, hist,
@@ -163,34 +183,55 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
     LOOP_BUILDS["spec"] += 1
     s_blk = k + 1
     verify_ctx = dataclasses.replace(ctx, per_position_attention=True)
+    has_rec = hasattr(get_family(cfg), "spec_state")
     model_draft = drafter == "model"
     if model_draft:
         if draft_cfg is None:
             raise ValueError("the model drafter needs draft_cfg")
-        if draft_cfg.family != "lm":
+        if draft_cfg.family == "encdec":
             raise NotImplementedError(
-                f"draft model {draft_cfg.name} ({draft_cfg.family}): only "
-                f"lm drafters are ported (ROADMAP.md queue 1, item 14)")
+                f"draft model {draft_cfg.name}: an encdec model cannot "
+                f"draft (its decoder needs the encoder's output)")
         draft_ctx = draft_ctx or ctx
+        draft_has_rec = hasattr(get_family(draft_cfg), "spec_state")
+
+    def verify(params, seq, cache, pos):
+        """Target logits over the block, and the recurrent checkpoints
+        (None for a KV-only family: one chunked call, pos rewind)."""
+        if not has_rec:
+            logits, cache = decode_fn(params, seq, cache, pos, cfg,
+                                      verify_ctx)
+            return logits, cache, None
+        ckpts = _checkpoints(spec_state_fn(cache, cfg), s_blk)
+        lgs = []
+        for j in range(s_blk):
+            lg, cache = decode_fn(params, seq[:, j:j + 1], cache, pos + j,
+                                  cfg, ctx)
+            lgs.append(lg[:, 0])
+            _record(ckpts, spec_state_fn(cache, cfg), j)
+        return torch.stack(lgs, dim=1), cache, ckpts
 
     def draft_with_model(draft_params, dcache, tok, pos):
-        """k + 1 greedy draft steps; the drafts are the first k."""
+        """k + 1 greedy draft steps (the drafts are the first k), with a
+        recurrent drafter's checkpoints (else None)."""
         toks = []
+        ckpts = (_checkpoints(spec_state_fn(dcache, draft_cfg), s_blk)
+                 if draft_has_rec else None)
         for j in range(s_blk):
             lg, dcache = decode_fn(draft_params, tok, dcache, pos + j,
                                    draft_cfg, draft_ctx)
             tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
             toks.append(tok)
-        return torch.cat(toks[:k], dim=1), dcache
+            if ckpts is not None:
+                _record(ckpts, spec_state_fn(dcache, draft_cfg), j)
+        return torch.cat(toks[:k], dim=1), dcache, ckpts
 
     def spec_loop(params, cache, tokens, pos, live, stop_pos, sample_params,
                   key, step0, eos_id, *aux):
         temperature = sample_params["temperature"]
         top_k = sample_params["top_k"]
-        _refuse_recurrent(cache, cfg, "target")
         if model_draft:
             draft_params, carry = aux
-            _refuse_recurrent(carry, draft_cfg, "draft model")
         else:
             (carry,) = aux                               # hist (B, H)
         dev = tokens.device
@@ -204,8 +245,8 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
         for i in range(steps):
             # -- draft -------------------------------------------------
             if model_draft:
-                drafts, carry = draft_with_model(draft_params, carry, tokens,
-                                                 pos)
+                drafts, carry, dckpts = draft_with_model(draft_params, carry,
+                                                         tokens, pos)
             elif callable(drafter):
                 carry = carry.index_put((lane, pos.long()),
                                         tokens[:, 0].to(carry.dtype))
@@ -214,8 +255,7 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
                 drafts, carry = draft_ngram(carry, tokens, pos, k, ngram)
             # -- verify: one target call over the whole block ----------
             seq = torch.cat([tokens, drafts], dim=1)          # (B, k + 1)
-            logits, cache = decode_fn(params, seq, cache, pos, cfg,
-                                      verify_ctx)
+            logits, cache, ckpts = verify(params, seq, cache, pos)
             logits = logits.to(torch.float32)
             bad = live & ~torch.isfinite(logits).all(dim=(1, 2))
             ok = live & ~bad
@@ -237,6 +277,12 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
             cut = torch.clamp(n_fin - 1, max=k - 1).long()
             next_tok = torch.where(n_fin < n_adv, drafts[lane, cut],
                                    next_tok)
+            # -- roll recurrent state back to the last committed position
+            last = (n_fin - 1).long()
+            if ckpts is not None:
+                spec_restore_fn(cache, _pick(ckpts, last, lane), cfg)
+            if model_draft and dckpts is not None:
+                spec_restore_fn(carry, _pick(dckpts, last, lane), draft_cfg)
             # -- commit: accepted drafts join the history buffer --------
             if not model_draft:
                 widx = torch.clamp(pos[:, None].long() + 1 + jdraft[None, :],

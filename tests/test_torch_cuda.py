@@ -1938,3 +1938,89 @@ def test_block_graphs_share_one_pool(card):
     x.copy_(torch.arange(16, dtype=torch.float32, device="cuda"))
     outs = [g.replay().item() for g in graphs]
     assert outs == [2.0 * 120, 3.0 * 120]
+
+
+RECURRENT_ARCHS = ["mamba2-370m", "zamba2-1.2b"]
+
+
+def _recurrent_engine(arch, weights, device, **kw):
+    """The smoke config's Engine on ``device`` (f32 compute, pages of 4;
+    the same seeded CPU weights on both devices)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.launch.serve import Engine, quantize_for_serving
+    from repro_torch.models.api import get_family
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config(arch).smoke()
+    ctx = QuantContext(
+        mode="int8" if weights == "int8" else "none",
+        policy=(PrecisionPolicy.uniform(FixedPointType(8, 4))
+                if weights == "int8" else PrecisionPolicy()),
+        compute_dtype=torch.float32)
+    params = get_family(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+    if weights == "int8":
+        params = quantize_for_serving(params, ctx)
+    return Engine(cfg, ctx, params, batch=2, max_len=32, page_size=4,
+                  device=device, **kw)
+
+
+def _recurrent_streams(eng, gen=12):
+    from repro_torch.data.pipeline import SyntheticLM
+    src = SyntheticLM(eng.cfg.vocab, seed=0)
+    ids = [eng.submit(src.tokens(i, 1, 14)[0, :-1], gen_len=gen)
+           for i in range(3)]
+    eng.try_admit()
+    while eng.live.any() or eng.waiting:
+        eng.step_many(4)
+    eng.retire_finished()
+    return [eng.results[i]["tokens"] for i in ids]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("weights", ["f32", "int8"])
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_graphed_streams_equal_eager(card, arch, weights, paged):
+    """The recurrent families' decode blocks as CUDA graphs: the looped
+    prefill and the merges write the state in place between replays, and
+    the streams equal the eager engine's on the card, one graph per
+    (steps, sampled)."""
+    graphed = _recurrent_engine(arch, weights, "cuda", paged=paged)
+    got = _recurrent_streams(graphed)
+    want = _recurrent_streams(_recurrent_engine(arch, weights, "cuda",
+                                                paged=paged, graphs=False))
+    assert got == want
+    assert graphed.blocks.captures == 1
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_spec_graphed_streams_equal_plain(card, arch):
+    """n-gram speculation (k 3) graphed on the card: the per-position
+    checkpoints are captured in the graph and the rollback writes the
+    state in place; the streams equal the plain graphed engine's."""
+    spec = _recurrent_engine(arch, "f32", "cuda", paged=True, spec=True,
+                             spec_k=3)
+    plain = _recurrent_engine(arch, "f32", "cuda", paged=True)
+    assert _recurrent_streams(spec) == _recurrent_streams(plain)
+    assert spec.counters["verify_steps"] > 0
+
+
+def test_recurrent_state_written_in_place_under_a_replay(card):
+    """A replayed mamba2 decode block advances the very state tensors the
+    engine holds: after a looped prefill into the graph's tensors, a
+    replay changes their values and keeps their addresses."""
+    from repro_torch.train.graphs import _addresses
+    eng = _recurrent_engine("mamba2-370m", "f32", "cuda")
+    addrs = _addresses(eng.cache)
+    _recurrent_streams(eng, gen=12)                   # captures the graph
+    assert eng.blocks.captures == 1
+    assert _addresses(eng.cache) == addrs
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    eng.submit(np.arange(5, dtype=np.int32), gen_len=9)
+    eng.try_admit()
+    mid = {k: v.clone() for k, v in eng.cache.items()}
+    eng.step_many(4)                                  # a replay
+    assert _addresses(eng.cache) == addrs
+    assert not torch.equal(mid["ssm"], eng.cache["ssm"])
+    assert not torch.equal(before["ssm"], mid["ssm"])

@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import device as tdevice  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import api, encdec, lm  # noqa: E402
+from repro_torch.models import api, encdec, hybrid, lm, ssm_lm  # noqa: E402
 
 
 def _gen():
@@ -37,6 +37,16 @@ ENTRY_POINTS = [
      lambda cfg, **kw: encdec.init(_gen(), cfg, **kw)),
     ("encdec.init_cache", "whisper-base",
      lambda cfg, **kw: encdec.init_cache(cfg, 2, 8, **kw)),
+    ("ssm_lm.init", "mamba2-370m",
+     lambda cfg, **kw: ssm_lm.init(_gen(), cfg, **kw)),
+    ("ssm_lm.init_cache", "mamba2-370m",
+     lambda cfg, **kw: ssm_lm.init_cache(cfg, 2, 8, **kw)),
+    ("hybrid.init", "zamba2-1.2b",
+     lambda cfg, **kw: hybrid.init(_gen(), cfg, **kw)),
+    ("hybrid.init_cache", "zamba2-1.2b",
+     lambda cfg, **kw: hybrid.init_cache(cfg, 2, 8, **kw)),
+    ("hybrid.init_paged_cache", "zamba2-1.2b",
+     lambda cfg, **kw: hybrid.init_paged_cache(cfg, 2, 5, 4, 2, **kw)),
 ]
 
 

@@ -39,10 +39,20 @@ def int8_policies():
             PrecisionPolicy.uniform(FixedPointType(8, 4)), FixedPointType(8, 4))
 
 
-def smoke_params(mode: str, seed: int = 0, arch: str = "gemma-2b"):
+#: the reference's f32 init per (arch, seed, depth), shared by both modes
+_INIT = {}
+
+
+def smoke_params(mode: str, seed: int = 0, arch: str = "gemma-2b",
+                 n_layers=None):
     """``arch`` smoke params from the reference's init, (cfg, JAX tree,
     port tree on the CPU); ``mode="int8"`` quantizes with the reference's
-    ``quantize_for_serving`` before converting."""
+    ``quantize_for_serving`` before converting.  ``n_layers`` replaces the
+    smoke config's depth (the hybrid at 5 layers has a tail).  The init
+    runs once per process for each (arch, seed, depth); each call converts
+    afresh, so callers may edit the port's tensors."""
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
     from repro.configs import get_config
@@ -51,8 +61,16 @@ def smoke_params(mode: str, seed: int = 0, arch: str = "gemma-2b"):
     from repro.nn.context import QuantContext as JCtx
     from repro_torch.convert import params_from_numpy
 
-    cfg = get_config(arch).smoke()
-    params = get_family(cfg).init(jax.random.PRNGKey(seed), cfg)
+    key = (arch, seed, n_layers)
+    if key not in _INIT:
+        cfg = get_config(arch).smoke()
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        _INIT[key] = (cfg, get_family(cfg).init(jax.random.PRNGKey(seed),
+                                                cfg))
+    cfg, params = _INIT[key]
+    # fresh containers over the shared (immutable) arrays
+    params = jax.tree_util.tree_map(lambda a: a, params)
     qtype = None
     if mode == "int8":
         jpol, _, qtype = int8_policies()
