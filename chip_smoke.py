@@ -22,7 +22,8 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    rest of the lm family's projections (the untied heads at N = vocab,
    command-r's MLP, glm4's q/k/v with bias, deepseek's MLA), and over
    mamba2's and zamba2's at M = 8 and 128 (N 4384 and 8384: the N
-   tail), all bitwise;
+   tail), and over llama-3.2-vision's at M = 8, 512 (up/gate) and 8 x
+   1601 (the image's K/V), all bitwise;
    paged attention at decode, verify (S = 5) and prefill, unsplit
    and split, plus a ~4096-token decode, and at D 128 with query groups
    of 8, 16 and 1 (path 10's heads), and zamba2's 32 heads at D 64
@@ -31,14 +32,16 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    and silu rows, and on one layer's
    gate activations at decode and prefill with every indexing and the
    gelu, silu and softmax-exp tables; lut_gated_mul (the gated MLP's
-   table pass) on the same shapes, bitwise, beside the unfused chain it
-   replaces; quantize_rows at gemma-2b's decode and prefill rows and
-   whisper-base's 12000 encoder rows, bitwise with zero, half-way and NaN
+   table pass) on the same shapes and path 12's SiLU at 8 x 14336,
+   bitwise, beside the unfused chain it replaces; quantize_rows at
+   gemma-2b's decode and prefill rows, whisper-base's 12000 encoder rows
+   and path 12's 12808 image rows, bitwise with zero, half-way and NaN
    rows; flash_attention at the whisper
    encoder's shape, gemma-2b's cache-free prefill, ragged Sq/Skv, the
    MLA width, glm4's S 512, deepseek's S 512 naive MLA form (128 heads,
-   D 192, V padded from 128) and zamba2's forward (B 8, 32 heads, S 512,
-   D 64), bf16 and f32), with the kernel's, the plain
+   D 192, V padded from 128), zamba2's forward (B 8, 32 heads, S 512,
+   D 64) and path 12's (B 4, 32 heads on 8, S 512, D 128), bf16 and
+   f32), with the kernel's, the plain
    version's and a
    library call's device time (median of cold-L2 launches, CUDA events)
    and the kernel/library factor beside the least time the card could
@@ -148,7 +151,22 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    admission, decode wall, device busy and kernels per step, state bytes
    per lane, peak memory, spill and resume ms and the device time of the
    SSD scan and the decode-state update (PyTorch ops: the reference has
-   no kernel for them) logged;
+   no kernel for them) logged.
+   Path 12: llama-3.2-vision-11b (the vlm family: 8 groups of 4 self
+   layers and a gated cross layer, 1601 image tokens) at full width and
+   depth through the serving step builders (the Engine refuses the
+   family: the reference Engine never passes the image), the gates drawn
+   nonzero, bf16 compute, the dense f32 KV cache, batch 8, prompt 64 and
+   the stub image, 32 greedy tokens in graphed blocks of 8: (a) int8
+   weights, (b) bf16 weights under --lut, (c) (a)'s cache-free forward
+   at B 4, S 512 with the image; logits of the prefill and 4 decode
+   steps gated as path 1's and, on (a), bitwise (relative L2 <= 1e-4),
+   which a zeroed image and two groups' swapped cross K/V must fail;
+   exact launch counts (qmatmul 280 a prefill and 264 a decode step,
+   one quantize_rows each; lut_gated_mul 40 a call; flash 32 in (c));
+   graphed == eager, one capture serving two prefills; prefill ms (the
+   image projection apart), decode wall, busy and kernels per step,
+   cross K/V bytes and peak memory logged;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -210,6 +228,13 @@ RECURRENT_PROJ = [("mamba2 in_proj", 1024, 4384), ("mamba2 out_proj", 2048, 1024
                   ("zamba2 shared q/k/v/o", 2048, 2048),
                   ("zamba2 shared up/gate", 2048, 8192),
                   ("zamba2 shared down", 8192, 2048)]
+#: llama-3.2-vision-11b's int8 projections (path 12) at a decode step's 8
+#: rows: q/o, k/v (8 KV heads of 128), the gated MLP's gate/up and down
+VLM_PROJ = [("vlm wq/wo", 4096, 4096), ("vlm wk/wv", 4096, 1024),
+            ("vlm up/gate", 4096, 14336), ("vlm down", 14336, 4096)]
+#: path 12's image: 1601 patch tokens a sample, batch 8 (the rows of the
+#: image's K/V projections at prefill)
+VLM_IMG_ROWS = 8 * 1601
 #: speculative decoding's draft depth on path 6: a verify pass runs the
 #: model at M = 8 x (SPEC_K + 1) = 40 rows and paged attention at S = 5
 SPEC_K = 4
@@ -302,6 +327,14 @@ def check_qmatmul(torch, timer, rows):
     # path 11: a decode step's 8 rows and 128
     cases += [(m, name, k, n, torch.bfloat16, None, False)
               for name, k, n in RECURRENT_PROJ for m in (8, 128)]
+    # path 12: a decode step's 8 rows, the prefill prompt's 8 x 64 on the
+    # MLP's up/gate, the image's 8 x 1601 rows on its K/V
+    cases += [(8, name, k, n, torch.bfloat16, None, False)
+              for name, k, n in VLM_PROJ]
+    cases += [(512, "vlm prefill up/gate", 4096, 14336, torch.bfloat16, None,
+               False),
+              (VLM_IMG_ROWS, "vlm image wk/wv", 4096, 1024, torch.bfloat16,
+               None, False)]
     for m, name, k, n, out_dtype, spec, with_bias in cases:
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -478,55 +511,55 @@ def check_lut_gated(torch, timer, rows):
     version on one layer's gate and up activations, (tokens, d_ff) = (8,
     16384) at decode and (128, 16384) for a prefill chunk, bf16 and f32,
     every indexing, the gated GELU table (the main path's) and silu's gate
-    table (a step that is not a power of two): bitwise.  Context beside
-    the kernel: the unfused chain it replaces on the card (the
-    lut_activation kernel, then the two PyTorch products), timed alike."""
+    table (a step that is not a power of two), and path 12's SiLU MLP at
+    (8, 14336): bitwise.  Context beside the kernel: the unfused chain it
+    replaces on the card (the lut_activation kernel, then the two PyTorch
+    products), timed alike."""
     from repro_torch.core.tables import TableSpec
     from repro_torch.kernels.lut_activation import (lut_activation,
                                                     lut_gated_mul,
                                                     lut_gated_mul_plain)
     g = torch.Generator(device="cuda").manual_seed(5)
-    for fn, lo, hi in (("gelu_gate", -8.0, 8.0), ("silu_gate", -10.0, 10.0)):
-        for indexing in ("trunc", "nearest", "interp"):
-            spec = TableSpec(fn, 1024, lo, hi, None, indexing)
-            for m in (8, 128):
-                for dt in (torch.bfloat16, torch.float32):
-                    x = (torch.randn((m, 16384), generator=g, device="cuda")
-                         * 4).to(dt)
-                    up = (torch.randn((m, 16384), generator=g,
-                                      device="cuda") * 2).to(dt)
-                    got = lut_gated_mul(x, up, spec)
-                    want = lut_gated_mul_plain(x, up, spec)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    # the same single-rounded operations in the same order
-                    tol = 0.0
-                    if not (torch.equal(got, want)
-                            and torch.isfinite(got).all().item()):
-                        raise AssertionError(
-                            f"lut_gated_mul {fn} {indexing} {m}x16384 {dt}: "
-                            f"max_abs_err {err}, not bitwise")
-                    ms = timer(lambda: lut_gated_mul(x, up, spec))
-                    plain_ms = timer(lambda: lut_gated_mul_plain(x, up, spec),
-                                     reps=5)
-                    unfused_ms = timer(
-                        lambda: (x * lut_activation(x, spec)).to(dt) * up)
-                    nbytes = 3 * x.numel() * x.element_size() + 4 * spec.n
-                    # a gather or two and ~12 f32 operations per element
-                    bnd, by = bound_ms(nbytes, 12.0 * x.numel(),
-                                       F32_FLOP_PER_S)
-                    rows.append(dict(
-                        kernel="lut_gated_mul",
-                        case=f"{fn} {indexing} {m}x16384 {str(dt)[6:]}",
-                        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                        library_ms=None, unfused_chain_ms=unfused_ms,
-                        bound_ms=bnd, bound_by=by))
-                    log(f"[check] lut_gated_mul {rows[-1]['case']}: "
-                        f"bitwise (max_abs_err={err:.3g}) kernel={ms:.4f}ms "
-                        f"plain={plain_ms:.4f}ms library=none "
-                        f"kernel/library={over_library(rows[-1])} (context: "
-                        f"unfused chain lut_activation + 2 products "
-                        f"{unfused_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
+    # (table, lo, hi, indexing, rows, columns, dtype)
+    cases = [(fn, lo, hi, indexing, m, 16384, dt)
+             for fn, lo, hi in (("gelu_gate", -8.0, 8.0),
+                                ("silu_gate", -10.0, 10.0))
+             for indexing in ("trunc", "nearest", "interp")
+             for m in (8, 128) for dt in (torch.bfloat16, torch.float32)]
+    # path 12: llama-3.2-vision's SiLU MLP at a decode step (d_ff 14336)
+    cases.append(("silu_gate", -10.0, 10.0, "interp", 8, 14336,
+                  torch.bfloat16))
+    for fn, lo, hi, indexing, m, cols, dt in cases:
+        spec = TableSpec(fn, 1024, lo, hi, None, indexing)
+        x = (torch.randn((m, cols), generator=g, device="cuda") * 4).to(dt)
+        up = (torch.randn((m, cols), generator=g, device="cuda") * 2).to(dt)
+        got = lut_gated_mul(x, up, spec)
+        want = lut_gated_mul_plain(x, up, spec)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        # the same single-rounded operations in the same order
+        tol = 0.0
+        if not (torch.equal(got, want) and torch.isfinite(got).all().item()):
+            raise AssertionError(f"lut_gated_mul {fn} {indexing} {m}x{cols} "
+                                 f"{dt}: max_abs_err {err}, not bitwise")
+        ms = timer(lambda: lut_gated_mul(x, up, spec))
+        plain_ms = timer(lambda: lut_gated_mul_plain(x, up, spec), reps=5)
+        unfused_ms = timer(lambda: (x * lut_activation(x, spec)).to(dt) * up)
+        nbytes = 3 * x.numel() * x.element_size() + 4 * spec.n
+        # a gather or two and ~12 f32 operations per element
+        bnd, by = bound_ms(nbytes, 12.0 * x.numel(), F32_FLOP_PER_S)
+        rows.append(dict(
+            kernel="lut_gated_mul",
+            case=f"{fn} {indexing} {m}x{cols} {str(dt)[6:]}",
+            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+            library_ms=None, unfused_chain_ms=unfused_ms,
+            bound_ms=bnd, bound_by=by))
+        log(f"[check] lut_gated_mul {rows[-1]['case']}: "
+            f"bitwise (max_abs_err={err:.3g}) kernel={ms:.4f}ms "
+            f"plain={plain_ms:.4f}ms library=none "
+            f"kernel/library={over_library(rows[-1])} (context: "
+            f"unfused chain lut_activation + 2 products "
+            f"{unfused_ms:.4f}ms) bound={bnd:.5f}ms ({by})")
 
 
 def same_bits(torch, a, b) -> bool:
@@ -540,9 +573,10 @@ def same_bits(torch, a, b) -> bool:
 
 #: quantize_rows' cases: gemma-2b's decode rows (K 2048 for wq/wk/wv/up/
 #: gate, 16384 for down), a 128-row prefill chunk, whisper-base's encoder
-#: (8 x 1500 rows, K 512 and 2048)
+#: (8 x 1500 rows, K 512 and 2048), llama-3.2-vision's image (8 x 1601
+#: rows of 4096, path 12)
 QUANT_CASES = [(8, 2048), (8, 16384), (128, 2048), (128, 16384),
-               (12000, 512), (12000, 2048)]
+               (12000, 512), (12000, 2048), (VLM_IMG_ROWS, 4096)]
 
 
 def check_quantize_rows(torch, timer, rows):
@@ -751,6 +785,9 @@ FLASH_CASES = [
     ("e deepseek MLA", 1, 128, 128, 512, 512, 192, True, ("bf16",), 128),
     # path 11's zamba2 cache-free forward: batch 8, S 512, MHA at D 64
     ("f zamba2 forward", 8, 32, 32, 512, 512, 64, True, ("bf16",), None),
+    # path 12's llama-3.2-vision cache-free forward: batch 4, S 512, 32
+    # heads on 8 KV heads of 128 (the self layers, causal)
+    ("g vlm forward", 4, 32, 8, 512, 512, 128, True, ("bf16",), None),
 ]
 
 
@@ -3195,6 +3232,388 @@ def serve_recurrent(torch, report) -> dict:
     return total
 
 
+#: path 12: llama-3.2-vision-11b, batch 8, a 64-token prompt, 32 greedy
+#: tokens in graphed blocks of 8; (c) the cache-free forward at B 4, S 512
+VLM = dict(batch=8, plen=64, gen=32, block=8, forward_b=4, forward_s=512,
+           logit_steps=4)
+#: path 12's second gate, beside path 1's, on the int8 run (a): the
+#: relative L2 error of the logits through the kernels against the plain
+#: versions'.  Every kernel of that path is bitwise its plain version
+#: (qmatmul and quantize_rows), so the sound readings are 0; the image
+#: moves random-weight logits far less than path 1's 0.25 allows (the
+#: reference's stub image is 0.02 x randn and its K/V projections take no
+#: norm), so the planted faults are held to this gate.  (b)'s plain side
+#: runs the reference's table pass (f32 table values), not the kernel's
+#: (the input's dtype): not bitwise in bf16, so (b) keeps path 1's gates
+VLM_TOL_REL = 1e-4
+VLM_FAULTS = ("zeroed img_embed", "swapped cross K/V of groups 0 and 1")
+
+
+def _vlm_gates(torch, params, seed: int) -> None:
+    """The eight cross blocks' gates drawn nonzero from ``seed`` (uniform
+    in +-[0.3, 1.0]): at the reference's init they are 0, where the cross
+    layers add nothing and no gate could see the image."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name in ("gate_attn", "gate_mlp"):
+        t = params["cross"][name]
+        mag = torch.rand(t.shape, generator=g, device="cuda") * 0.7 + 0.3
+        sign = torch.randint(0, 2, t.shape, generator=g, device="cuda") * 2 - 1
+        params["cross"][name] = (mag * sign).float()
+
+
+def vlm_logit_check(torch, cfg, params, ctx, batch, *, steps: int,
+                    faults: bool):
+    """Full-width logits of the prefill (every prompt position) and
+    ``steps`` teacher-forced decode steps (the plain side's argmax),
+    through the kernels and through the plain versions, each on its own
+    dense f32 cache: gated at path 1's gates and, with ``faults``, at
+    VLM_TOL_REL.  Then each planted fault of VLM_FAULTS, in the kernels'
+    run only, must fail the VLM_TOL_REL gate at some step: the image
+    reaches the logits, and each group reads its own cross K/V."""
+    from repro_torch.models import vlm
+    b, plen = batch["tokens"].shape
+
+    def run(c, forced=None, fault=None):
+        cache = vlm.init_cache(cfg, b, plen + steps + 1, torch.float32,
+                               "cuda")
+        bt = batch
+        if fault == VLM_FAULTS[0]:
+            bt = dict(batch, img_embed=torch.zeros_like(batch["img_embed"]))
+        out, toks = [], []
+        for step in range(steps + 1):
+            if step == 0:
+                logits, cache = vlm.prefill(params, bt, cache, cfg, c,
+                                            full_logits=True)
+                if fault == VLM_FAULTS[1]:
+                    for t in cache["cross_kv"].values():
+                        t[[0, 1]] = t[[1, 0]].clone()
+            else:
+                pos = torch.full((b,), plen + step - 1, dtype=torch.int32,
+                                 device="cuda")
+                tok = (toks if forced is None else forced)[step - 1]
+                logits, cache = vlm.decode_step(params, tok, cache, pos, cfg,
+                                                c)
+            out.append(logits.float())
+            toks.append(out[-1][:, -1].argmax(-1).to(torch.int32)[:, None])
+        del cache
+        return out, toks
+
+    def what(step):
+        return "prefill" if step == 0 else f"decode step {step}"
+
+    mode = f"{ctx.mode}{' +lut' if ctx.use_lut else ''}"
+    plain, forced = run(dataclasses.replace(ctx, backend="ref"))
+    got, _ = run(ctx, forced)
+    checks = []
+    for step, (lk, lp) in enumerate(zip(got, plain)):
+        checks.append(gate_logits(torch, "[vlm]", f"vlm {mode}: {what(step)}",
+                                  lk, lp, ctx.compute_dtype))
+        if faults and checks[-1]["rel_l2_err"] > VLM_TOL_REL:
+            raise AssertionError(f"vlm {mode} {what(step)}: relative L2 "
+                                 f"error {checks[-1]['rel_l2_err']} > "
+                                 f"{VLM_TOL_REL} on a path whose kernels "
+                                 f"are bitwise their plain versions")
+    del got
+    for fault in VLM_FAULTS if faults else ():
+        got, _ = run(ctx, forced, fault)
+        readings = [logit_readings(lk, lp) for lk, lp in zip(got, plain)]
+        del got
+        caught = [r for r in readings if not passes_gate(
+            r, tol_rel=VLM_TOL_REL, min_agree=LOGIT_MIN_AGREE)]
+        worst_rel = max(r["rel_l2_err"] for r in readings)
+        worst_agree = min(r["argmax_agree"] for r in readings)
+        by_step = ", ".join(f"{r['rel_l2_err']:.3g}" for r in readings)
+        log(f"[vlm] planted fault '{fault}' ({mode}): relative L2 "
+            f"{by_step} by step, argmax agreement down to "
+            f"{worst_agree:.4f}; fails the gate (relative L2 <= "
+            f"{VLM_TOL_REL}) at {len(caught)} of {len(readings)} steps")
+        if not caught:
+            raise AssertionError(f"vlm {mode}: the logit gate does not "
+                                 f"catch the planted fault '{fault}'")
+        checks.append(dict(step=f"planted fault: {fault}",
+                           rel_l2_err=worst_rel, argmax_agree=worst_agree,
+                           rel_l2_by_step=[r["rel_l2_err"] for r in readings],
+                           steps_caught=len(caught)))
+    del plain
+    torch.cuda.synchronize()
+    return checks
+
+
+def _vlm_expected(cfg, mode: str, use_lut: bool, steps: int) -> dict:
+    """Launches of one prefill and ``steps`` decode steps: int8 weights
+    run qmatmul (and one quantize_rows each) 7 times per self layer and
+    per cross layer at prefill (the image's K/V among them), 5 times per
+    cross layer at decode (its K/V come from the cache); --lut with float
+    weights runs lut_gated_mul once per MLP; no attention kernel (the
+    dense cache and the cached cross K/V attend with einsums)."""
+    from repro_torch.models import vlm
+    n_groups, k_self = vlm._group_structure(cfg)
+    want = {}
+    if mode == "int8":
+        q = 7 * n_groups * (k_self + 1) + steps * n_groups * (7 * k_self + 5)
+        want = {"qmatmul": q, "quantize_rows": q}
+    elif use_lut:
+        want = {"lut_gated_mul": cfg.n_layers * (1 + steps)}
+    return want
+
+
+def _vlm_serve(torch, cfg, ctx, params, batch, blocks, cache):
+    """The step builders' prefill into ``cache``, then ``gen // block``
+    decode blocks of ``blocks`` (a ``DecodeBlocks``): (streams (B, gen),
+    host seconds of each block)."""
+    import numpy as np
+    from repro_torch.train.step import build_prefill_step
+    v = VLM
+    b, plen, gen, blk = v["batch"], v["plen"], v["gen"], v["block"]
+    logits, cache = build_prefill_step(cfg, ctx)(params, batch, cache)
+    tok = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None] \
+        .cpu().numpy()
+    pos, live = np.full((b,), plen, np.int32), np.ones((b,), bool)
+    out, walls = [], []
+    for i in range(gen // blk):
+        state = blocks.pack(tok, pos, live, np.full((b,), plen + gen,
+                                                    np.int32),
+                            np.zeros((b,), np.float32),
+                            np.zeros((b,), np.int32), i * blk, -1)
+        t0 = time.perf_counter()
+        block, _, tok, pos, live, fault = blocks.unpack(
+            blocks(params, cache, state, None, blk), blk)
+        walls.append(time.perf_counter() - t0)
+        if fault.any():
+            raise AssertionError("vlm: non-finite logits in a decode block")
+        out.append(block)
+    streams = np.concatenate(out).T
+    if not (streams.shape == (b, gen) and streams.min() >= 0
+            and streams.max() < cfg.vocab and not live.any()):
+        raise AssertionError(f"vlm: streams {streams.shape} out of range or "
+                             f"still live")
+    return streams, walls
+
+
+def _vlm_run(torch, label, cfg, ctx, params, batch, record):
+    """One weight mode of path 12: the logit check, then a counted graphed
+    run (counts reset just before the prefill, read after the last
+    block), the same graph serving a second prefill (no new capture),
+    an eager run (identical streams and counts), and the timings."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import vlm
+    from repro_torch.models.api import init_cache_fn
+    from repro_torch.nn.attention import gqa_project_kv
+    from repro_torch.nn.blocks import layer_slice
+    from repro_torch.train.graphs import DecodeBlocks, _addresses
+    v = VLM
+    b, plen, gen, blk = v["batch"], v["plen"], v["gen"], v["block"]
+    checks = vlm_logit_check(torch, cfg, params, ctx, batch,
+                             steps=v["logit_steps"],
+                             faults=ctx.mode == "int8")
+    want = _vlm_expected(cfg, ctx.mode, ctx.use_lut, gen)
+    cache = init_cache_fn(cfg, b, plen + gen, torch.float32, "cuda")
+    addrs = _addresses(cache)
+    graphed = DecodeBlocks(cfg, ctx, b, "cuda", graphs=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    streams, _ = _vlm_serve(torch, cfg, ctx, params, batch, graphed, cache)
+    counts = launch_counts()
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"vlm {label}: launches {got}, expected {want} "
+                             f"(one prefill and {gen} decode steps)")
+    record(counts)
+    # the captured graph serves a second prefill into the same cache
+    again, walls = _vlm_serve(torch, cfg, ctx, params, batch, graphed,
+                              cache)
+    if graphed.captures != 1 or _addresses(cache) != addrs \
+            or not (again == streams).all():
+        raise AssertionError(f"vlm {label}: {graphed.captures} captures, "
+                             f"cache moved {_addresses(cache) != addrs}, "
+                             f"streams equal {(again == streams).all()}")
+    reset_launch_counts()
+    eager, _ = _vlm_serve(torch, cfg, ctx, params, batch,
+                          DecodeBlocks(cfg, ctx, b, "cuda", graphs=False),
+                          cache)
+    ecounts = {k: n for k, n in launch_counts().items() if n}
+    if not (eager == streams).all() or ecounts != want:
+        raise AssertionError(f"vlm {label}: eager streams equal "
+                             f"{(eager == streams).all()}, launches "
+                             f"{ecounts} (graphed {got})")
+    # timings: the prefill and its image projection (CUDA events, warm),
+    # decode wall per step (the second graphed run), device busy per step
+    n_groups, _ = vlm._group_structure(cfg)
+    dims = cfg.attn_dims(causal=False)
+    img = batch["img_embed"].to(ctx.compute_dtype)
+    prefill_ms = event_ms(torch, lambda: vlm.prefill(params, batch, cache,
+                                                     cfg, ctx), reps=3)
+    image_ms = event_ms(torch, lambda: [gqa_project_kv(
+        layer_slice(params["cross"], g)["attn"], img, dims, ctx)
+        for g in range(n_groups)], reps=3)
+    state = graphed.pack(streams[:, :1], [plen] * b, [True] * b,
+                         [plen + gen] * b, [0.0] * b, [0] * b, 0, -1)
+    top = []
+    busy, kernels = _profiled_busy(torch, lambda: graphed(
+        params, cache, state, None, blk), top=top)
+    cross_bytes = sum(t.numel() * t.element_size()
+                      for t in cache["cross_kv"].values())
+    run = dict(weights=label, launches=counts, logit_checks=checks,
+               prefill_ms=prefill_ms, image_projection_ms=image_ms,
+               prompt_ms=prefill_ms - image_ms,
+               decode_wall_ms_per_step=statistics.median(walls[1:]) * 1e3
+               / blk,
+               device_busy_ms_per_step=None if busy is None else busy / blk,
+               device_kernels_per_step=kernels / blk,
+               cross_kv_bytes=cross_bytes,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+               / 2**30, captures=graphed.captures,
+               top_per_step=[dict(kernel=k, ms=ms / blk, count=n / blk)
+                             for k, ms, n in top])
+    log(f"[vlm] {label}: prefill {prefill_ms:.2f} ms (image K/V "
+        f"projection {image_ms:.2f} ms, the {plen}-token prompt "
+        f"{run['prompt_ms']:.2f} ms; CUDA events), decode wall "
+        f"{run['decode_wall_ms_per_step']:.3f} ms per step (graphed), device "
+        f"busy {fmt_ms(run['device_busy_ms_per_step'])} per step, "
+        f"{run['device_kernels_per_step']:.1f} device kernels and copies per "
+        f"step, cross K/V {cross_bytes / 1e6:.1f} MB, peak memory "
+        f"{run['max_memory_allocated_gib']:.2f} GiB allocated; launches "
+        f"{json.dumps(got)}; graphed == eager, one capture")
+    for k, ms, n in top[:8]:
+        log(f"[vlm]   {ms / blk:8.3f} ms x{n / blk:<6.1f} a step  {k[:90]}")
+    graphed.release()
+    del cache
+    return run
+
+
+def _vlm_forward(torch, cfg, params, ctx, record):
+    """(c): the cache-free ``vlm.forward`` with the image at B 4, S 512
+    through the kernels and through the plain versions: flash once per
+    self layer, qmatmul 7 times per layer (the image's K/V at 4 x 1601
+    rows), logits gated as path 1's."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import vlm
+    b, s = VLM["forward_b"], VLM["forward_s"]
+    nb = make_batch(cfg, 1, b, s, seed=0)
+    tokens = torch.from_numpy(nb["tokens"]).cuda()
+    img = torch.from_numpy(nb["img_embed"]).cuda()
+    del nb
+    n_groups, k_self = vlm._group_structure(cfg)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lk, _ = vlm.forward(params, tokens, img, cfg, ctx)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    q = 7 * cfg.n_layers
+    want = {"flash_attention": n_groups * k_self, "qmatmul": q,
+            "quantize_rows": q}
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise AssertionError(f"vlm cache-free forward: launches {got}, "
+                             f"expected {want}")
+    record(counts)
+    ms = event_ms(torch, lambda: vlm.forward(params, tokens, img, cfg, ctx),
+                  reps=3)
+    lp, _ = vlm.forward(params, tokens, img, cfg,
+                        dataclasses.replace(ctx, backend="ref"))
+    check = gate_logits(torch, "[vlm]", f"vlm {ctx.mode} cache-free forward "
+                        f"B {b} S {s} with the image", lk.float(), lp.float(),
+                        ctx.compute_dtype)
+    check.update(ms=ms, first_call_ms=first_ms, launches=counts)
+    log(f"[vlm] cache-free forward B {b} S {s} with the image: {ms:.1f} ms "
+        f"(CUDA events, warm; first call {first_ms:.1f} ms host clock), "
+        f"launches {json.dumps(got)}")
+    del lk, lp
+    return check
+
+
+def serve_vlm(torch, report) -> dict:
+    """Path 12: llama-3.2-vision-11b (8 groups of 4 self layers and a
+    gated cross layer; d_model 4096, 32 heads on 8 KV heads of 128, d_ff
+    14336, vocab 128256, 1601 image tokens) at its published widths and
+    full depth, through the serving step builders (the Engine refuses
+    the vlm family: the reference Engine never passes the image), random
+    weights from a seeded generator on the card with the gates drawn
+    nonzero, bf16 compute, the dense f32 KV cache, batch 8, a 64-token
+    prompt and the stub image from ``make_batch`` (8 x 1601 x 4096), 32
+    greedy tokens in graphed blocks of 8:
+
+    (a) int8 weights (PTQ of the f32 init, the f32 tree freed after);
+    (c) with (a)'s weights, the cache-free forward at B 4, S 512 with the
+    image; (b) bf16 weights under --lut.
+
+    Per run: the logit check with its planted faults, the exact launch
+    counts of one prefill and the decode blocks, graphed == eager, one
+    capture serving two prefills; prefill ms (the image projection and
+    the prompt apart), decode wall, device busy and kernels per step,
+    cross K/V bytes and peak memory logged.  Returns the launch counts
+    summed over the counted runs."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.serve import prepare_params, quantize_for_serving
+    from repro_torch.models import vlm
+    from repro_torch.nn.context import QuantContext
+
+    cfg = get_config("llama-3.2-vision-11b")
+    v = VLM
+    nb = make_batch(cfg, 0, v["batch"], v["plen"], seed=0)
+    batch = {"tokens": torch.from_numpy(nb["tokens"]).cuda(),
+             "img_embed": torch.from_numpy(nb["img_embed"]).cuda()}
+    del nb
+    n_groups, k_self = vlm._group_structure(cfg)
+    log(f"[vlm] llama-3.2-vision-11b full width and depth: {n_groups} groups "
+        f"of {k_self} self layers + 1 gated cross layer, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.n_img_tokens} image tokens; batch {v['batch']}, prompt "
+        f"{v['plen']}, {v['gen']} greedy tokens in graphed blocks of "
+        f"{v['block']}")
+    total, runs = {}, {}
+
+    def record(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = QuantContext(mode="int8", compute_dtype=torch.bfloat16,
+                       policy=PrecisionPolicy.uniform(FixedPointType(8, 4)))
+    f32 = vlm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                   device="cuda")
+    _vlm_gates(torch, f32, 1)
+    params = prepare_params(quantize_for_serving(f32, ctx), ctx, "cuda")
+    del f32
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"[vlm] (a) f32 init and int8 PTQ in {time.perf_counter() - t0:.1f} "
+        f"s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    runs["a int8"] = _vlm_run(torch, "(a) int8 weights", cfg, ctx, params,
+                              batch, record)
+    runs["c forward"] = _vlm_forward(torch, cfg, params, ctx, record)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = QuantContext(mode="none", compute_dtype=torch.bfloat16,
+                       use_lut=True)
+    params = vlm.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      dtype=torch.bfloat16, device="cuda")
+    _vlm_gates(torch, params, 1)
+    params = prepare_params(params, ctx, "cuda")
+    runs["b lut"] = _vlm_run(torch, "(b) bf16 weights --lut", cfg, ctx,
+                             params, batch, record)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["vlm"] = runs
+    log(f"[vlm] launches over the counted runs: {json.dumps(total)}")
+    return total
+
+
 #: path 7: the jet-tagging MLP at a single event and at a large batch
 JET_BATCHES = (1, 16384)
 
@@ -3967,6 +4386,9 @@ def main(argv=None) -> int:
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
         for k, v in serve_recurrent(torch, report).items():
+            counts[k] = counts.get(k, 0) + v
+        torch.cuda.synchronize()
+        for k, v in serve_vlm(torch, report).items():
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
 

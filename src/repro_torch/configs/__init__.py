@@ -4,9 +4,10 @@ Copies of ``repro.configs`` with the exact published dimensions: the
 whole ``lm`` family (gemma-2b, yi-6b, glm4-9b, command-r-35b, and the
 MoE configs olmoe-1b-7b and deepseek-v2-236b, the latter with MLA),
 the recurrent families (mamba2-370m, ``ssm``; zamba2-1.2b, ``hybrid``),
-whisper-base (``encdec``) and ``jet-mlp``, the paper's own model,
-consumed by ``repro_torch.models.mlp`` (no serving family).  The VLM
-(llama-3.2-vision-11b, ROADMAP.md queue 1, item 17) remains.
+whisper-base (``encdec``), llama-3.2-vision-11b (``vlm``) and
+``jet-mlp``, the paper's own model, consumed by
+``repro_torch.models.mlp`` (no serving family).  Every config of the
+reference is ported.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ __all__ = ["get_config", "ARCH_IDS"]
 
 ARCH_IDS = ["gemma-2b", "yi-6b", "glm4-9b", "command-r-35b", "olmoe-1b-7b",
             "deepseek-v2-236b", "mamba2-370m", "zamba2-1.2b", "whisper-base",
-            "jet-mlp"]
+            "llama-3.2-vision-11b", "jet-mlp"]
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -2,8 +2,8 @@
 ``repro.data.pipeline``).
 
 NumPy only and seeded, so the port's serving CLI and ``chip_smoke.py``
-draw the same prompts, and the same stub encoder frames, as the
-reference for a given seed.
+draw the same prompts, and the same stub encoder frames and image
+patch embeddings, as the reference for a given seed.
 """
 
 from __future__ import annotations
@@ -46,13 +46,18 @@ class SyntheticLM:
 def make_batch(cfg, step: int, batch: int, seq: int, *, seed: int = 0,
                dtype=np.float32):
     """Family-aware numpy batch: ``encdec`` adds ``enc_input``, stub frame
-    embeddings (B, min(seq, enc_len_cap), d_model) * 0.02 from the same
-    ``RandomState`` stream as the reference."""
+    embeddings (B, min(seq, enc_len_cap), d_model) * 0.02, and ``vlm``
+    adds ``img_embed``, stub patch embeddings (B, n_img_tokens, d_model)
+    * 0.02, each from the same ``RandomState`` stream as the
+    reference."""
     src = SyntheticLM(cfg.vocab, seed=seed)
     b = src.batch(step, batch, seq)
     rng = np.random.RandomState((seed * 7 + step) % 2**31)
     if cfg.family == "encdec":
         enc_len = min(seq, cfg.enc_len_cap)
         b["enc_input"] = rng.randn(batch, enc_len,
+                                   cfg.d_model).astype(dtype) * 0.02
+    if cfg.family == "vlm":
+        b["img_embed"] = rng.randn(batch, cfg.n_img_tokens,
                                    cfg.d_model).astype(dtype) * 0.02
     return b

@@ -82,9 +82,10 @@ of the core of ``repro.launch.serve``).
   from the measured acceptance (on the card, one graph per k).
 
 The Engine serves the ``lm``, ``ssm`` and ``hybrid`` families; the
-``encdec`` family serves through the step builders of
-``repro_torch.train.step``, as the reference Engine never runs an
-encoder.  The ``fake`` quantization mode is not ported.
+``encdec`` and ``vlm`` families serve through the step builders of
+``repro_torch.train.step``, as the reference Engine never passes their
+encoder frames or image (:func:`_cross_input_refusal`).  The ``fake``
+quantization mode is not ported.
 
 Usage::
 
@@ -154,16 +155,35 @@ __all__ = ["Engine", "DeviceFault", "resolve_device",
            "quantize_for_serving", "prepare_params", "build_ctx", "main"]
 
 
-def _refuse_encdec(cfg) -> None:
-    """The Engine serves decoder-only models: the reference Engine never
-    runs an encoder (its looped prefill decodes against the zero cross
-    K/V of ``init_cache`` and never passes ``enc_input``)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the Engine does not serve the encdec family (the "
-            f"reference Engine never runs the encoder); serve it through "
-            f"train.step.build_prefill_step with enc_input and "
-            f"build_decode_loop (ROADMAP.md queue 1, item 7)")
+#: the families whose cross layers need an input besides tokens: (the
+#: batch key, what it carries, the ROADMAP.md queue 1 item that ported
+#: the family)
+_CROSS_INPUT = {"encdec": ("enc_input", "the encoder's frames", 7),
+                "vlm": ("img_embed", "the image", 17)}
+
+
+def _cross_input_refusal(cfg) -> Optional[str]:
+    """Why the Engine refuses ``cfg``'s family, or None.  The Engine
+    serves models that need nothing but tokens: the reference Engine
+    prefills every family but ``lm`` through its looped prefill (decode
+    steps), which attends to the zero cross K/V of ``init_cache`` and
+    never passes ``enc_input`` or ``img_embed`` -- whisper is never
+    encoded, the VLM never sees its image."""
+    if cfg.family not in _CROSS_INPUT:
+        return None
+    key, what, item = _CROSS_INPUT[cfg.family]
+    return (f"{cfg.name}: the Engine does not serve the {cfg.family} family "
+            f"(the reference Engine never passes {key}: its looped prefill "
+            f"decodes against the zero cross K/V of init_cache, so "
+            f"{what} never reaches the model); serve it through "
+            f"train.step.build_prefill_step with {key} and "
+            f"build_decode_loop (ROADMAP.md queue 1, item {item})")
+
+
+def _refuse_cross_input(cfg) -> None:
+    msg = _cross_input_refusal(cfg)
+    if msg is not None:
+        raise NotImplementedError(msg)
 
 
 def _to(tree, device):
@@ -307,7 +327,7 @@ class Engine:
                 "spec_draft/drafter_fn were given but spec=False -- a "
                 "drafter without speculation would silently never run; "
                 "pass spec=True")
-        _refuse_encdec(cfg)
+        _refuse_cross_input(cfg)
         get_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -355,7 +375,7 @@ class Engine:
                 raise ValueError(
                     f"draft model vocab {d_cfg.vocab} != target vocab "
                     f"{cfg.vocab}; drafts would be meaningless")
-            _refuse_encdec(d_cfg)
+            _refuse_cross_input(d_cfg)
             d_ctx = d_ctx or ctx
             self.draft = (d_cfg, prepare_params(d_params, d_ctx, self.device),
                           d_ctx)
@@ -2185,10 +2205,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if cfg.family == "encdec":
-        ap.error(f"--arch {args.arch}: the Engine does not serve the encdec "
-                 f"family (the reference Engine never runs the encoder); "
-                 f"see ROADMAP.md queue 1, item 7")
+    if _cross_input_refusal(cfg) is not None:
+        ap.error(f"--arch {args.arch}: {_cross_input_refusal(cfg)}")
     device = resolve_device(args.device)
     if args.smoke:
         cfg = cfg.smoke()
@@ -2208,9 +2226,9 @@ def main(argv=None):
     spec_draft = None
     if args.spec_draft:
         d_cfg = get_config(args.spec_draft)
-        if d_cfg.family == "encdec":
-            ap.error(f"--spec-draft {args.spec_draft}: an encdec model "
-                     f"cannot draft (the Engine never runs an encoder)")
+        if _cross_input_refusal(d_cfg) is not None:
+            ap.error(f"--spec-draft {args.spec_draft}: cannot draft: "
+                     f"{_cross_input_refusal(d_cfg)}")
         if args.smoke:
             d_cfg = d_cfg.smoke()
         d_gen = torch.Generator(device=device).manual_seed(args.seed + 1)

@@ -1,5 +1,5 @@
 """Family registry and serving-cache helpers (port of ``repro.models.api``;
-the ``lm``, ``encdec``, ``ssm`` and ``hybrid`` families).
+the ``lm``, ``encdec``, ``ssm``, ``hybrid`` and ``vlm`` families).
 
 Every helper edits a cache in place: the tensors keep their addresses, so
 captured decode graphs stay valid."""
@@ -11,7 +11,7 @@ from types import ModuleType
 import torch
 
 from ..core.device import resolve_device
-from . import encdec, hybrid, lm, ssm_lm
+from . import encdec, hybrid, lm, ssm_lm, vlm
 
 __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
            "supports_chunked_prefill", "init_cache_fn",
@@ -20,7 +20,8 @@ __all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
            "spec_restore_fn", "copy_pages_fn", "cache_leaves",
            "page_leaves"]
 
-FAMILIES = {"lm": lm, "encdec": encdec, "ssm": ssm_lm, "hybrid": hybrid}
+FAMILIES = {"lm": lm, "encdec": encdec, "ssm": ssm_lm, "hybrid": hybrid,
+            "vlm": vlm}
 
 
 def get_family(cfg) -> ModuleType:
@@ -34,10 +35,11 @@ def get_family(cfg) -> ModuleType:
 def prefill_fn(params, batch, cache, cfg, ctx, *, pos=None,
                full_logits: bool = False):
     """Family-dispatched (chunked) prefill; ``batch`` = {"tokens": (B, S)},
-    plus ``"enc_input"`` (B, S_enc, D) for ``encdec``, which takes the
-    whole batch, as in the reference."""
+    plus ``"enc_input"`` (B, S_enc, D) for ``encdec`` and ``"img_embed"``
+    (B, n_img_tokens, D) for ``vlm``, which take the whole batch, as in
+    the reference."""
     fam = get_family(cfg)
-    if cfg.family == "encdec":
+    if cfg.family in ("encdec", "vlm"):
         return fam.prefill(params, batch, cache, cfg, ctx, pos=pos,
                            full_logits=full_logits)
     return fam.prefill(params, batch["tokens"], cache, cfg, ctx, pos=pos,
@@ -135,7 +137,8 @@ def lane_leaves_fn(cache, cfg):
     what :func:`invalidate_fn` zeroes and :func:`merge_slot_fn` restores.
     A family whose cache mixes batch axes brings its ``lane_leaves`` hook
     (the hybrid: grouped SSM states at axis 2, dense lanes beside paged
-    attention pages), consulted first.  Otherwise dense leaves are (L, B,
+    attention pages; the VLM: grouped self rows at axis 2, cross K/V at
+    axis 1), consulted first.  Otherwise dense leaves are (L, B,
     ...), batch axis 1 (the lm rows, encdec's self rows and cross K/V,
     the ssm states), and a paged lm cache has none: its pages carry no
     batch axis, and a retired slot's pages are unreachable once the

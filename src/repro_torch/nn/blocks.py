@@ -8,6 +8,12 @@ output through :func:`~repro_torch.nn.moe.moe_apply` (dropless when it
 serves from a cache) and adds deepseek's shared experts, one gated MLP of
 ``n_shared * d_ff_expert`` beside the routed ones.
 
+A cross block (the VLM's image layers) has no self-attention: it
+attends its norm's output to K/V projected from ``kv`` (the image
+stream), or, text-only (``kv`` None), to itself, non-causally and with
+RoPE, as the reference does; ``gated`` blocks scale the attention and
+the MLP by ``tanh`` of a scalar gate each.
+
 A Mamba-2 block (the recurrent families) is a pre-norm residual around
 :func:`~repro_torch.nn.ssm.mamba2_apply` or, decoding, around
 :func:`~repro_torch.nn.ssm.mamba2_decode_step`, which advances the
@@ -35,7 +41,8 @@ from .ssm import mamba2_apply, mamba2_decode_step, mamba2_init
 
 __all__ = ["norm_init", "norm_apply", "mlp_init", "mlp_apply",
            "dense_block_init", "dense_block_apply", "moe_dims_of",
-           "moe_block_init", "moe_block_apply", "mamba_block_init",
+           "moe_block_init", "moe_block_apply", "cross_block_init",
+           "cross_block_apply", "mamba_block_init",
            "mamba_block_apply", "stack_init", "layer_slice", "scan_apply"]
 
 
@@ -168,6 +175,41 @@ def moe_block_apply(p, x, cfg, ctx: QuantContext = DEFAULT_CTX, *,
     return x + y, new_cache, aux
 
 
+def cross_block_init(gen, cfg, *, gated: bool = False, dtype=torch.float32,
+                     device="cpu"):
+    """Self-attention-free cross block (llama-vision style when
+    ``gated``: the gates start at 0, so the block adds nothing at init,
+    as in the reference)."""
+    p = {"ln1": norm_init(cfg, device=device),
+         "attn": gqa_init(gen, cfg.attn_dims(causal=False), dtype=dtype,
+                          device=device),
+         "ln2": norm_init(cfg, device=device),
+         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated,
+                         dtype=dtype, device=device)}
+    if gated:
+        p["gate_attn"] = torch.zeros((), dtype=torch.float32, device=device)
+        p["gate_mlp"] = torch.zeros((), dtype=torch.float32, device=device)
+    return p
+
+
+def cross_block_apply(p, x, kv, cfg, ctx: QuantContext = DEFAULT_CTX, *,
+                      path: str = "cross"):
+    """``x`` attends to K/V projected from ``kv`` (B, Skv, D), or to itself
+    when ``kv`` is None (non-causal, RoPE: the cache-free path, the
+    ``flash_attention`` kernel on the card)."""
+    a, _ = gqa_apply(p["attn"], norm_apply(cfg, p["ln1"], x),
+                     cfg.attn_dims(causal=False), ctx, kv_input=kv,
+                     path=f"{path}/attn")
+    if "gate_attn" in p:
+        a = a * torch.tanh(p["gate_attn"]).to(a.dtype)
+    x = x + a
+    m = mlp_apply(p["mlp"], norm_apply(cfg, p["ln2"], x), cfg.mlp_act, ctx,
+                  path=f"{path}/mlp")
+    if "gate_mlp" in p:
+        m = m * torch.tanh(p["gate_mlp"]).to(m.dtype)
+    return x + m
+
+
 def mamba_block_init(gen, cfg, *, dtype=torch.float32, device="cpu"):
     return {"ln": norm_init(cfg, device=device),
             "ssm": mamba2_init(gen, cfg.ssm, dtype=dtype, device=device)}
@@ -189,17 +231,36 @@ def mamba_block_apply(p, x, cfg, ctx: QuantContext = DEFAULT_CTX, *,
 
 
 def stack_init(gen, n: int, init_fn: Callable):
-    """Stacked params for ``n`` identical blocks (leading L axis); one
+    """Stacked params for ``n`` identical blocks (leading L axis).  One
     block's leaves gain the axis as views, not copies (a full-width
-    deepseek MoE layer holds 15 GB of f32 banks)."""
-    layers = [init_fn(gen) for _ in range(n)]
+    deepseek MoE layer holds 15 GB of f32 banks); several blocks are
+    copied into the stack as each is drawn, so the stack and one block
+    are in memory at once, never every block and their stack
+    (llama-3.2-vision's eight groups of four layers hold 28 GB in f32)."""
+    first = init_fn(gen)
+    if n == 1:
+        return _map_leaves(lambda t: t[None], first)
+    out = _map_leaves(lambda t: t.new_empty((n, *t.shape)), first)
+    _copy_into(out, first, 0)
+    del first
+    for i in range(1, n):
+        _copy_into(out, init_fn(gen), i)
+    return out
 
-    def stack(items):
-        if isinstance(items[0], dict):
-            return {k: stack([it[k] for it in items]) for k in items[0]}
-        return items[0][None] if len(items) == 1 else torch.stack(items)
 
-    return stack(layers)
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy_into(out, tree, i: int) -> None:
+    """Write one block's leaves into entry ``i`` of the stack ``out``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _copy_into(out[k], v, i)
+    else:
+        out[i].copy_(tree)
 
 
 def layer_slice(tree, l: int):

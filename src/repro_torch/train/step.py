@@ -188,10 +188,11 @@ def build_spec_decode_loop(cfg, ctx, steps: int, k: int, *, drafter="ngram",
     if model_draft:
         if draft_cfg is None:
             raise ValueError("the model drafter needs draft_cfg")
-        if draft_cfg.family == "encdec":
+        if draft_cfg.family in ("encdec", "vlm"):
             raise NotImplementedError(
-                f"draft model {draft_cfg.name}: an encdec model cannot "
-                f"draft (its decoder needs the encoder's output)")
+                f"draft model {draft_cfg.name}: an {draft_cfg.family} model "
+                f"cannot draft (its cross layers need an input a draft "
+                f"cache never receives: the encoder's output, the image)")
         draft_ctx = draft_ctx or ctx
         draft_has_rec = hasattr(get_family(draft_cfg), "spec_state")
 

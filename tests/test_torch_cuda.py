@@ -2024,3 +2024,137 @@ def test_recurrent_state_written_in_place_under_a_replay(card):
     assert _addresses(eng.cache) == addrs
     assert not torch.equal(mid["ssm"], eng.cache["ssm"])
     assert not torch.equal(before["ssm"], mid["ssm"])
+
+
+VLM_ARCH = "llama-3.2-vision-11b"
+
+
+def _vlm_smoke(weights, device):
+    """llama-3.2-vision's smoke config (f32 compute) with seeded CPU
+    weights moved to ``device``, its gates drawn nonzero (at init they
+    are 0 and the cross layers add nothing), and a prompt of 6 tokens
+    with the stub image from ``make_batch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.serve import prepare_params, quantize_for_serving
+    from repro_torch.models import vlm
+    from repro_torch.nn.context import QuantContext
+    cfg = get_config(VLM_ARCH).smoke()
+    ctx = QuantContext(
+        mode="int8" if weights == "int8" else "none",
+        policy=(PrecisionPolicy.uniform(FixedPointType(8, 4))
+                if weights == "int8" else PrecisionPolicy()),
+        compute_dtype=torch.float32)
+    params = vlm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for name in ("gate_attn", "gate_mlp"):
+        shape = params["cross"][name].shape
+        params["cross"][name] = ((torch.rand(shape, generator=g) * 0.7 + 0.3)
+                                 * (torch.randint(0, 2, shape, generator=g)
+                                    * 2 - 1))
+    if weights == "int8":
+        params = quantize_for_serving(params, ctx)
+    nb = make_batch(cfg, 0, 2, 6)
+    batch = {k: torch.from_numpy(nb[k]).to(device)
+             for k in ("tokens", "img_embed")}
+    return cfg, ctx, prepare_params(params, ctx, device), batch
+
+
+@pytest.mark.parametrize("weights", ["f32", "int8"])
+def test_vlm_prefill_and_decode_kernels_match_plain(card, weights):
+    """The smoke VLM's prefill (the image's cross K/V projected into the
+    cache) and 3 teacher-forced decode steps through the kernels against
+    the plain versions on the card: int8 launches qmatmul 7 times per
+    self layer and per cross layer at prefill, 5 per cross layer at
+    decode, one quantize_rows each, and no attention kernel (the dense
+    cache and the cached cross K/V attend with einsums)."""
+    import dataclasses
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import vlm
+    cfg, ctx, params, batch = _vlm_smoke(weights, "cuda")
+    n_groups, k_self = vlm._group_structure(cfg)
+    plain_ctx = dataclasses.replace(ctx, backend="ref")
+    caches = {c: vlm.init_cache(cfg, 2, 12, torch.float32, "cuda")
+              for c in ("kernels", "plain")}
+    reset_launch_counts()
+    got, _ = vlm.prefill(params, batch, caches["kernels"], cfg, ctx,
+                         full_logits=True)
+    counts = launch_counts()
+    want, _ = vlm.prefill(params, batch, caches["plain"], cfg, plain_ctx,
+                          full_logits=True)
+    q = 7 * n_groups * (k_self + 1) if weights == "int8" else 0
+    assert counts["qmatmul"] == counts["quantize_rows"] == q
+    assert sum(counts.values()) == 2 * q
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(caches["kernels"]["cross_kv"]["k"],
+                               caches["plain"]["cross_kv"]["k"], rtol=0,
+                               atol=1e-4)
+    pos = torch.full((2,), 6, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        tok = want[:, -1].argmax(-1).to(torch.int32)[:, None]
+        reset_launch_counts()
+        got, _ = vlm.decode_step(params, tok, caches["kernels"], pos, cfg,
+                                 ctx)
+        counts = launch_counts()
+        want, _ = vlm.decode_step(params, tok, caches["plain"], pos, cfg,
+                                  plain_ctx)
+        q = n_groups * (7 * k_self + 5) if weights == "int8" else 0
+        assert counts["qmatmul"] == counts["quantize_rows"] == q
+        assert sum(counts.values()) == 2 * q
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        pos = pos + 1
+
+
+def test_vlm_text_only_forward_through_flash(card):
+    """The cache-free text-only forward: flash once per self layer
+    (causal) and once per cross layer (the text attending to itself,
+    non-causal), against the plain versions."""
+    import dataclasses
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import vlm
+    cfg, ctx, params, batch = _vlm_smoke("f32", "cuda")
+    reset_launch_counts()
+    got, _ = vlm.forward(params, batch["tokens"], None, cfg, ctx)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    want, _ = vlm.forward(params, batch["tokens"], None, cfg,
+                          dataclasses.replace(ctx, backend="ref"))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_vlm_graphed_blocks_survive_a_second_prefill(card):
+    """A prefill copies the cross K/V into the cache's own buffers: the
+    decode graph captured after the first image serves a second image
+    prefilled into the same cache without a new capture, and both
+    images' graphed streams equal the eager blocks'."""
+    import numpy as np
+    from repro_torch.models import vlm
+    from repro_torch.train.graphs import DecodeBlocks, _addresses
+    cfg, ctx, params, batch = _vlm_smoke("int8", "cuda")
+    second = dict(batch, img_embed=batch["img_embed"].flip(1) * 2)
+
+    def streams(blocks, cache, b):
+        logits, _ = vlm.prefill(params, b, cache, cfg, ctx)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None].cpu().numpy()
+        pos, live = np.full((2,), 6, np.int32), np.ones((2,), bool)
+        out = []
+        for i in range(2):
+            state = blocks.pack(tok, pos, live, np.full((2,), 14, np.int32),
+                                np.zeros((2,), np.float32),
+                                np.zeros((2,), np.int32), i * 4, -1)
+            block, _, tok, pos, live, fault = blocks.unpack(
+                blocks(params, cache, state, None, 4), 4)
+            assert not fault.any()
+            out.append(block)
+        return np.concatenate(out).T
+
+    cache = vlm.init_cache(cfg, 2, 14, torch.float32, "cuda")
+    addrs = _addresses(cache)
+    graphed = DecodeBlocks(cfg, ctx, 2, "cuda", graphs=True)
+    eager = DecodeBlocks(cfg, ctx, 2, "cuda", graphs=False)
+    for b in (batch, second):
+        want = streams(eager, vlm.init_cache(cfg, 2, 14, torch.float32,
+                                             "cuda"), b)
+        assert (streams(graphed, cache, b) == want).all()
+    assert graphed.captures == 1 and _addresses(cache) == addrs

@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import device as tdevice  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import api, encdec, hybrid, lm, ssm_lm  # noqa: E402
+from repro_torch.models import (api, encdec, hybrid, lm,  # noqa: E402
+                                ssm_lm, vlm)
 
 
 def _gen():
@@ -47,6 +48,12 @@ ENTRY_POINTS = [
      lambda cfg, **kw: hybrid.init_cache(cfg, 2, 8, **kw)),
     ("hybrid.init_paged_cache", "zamba2-1.2b",
      lambda cfg, **kw: hybrid.init_paged_cache(cfg, 2, 5, 4, 2, **kw)),
+    ("vlm.init", "llama-3.2-vision-11b",
+     lambda cfg, **kw: vlm.init(_gen(), cfg, **kw)),
+    ("vlm.init_cache", "llama-3.2-vision-11b",
+     lambda cfg, **kw: vlm.init_cache(cfg, 2, 8, **kw)),
+    ("api.init_cache_fn vlm", "llama-3.2-vision-11b",
+     lambda cfg, **kw: api.init_cache_fn(cfg, 2, 8, torch.float32, **kw)),
 ]
 
 
@@ -90,6 +97,15 @@ def test_refusals_come_before_the_device():
     cfg = get_config("whisper-base").smoke()
     with pytest.raises(NotImplementedError, match="int8"):
         encdec.init_cache(cfg, 2, 16, torch.int8)
+    with pytest.raises(NotImplementedError, match="paged"):
+        api.init_paged_cache_fn(cfg, 2, 8, 4, 4)
+
+
+def test_vlm_refusals_come_before_the_device():
+    """So do the vlm's (llama-3.2-vision)."""
+    cfg = get_config("llama-3.2-vision-11b").smoke()
+    with pytest.raises(NotImplementedError, match="int8"):
+        vlm.init_cache(cfg, 2, 16, torch.int8)
     with pytest.raises(NotImplementedError, match="paged"):
         api.init_paged_cache_fn(cfg, 2, 8, 4, 4)
 

@@ -79,6 +79,40 @@ def smoke_params(mode: str, seed: int = 0, arch: str = "gemma-2b",
     return cfg, params, params_from_numpy(jax_to_numpy(params), qtype=qtype)
 
 
+#: the VLM's smoke params per weight mode (cfg, JAX tree, port tree)
+_VLM = {}
+
+
+def vlm_smoke_params(mode: str, seed: int = 0):
+    """llama-3.2-vision-11b smoke params (:func:`smoke_params`) with the
+    cross blocks' gates drawn nonzero from ``seed`` (uniform in +-[0.3,
+    1.0]) and set on both trees: the reference's init leaves them at 0,
+    where ``tanh(0) = 0`` makes every cross layer add nothing, so a
+    parity test could not see the image or the cross-attention.  The
+    trees are built once per process; callers get fresh containers."""
+    import jax.numpy as jnp
+    import torch
+    if mode not in _VLM:
+        cfg, jp, tp = smoke_params(mode, seed=seed,
+                                   arch="llama-3.2-vision-11b")
+        rs = np.random.RandomState(seed + 7)
+        for name in ("gate_attn", "gate_mlp"):
+            g = (rs.uniform(0.3, 1.0, jp["cross"][name].shape)
+                 * rs.choice([-1.0, 1.0], jp["cross"][name].shape)
+                 ).astype(np.float32)
+            jp["cross"][name] = jnp.asarray(g)
+            tp["cross"][name] = torch.from_numpy(g)
+        _VLM[mode] = (cfg, jp, tp)
+    cfg, jp, tp = _VLM[mode]
+    return cfg, _fresh(jp), _fresh(tp)
+
+
+def _fresh(tree):
+    if isinstance(tree, dict):
+        return {k: _fresh(v) for k, v in tree.items()}
+    return tree
+
+
 def contexts(mode: str, **knobs):
     """Matching f32 QuantContexts (JAX, port) for ``mode``."""
     import jax.numpy as jnp
