@@ -45,7 +45,15 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    version's and a
    library call's device time (median of cold-L2 launches, CUDA events)
    and the kernel/library factor beside the least time the card could
-   take; then sampling (PyTorch ops, no kernel of the port) at (8,
+   take; then the flash backward (``flash_attention_bwd``, training's
+   gradient, three kernels in one launch) against its plain version at
+   gemma-2b's training shape (B 8, 8 on 1 heads, S 256, D 256, causal,
+   bf16 and f32), the whisper encoder's, glm4's group of 16, deepseek's
+   MLA (V padded) and a ragged causal shape: dq, dk, dv within relative
+   L2 1e-5 (f32) or 1e-4 (bf16, which a control that rounds p and ds to
+   bf16 before their products must fail), bitwise across two launches, the forward's lse against the plain log-sum-exp and its
+   output with lse bitwise the output without, SDPA's backward as the
+   yardstick; then sampling (PyTorch ops, no kernel of the port) at (8,
    256000): bitwise its plain version on the card, threefry bits bitwise
    the CPU's, its device time from a CUDA graph replay and its device
    kernels per call; likewise ``verify_tokens_fused`` (speculative
@@ -167,6 +175,20 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    graphed == eager, one capture serving two prefills; prefill ms (the
    image projection apart), decode wall, busy and kernels per step,
    cross K/V bytes and peak memory logged;
+   Path 13: the paper's training (``train_path``, ``[train]`` lines):
+   (a) gemma-2b at published width and full depth (2.51 B parameters,
+   f32 params and AdamW state, bf16 compute, remat "full") through
+   ``init_state`` and ``build_train_step``, batch 8 x 256 tokens, 6
+   steps; step 0's gradients through the kernels held leaf by leaf
+   against the plain versions' (``backend="ref"``) within
+   ``TRAIN_GRAD_TOL``, which a zeroed dk and a dv one key off must fail;
+   finite losses, and step 0's batch scoring lower after the 6 steps than
+   at step 0; wall, busy, tokens/s, the share of bf16
+   peak, device time by kernel, flash launches a step, peak memory; (b)
+   ``launch.train.main`` at smoke width: a fault at step 5 restored from
+   a checkpoint ends bitwise on the unfailed run, and ``--quant fake``
+   trains; (c) the jet example's flow on the card within 0.01 of the
+   CPU's;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -178,6 +200,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -857,6 +880,195 @@ def check_flash(torch, timer, rows):
                 f"library(SDPA)={fmt_ms(lib_ms)} "
                 f"kernel/library={over_library(rows[-1])} "
                 f"bound={bnd:.4f}ms ({by})")
+
+
+#: the flash backward's cases, as FLASH_CASES: (h) gemma-2b's training
+#: step (path 13 (a)), the whisper encoder, glm4's group of 16, deepseek's
+#: MLA naive form (V zero-padded from 128), a ragged causal shape
+FLASH_BWD_CASES = [
+    ("h gemma-train", 8, 8, 1, 256, 256, 256, True, ("bf16", "f32"), None),
+    ("h whisper-encoder", 8, 8, 8, 1500, 1500, 64, False, ("bf16",), None),
+    ("h glm4 D128 group16", 1, 32, 2, 512, 512, 128, True, ("bf16",), None),
+    ("h deepseek MLA", 1, 128, 128, 512, 512, 192, True, ("bf16",), 128),
+    ("h ragged causal", 2, 8, 2, 100, 333, 64, True, ("bf16", "f32"), None),
+]
+#: the backward's gates: relative L2 of dq, dk, dv against the plain
+#: version (the same formulas in f32, sums in another order).  bf16: both
+#: sides round their f32 sums to bf16 once, so most elements agree and a
+#: few differ by one bf16 ulp; the gate lies between the sound readings
+#: and a control that rounds p and ds to bf16 before their products (the
+#: tensor-core shortcut that f32 softmax and accumulation rule out), which
+#: each bf16 case computes and must see fail (PERF.md section 6)
+FLASH_BWD_TOL = {"f32": 1e-5, "bf16": 1e-4}
+
+
+def _bwd_bf16_shortcut(torch, q, k, v, o, lse, do, causal):
+    """The bf16 gate's control: ``flash_attention_bwd_plain`` with p and
+    ds rounded to bf16 before the products that take them."""
+    from repro_torch.kernels.ref import _flash_pairs
+    b, hq, sq, _ = q.shape
+    hkv = k.shape[1]
+    qs, s, mask, scale = _flash_pairs(q, k, causal, None)
+    lse_g = lse.reshape(b, hkv, hq // hkv, sq, 1)
+    p = torch.where(mask, torch.exp(s - torch.where(
+        torch.isfinite(lse_g), lse_g, 0.0)), 0.0)
+    dof = do.reshape(b, hkv, hq // hkv, sq, -1).float()
+    of = o.reshape(b, hkv, hq // hkv, sq, -1).float()
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.float())
+    ds = p * (dp - torch.sum(dof * of, dim=-1, keepdim=True))
+    del s, dp
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qs)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def same_raw_bits(torch, a, b) -> bool:
+    """Tensors of one dtype equal bit for bit (any float width)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(ints[a.dtype]), b.contiguous().view(ints[b.dtype]))
+
+
+def rel_l2(torch, a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def check_flash_bwd(torch, timer, rows):
+    """The flash backward (``flash_attention_bwd``) against its plain
+    version on the same q, k, v, o, lse and do, at FLASH_BWD_CASES: dq, dk
+    and dv within FLASH_BWD_TOL (in bf16 the control
+    ``_bwd_bf16_shortcut`` must fall outside it), bitwise equal across two
+    launches (no atomics), the forward's ``lse`` against the plain log-sum-exp (-inf
+    rows alike), and the forward's output with ``lse`` bitwise the output
+    without it.  SDPA's backward at the same shape is the yardstick
+    (context only, never called by the port)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
+    from repro_torch.kernels.ref import flash_attention_lse_plain
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for (label, b, hq, hkv, sq, skv, d, causal, dtypes,
+         dv) in FLASH_BWD_CASES:
+        for dname in dtypes:
+            dt = torch.bfloat16 if dname == "bf16" else torch.float32
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=g, device="cuda").to(dt)
+            q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv,
+                                                                   skv, d)
+            do = rnd(b, hq, sq, d)
+            if dv is not None:        # MLA: V zero-padded, do sliced to dv
+                v[..., dv:] = 0
+                do[..., dv:] = 0
+            o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                         with_lse=True)
+            o0, _ = flash_attention_fwd(q, k, v, causal=causal)
+            if not same_raw_bits(torch, o, o0):
+                raise AssertionError(f"flash_attention {label} {dname}: the "
+                                     f"output moved when lse was written")
+            lse_p = flash_attention_lse_plain(q, k, causal=causal)
+            fin = torch.isfinite(lse_p)
+            if not torch.equal(fin, torch.isfinite(lse)):
+                raise AssertionError(f"flash lse {label} {dname}: -inf rows "
+                                     f"differ from the plain version's")
+            lse_err = float((lse - lse_p)[fin].abs().max()) if fin.any() \
+                else 0.0
+            lse_tol = 1e-4 if dt == torch.bfloat16 else 2e-5
+            if lse_err > lse_tol * max(1.0, float(lse_p[fin].abs().max())):
+                raise AssertionError(f"flash lse {label} {dname}: max abs "
+                                     f"err {lse_err} beyond {lse_tol}")
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            want = flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal)
+            torch.cuda.synchronize()
+            if not all(same_raw_bits(torch, x, y)
+                       for x, y in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd {label} {dname}: "
+                                     f"two launches gave different bits")
+            errs = [rel_l2(torch, x, y) for x, y in zip(got, want)]
+            tol = FLASH_BWD_TOL[dname]
+            if not (max(errs) <= tol and all(
+                    torch.isfinite(x).all().item() for x in got)):
+                raise AssertionError(f"flash_attention_bwd {label} {dname}: "
+                                     f"relative L2 (dq, dk, dv) {errs} beyond "
+                                     f"{tol}")
+            control = None
+            if dt == torch.bfloat16:
+                control = [rel_l2(torch, x, y) for x, y in zip(
+                    _bwd_bf16_shortcut(torch, q, k, v, o, lse, do, causal),
+                    want)]
+                if max(control) <= tol:
+                    raise AssertionError(
+                        f"flash_attention_bwd {label} {dname}: the gate "
+                        f"{tol} passes the control that rounds p and ds to "
+                        f"bf16 (relative L2 {control})")
+            if dv is not None and got[2][..., dv:].abs().max().item() != 0:
+                raise AssertionError(f"flash_attention_bwd {label}: gradient "
+                                     f"leaked into V's padded columns")
+            err = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(got, want))
+            ms = timer(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal=causal))
+            plain_ms = timer(lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal=causal), reps=3)
+            lib_ms = yardstick(timer, _sdpa_backward(torch, F, q, k, v, do,
+                                                     causal))
+            if causal:
+                qpos = torch.arange(sq) + (skv - sq)
+                pairs = int(torch.clamp(qpos + 1, 0, skv).sum())
+            else:
+                pairs = sq * skv
+            # q, o, do read and dq written; k, v read and dk, dv written;
+            # lse read; five products of pairs x D per query head
+            nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+                + 4 * lse.numel()
+            bnd, by = bound_ms(nbytes, 10.0 * b * hq * pairs * d,
+                               BF16_FLOP_PER_S if dt == torch.bfloat16
+                               else F32_FLOP_PER_S)
+            rows.append(dict(kernel="flash_attention_bwd",
+                             case=f"{label} B={b} H={hq}/{hkv} Sq={sq} "
+                             f"Skv={skv} D={d} causal={causal} {dname}",
+                             max_abs_err=err, rel_l2_dq_dk_dv=errs,
+                             control_rel_l2_dq_dk_dv=control,
+                             tol=f"rel L2 {tol}", lse_max_abs_err=lse_err,
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bnd, bound_by=by))
+            log(f"[check] flash_attention_bwd {rows[-1]['case']}: rel L2 "
+                f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
+                f"(<= {tol:.3g}"
+                + ("" if control is None else
+                   f"; control with p, ds rounded to bf16: "
+                   f"{', '.join(f'{c:.3g}' for c in control)}")
+                + f"), bitwise across launches, lse err "
+                f"{lse_err:.3g}, o with lse == o without: kernel={ms:.4f}ms "
+                f"plain={plain_ms:.4f}ms library(SDPA backward)="
+                f"{fmt_ms(lib_ms)} kernel/library={over_library(rows[-1])} "
+                f"bound={bnd:.4f}ms ({by})")
+            del q, k, v, do, o, o0, lse, lse_p, got, again, want
+
+
+def _sdpa_backward(torch, F, q, k, v, do, causal):
+    """The library yardstick for the flash backward: SDPA's backward on
+    K/V expanded to the query heads (its forward and the expansion not
+    timed)."""
+    group = q.shape[1] // k.shape[1]
+    qe = q.detach().requires_grad_(True)
+    ke = k.repeat_interleave(group, dim=1).requires_grad_(True)
+    ve = v.repeat_interleave(group, dim=1).requires_grad_(True)
+    sq, skv = q.shape[2], k.shape[2]
+    if causal and sq != skv:
+        mask = (torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+                >= torch.arange(skv, device="cuda")[None, :])
+        out = F.scaled_dot_product_attention(qe, ke, ve, attn_mask=mask)
+    else:
+        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal)
+    return lambda: torch.autograd.grad(out, (qe, ke, ve), do,
+                                       retain_graph=True)
 
 
 def check_sampling(torch, timer, report):
@@ -3846,6 +4058,311 @@ def serve_whisper(torch, report, profile: bool):
     return total
 
 
+#: path 13 (a): gemma-2b trained at published width and full depth
+TRAIN = dict(arch="gemma-2b", batch=8, seq=256, steps=6, peak=1e-4,
+             warmup=1, total=8, seed=0)
+#: path 13 (a)'s gradient gate: each leaf's relative L2 between step 0
+#: through the kernels and the same step through the plain versions
+#: (``backend="ref"``), in f32 and in bf16 compute; the planted faults must
+#: read above it on at least one leaf.  The path also reads a second sound
+#: version against the same oracle (the kernels' plain online softmax under
+#: autograd): at full width and depth both read ~7.5e-5 in f32 and
+#: 0.15-0.18 in bf16, where the random-init model's gradients are that
+#: sensitive to the last bit of an attention output (PERF.md section 6)
+TRAIN_GRAD_TOL = {"f32": 1e-3, "bf16": 0.3}
+#: path 13 (b): the training CLI at smoke width (a full-width checkpoint is ~30
+#: GB of disk); (c): the jet example's readings against the CPU's
+TRAIN_CLI_ARGS = ["--arch", "gemma-2b", "--smoke", "--batch", "8", "--seq",
+               "64", "--log-every", "0", "--device", "cuda"]
+JET_TRAIN_TOL = 0.01
+
+
+def _planted_bwd(torch, fk, kind):
+    """Planted faults of the flash backward: ``dk`` zeroed, or ``dv`` moved
+    one key row along the sequence (gemma has one KV head, so "the wrong
+    KV head" is the wrong key)."""
+    real = fk.flash_attention_bwd
+
+    def bad(*a, **kw):
+        dq, dk, dv = real(*a, **kw)
+        if kind == "zeroed dk":
+            return dq, torch.zeros_like(dk), dv
+        return dq, dk, torch.roll(dv, 1, dims=2)
+    return real, bad
+
+
+def train_path(torch, report, profile: bool) -> dict:
+    """Path 13: the paper's training on the card.
+
+    (a) gemma-2b at published width and full depth through ``init_state``
+    and ``build_train_step`` (what ``launch.train.main`` calls): f32
+    params and AdamW state, bf16 compute, ``cfg.remat`` "full", batch 8 x
+    256 tokens, cosine warmup (peak 1e-4, warmup 1, total 8), 6 steps,
+    the first untimed.  Step 0's gradients through the kernels are held
+    leaf by leaf against the same step through the plain versions
+    (``backend="ref"``, on the card) within TRAIN_GRAD_TOL, which two
+    planted faults of the flash backward must fail; losses finite and
+    step 0's batch scoring lower after the steps than at step 0 (the same
+    batch: the steps' batches differ); wall and busy a step, tokens/s, the
+    share
+    of bf16 peak, device time by kernel (the backward's share), flash
+    launches a step, peak memory.  (b) ``launch.train.main`` on gemma-2b
+    smoke: 8 steps with a checkpoint every 2 and a fault at step 5 ends
+    bitwise where the unfailed run does, with one restore; a ``--quant
+    fake --qbits 8`` run's loss is finite and drops.  (c) the jet
+    example's ``main`` on the card and on the CPU: the f32 test accuracy
+    and the seven formats' within JET_TRAIN_TOL.
+    """
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.registry import get_impl, register_op
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.examples import train_jet_mlp
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels._cuda import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import flash_attention_plain
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.api import loss_fn
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.optim import cosine_warmup
+    from repro_torch.train.step import build_train_step, init_state
+
+    out = {}
+    counts_all = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    # -- (a) gemma-2b at full width and depth -------------------------------
+    t = TRAIN
+    cfg = get_config(t["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device="cuda").manual_seed(t["seed"]),
+                       cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    log(f"[train] (a) {t['arch']}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, remat "
+        f"{cfg.remat}; state (params, m, v) "
+        f"{3 * 4 * n_params / 1e9:.2f} GB f32, init {time.perf_counter() - t0:.1f}s")
+
+    def lr_fn(s):
+        return cosine_warmup(s, peak=t["peak"], warmup=t["warmup"],
+                             total=t["total"])
+
+    ctx = QuantContext(compute_dtype=torch.bfloat16)
+    step_fn = build_train_step(cfg, ctx, lr_fn=lr_fn)
+    batches = [make_batch(cfg, i, t["batch"], t["seq"], seed=t["seed"])
+               for i in range(t["steps"])]
+    tokens = t["batch"] * t["seq"]
+
+    # gradient gate at step 0, in f32 and in bf16 compute: the plain
+    # versions' gradients to the host, then the kernels' and two planted
+    # faults' against them, leaf by leaf
+    gate = {}
+    for cname, cd in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cctx = QuantContext(compute_dtype=cd)
+        kern = build_train_step(cfg, cctx, lr_fn=lr_fn)
+        ref = build_train_step(cfg, dataclasses.replace(cctx, backend="ref"),
+                               lr_fn=lr_fn)
+        g_ref, _ = ref.compute_grads(state["params"], batches[0])
+        host_ref = [(n, g.float().cpu())
+                    for n, g in tree_paths(g_ref, "/").items()]
+        del g_ref
+        gc.collect()
+
+        def readings(grads):
+            rel = {}
+            for (name, g), (_, h) in zip(tree_paths(grads, "/").items(),
+                                          host_ref):
+                r = h.to("cuda")
+                rel[name] = float((g.float() - r).norm()
+                                  / r.norm().clamp_min(1e-30))
+                del r
+            return rel
+
+        reset_launch_counts()
+        grads, _ = kern.compute_grads(state["params"], batches[0])
+        torch.cuda.synchronize()
+        grad_counts = launch_counts()
+        rel = readings(grads)
+        del grads
+        # the noise floor: a second sound version (the plain online softmax
+        # under autograd) in the oracle's place, against the oracle
+        oracle = get_impl("attention", "ref")
+        register_op("attention", "ref")(flash_attention_plain)
+        try:
+            gp, _ = ref.compute_grads(state["params"], batches[0])
+        finally:
+            register_op("attention", "ref")(oracle)
+        floor = readings(gp)
+        del gp
+        worst = max(rel, key=rel.get)
+        fw = max(floor, key=floor.get)
+        tol = TRAIN_GRAD_TOL[cname]
+        log(f"[train] (a) gradient gate, {cname} compute, step 0, kernels vs "
+            f"plain versions (backend='ref') on the card: worst leaf {worst} "
+            f"relative L2 {rel[worst]:.3g} (<= {tol}); a second sound "
+            f"version (the plain online softmax) vs the same: {fw} "
+            f"{floor[fw]:.3g}; launches of one gradient: flash forward "
+            f"{grad_counts['flash_attention']}, backward "
+            f"{grad_counts['flash_attention_bwd']}")
+        if not rel[worst] <= tol:
+            raise AssertionError(f"path 13 (a): {cname} gradient leaf {worst}"
+                                 f" relative L2 {rel[worst]} beyond {tol}")
+        faults = {}
+        for kind in ("zeroed dk", "dv one key off"):
+            real, bad = _planted_bwd(torch, fk, kind)
+            fk.flash_attention_bwd = bad
+            try:
+                gf, _ = kern.compute_grads(state["params"], batches[0])
+            finally:
+                fk.flash_attention_bwd = real
+            rf = readings(gf)
+            del gf
+            w = max(rf, key=rf.get)
+            faults[kind] = (w, rf[w])
+            log(f"[train] (a) planted fault ({kind}), {cname}: worst leaf {w}"
+                f" relative L2 {rf[w]:.3g}")
+            if rf[w] <= tol:
+                raise AssertionError(f"path 13 (a): planted fault ({kind}) "
+                                     f"passed the {cname} gradient gate "
+                                     f"({rf[w]})")
+        gate[cname] = dict(worst=(worst, rel[worst]), rel=rel, planted=faults,
+                           floor=(fw, floor[fw]), launches=grad_counts)
+        del host_ref, kern, ref
+        gc.collect()
+
+    # 6 steps: step 0 untimed, 1-3 on the host clock, 4-5 under the profiler
+    reset_launch_counts()
+    losses, walls, busy, top = [], [], None, []
+    for i in range(t["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < 4:
+            state, m = step_fn(state, batches[i])
+            torch.cuda.synchronize()
+        else:
+            from torch.profiler import ProfilerActivity, profile as tprof
+            with tprof(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                state, m = step_fn(state, batches[i])
+                torch.cuda.synchronize()
+            if i == t["steps"] - 1:
+                rows = device_rows(prof)
+                busy = sum(r[1] for r in rows) or None
+                top = rows
+        wall = time.perf_counter() - t0
+        losses.append(float(m["loss"]))
+        if i > 0:
+            walls.append(wall)
+        log(f"[train] (a) step {i}: loss {losses[-1]:.4f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3g} wall "
+            f"{wall * 1e3:.1f} ms")
+    counts = launch_counts()
+    add(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the trained model's loss on step 0's batch, against step 0's loss
+    with torch.no_grad():
+        after = float(loss_fn(state["params"], {
+            k: torch.as_tensor(v, device="cuda")
+            for k, v in batches[0].items()}, cfg, ctx)[0])
+    log(f"[train] (a) loss on step 0's batch: {losses[0]:.4f} before the "
+        f"steps, {after:.4f} after {t['steps']}")
+    if not all(map(math.isfinite, losses + [after])):
+        raise AssertionError(f"path 13 (a): non-finite loss {losses}")
+    if not after < losses[0]:
+        raise AssertionError(f"path 13 (a): loss did not drop: {losses[0]} "
+                             f"-> {after} on step 0's batch")
+    for k in ("flash_attention", "flash_attention_bwd"):
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"path 13 (a): {k} never launched")
+    wall = statistics.median(walls[:3])
+    share = 6.0 * n_params * tokens / wall / BF16_FLOP_PER_S
+    bwd_ms = sum(r[1] for r in top if "flash_bwd" in r[0])
+    fwd_ms = sum(r[1] for r in top if "flash_attention_" in r[0])
+    log(f"[train] (a) wall a step {wall * 1e3:.1f} ms (median of steps "
+        f"1-3), busy {fmt_ms(busy)} (step {t['steps'] - 1}, profiled), "
+        f"{tokens / wall:.0f} tokens/s, {100 * share:.2f}% of bf16 peak "
+        f"(6 x {n_params / 1e9:.3f} B x {tokens} tokens), peak memory "
+        f"{peak:.2f} GiB; flash forward {counts['flash_attention'] // t['steps']}"
+        f" and backward {counts['flash_attention_bwd'] // t['steps']} launches "
+        f"a step; the flash backward {bwd_ms:.1f} ms of the busy "
+        f"({100 * bwd_ms / busy if busy else 0:.1f}%), forward "
+        f"{fwd_ms:.1f} ms")
+    for name, ms, n in top[:12 if profile else 6]:
+        log(f"[train]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    out["a"] = dict(n_params=n_params, losses=losses,
+                    loss_batch0_after=after, walls_s=walls,
+                    wall_ms=wall * 1e3, busy_ms=busy,
+                    tokens_per_s=tokens / wall, bf16_peak_share=share,
+                    peak_gib=peak, launches=counts, gradient_gate=gate,
+                    flash_bwd_ms=bwd_ms,
+                    flash_fwd_ms=fwd_ms,
+                    top=[(n, ms, c) for n, ms, c in top[:20]])
+    del state, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) the training CLI: fault, restore, bitwise replay; QAT ---------
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        def drive(name, *extra):
+            return train_cli.main(TRAIN_CLI_ARGS + ["--ckpt-dir",
+                                                 os.path.join(tmp, name),
+                                                 *extra])
+        clean = drive("clean", "--steps", "8", "--ckpt-every", "2")
+        failed = drive("failed", "--steps", "8", "--ckpt-every", "2",
+                       "--fail-at", "5")
+        same = all(same_raw_bits(torch, a, b) for a, b in zip(
+            tree_leaves(clean["state"]["params"]),
+            tree_leaves(failed["state"]["params"])))
+        log(f"[train] (b) train CLI, 8 steps, checkpoint every 2, fault at 5: "
+            f"restores {failed['restores']}, final params bitwise the "
+            f"unfailed run's: {same}")
+        if failed["restores"] != 1 or not same:
+            raise AssertionError("path 13 (b): the restored run is not the "
+                                 "unfailed run bit for bit")
+        qat = ["--quant", "fake", "--qbits", "8", "--lr", "3e-3",
+               "--ckpt-every", "100"]
+        first = drive("qat0", "--steps", "1", *qat)
+        last = drive("qat", "--steps", "20", *qat)
+        l0 = float(first["metrics"]["loss"])
+        l1 = float(last["metrics"]["loss"])
+        log(f"[train] (b) --quant fake --qbits 8: loss {l0:.4f} at step 0, "
+            f"{l1:.4f} after 20 steps")
+        if not (math.isfinite(l1) and l1 < l0):
+            raise AssertionError(f"path 13 (b): QAT loss {l0} -> {l1}")
+    counts = launch_counts()
+    add(counts)
+    out["b"] = dict(restores=failed["restores"], bitwise=same,
+                    qat_loss=(l0, l1), launches=counts)
+    del clean, failed, first, last
+    gc.collect()
+
+    # -- (c) the paper's jet flow, card and CPU -----------------------------
+    gpu = train_jet_mlp.main(["--device", "cuda"])
+    cpu = train_jet_mlp.main(["--device", "cpu"])
+    diffs = {"fp32": abs(gpu["acc_fp32"] - cpu["acc_fp32"])}
+    diffs.update({k: abs(gpu["formats"][k] - cpu["formats"][k])
+                  for k in cpu["formats"]})
+    log(f"[train] (c) jet flow: f32 test accuracy card {gpu['acc_fp32']:.4f}"
+        f" / CPU {cpu['acc_fp32']:.4f}; formats card {gpu['formats']} / CPU "
+        f"{cpu['formats']}; largest difference {max(diffs.values()):.4f}")
+    if max(diffs.values()) > JET_TRAIN_TOL:
+        raise AssertionError(f"path 13 (c): the card's jet flow differs from "
+                             f"the CPU's by more than {JET_TRAIN_TOL}: {diffs}")
+    out["c"] = dict(card=gpu, cpu=cpu, diffs=diffs)
+    report["train"] = out
+    return counts_all
+
+
 def event_ms(torch, fn, reps: int = 5) -> float:
     """Median device time of ``fn`` (warm), CUDA events."""
     fn()
@@ -4241,6 +4758,8 @@ def kernels_line(rows, counts):
             "lut_activation": "gelu_gate interp 8x16384 bfloat16",
             "flash_attention": "a whisper-encoder B=8 H=8/8 Sq=1500 "
                                "Skv=1500 D=64 causal=False bf16",
+            "flash_attention_bwd": "h gemma-train B=8 H=8/1 Sq=256 Skv=256 "
+                                   "D=256 causal=True bf16",
             "lut_gated_mul": "gelu_gate interp 8x16384 bfloat16",
             "quantize_rows": "8x2048 bfloat16"}
     source = {"qmatmul": "src/repro_torch/kernels/csrc/qmatmul.cu",
@@ -4252,6 +4771,8 @@ def kernels_line(rows, counts):
                   "src/repro_torch/kernels/csrc/lut_activation.cu",
               "flash_attention":
                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "flash_attention_bwd":
+                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
               "lut_gated_mul":
                   "src/repro_torch/kernels/csrc/lut_activation.cu",
               "quantize_rows":
@@ -4263,6 +4784,10 @@ def kernels_line(rows, counts):
                     "src/repro/kernels/flash_attention.py:514",
                 "lut_activation": "src/repro/kernels/lut_activation.py:74",
                 "flash_attention": "src/repro/kernels/flash_attention.py:101",
+                # no Pallas kernel: XLA's autodiff of the einsum / chunked
+                # attention that the reference trains through
+                "flash_attention_bwd": "XLA autodiff of "
+                                       "src/repro/nn/attention.py:441-449",
                 # the TPU table kernel and the two products XLA applies
                 # after it (activations.py:41, blocks.py:72)
                 "lut_gated_mul": "src/repro/kernels/lut_activation.py:74",
@@ -4291,6 +4816,11 @@ def kernels_line(rows, counts):
                                        "lookup); context: the unfused chain "
                                        "it replaces")
             out[-1]["context_unfused_chain_ms"] = rep["unfused_chain_ms"]
+        if name == "flash_attention_bwd":
+            out[-1]["library_note"] = ("SDPA's backward on K/V expanded to "
+                                       "the query heads (its forward not "
+                                       "timed)")
+            out[-1]["kernels"] = ("three in one launch: delta, dk/dv, dq")
         if name == "quantize_rows":
             out[-1]["library_note"] = ("none (no PyTorch call quantizes); "
                                        "context: torch.amax(x.abs(), 1) on "
@@ -4365,6 +4895,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     check_flash(torch, timer, rows)
     torch.cuda.synchronize()
+    check_flash_bwd(torch, timer, rows)
+    torch.cuda.synchronize()
     check_sampling(torch, timer, report)
     torch.cuda.synchronize()
     check_verify(torch, timer, report)
@@ -4389,6 +4921,9 @@ def main(argv=None) -> int:
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
         for k, v in serve_vlm(torch, report).items():
+            counts[k] = counts.get(k, 0) + v
+        torch.cuda.synchronize()
+        for k, v in train_path(torch, report, args.profile).items():
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
 

@@ -1,7 +1,8 @@
-"""Host-object snapshots and the serving journal on disk (port of the
-blob and journal half of ``repro.checkpoint.store``)."""
+"""Checkpoints of tensor trees, host-object snapshots and the serving
+journal on disk (port of ``repro.checkpoint.store``)."""
 
-from .store import BlobLog, BlobLogFollower, latest_step, load_blob, save_blob
+from .store import (BlobLog, BlobLogFollower, CheckpointManager, latest_step,
+                    load_blob, restore_state, save_blob, save_state)
 
-__all__ = ["save_blob", "load_blob", "latest_step", "BlobLog",
-           "BlobLogFollower"]
+__all__ = ["save_state", "restore_state", "CheckpointManager", "save_blob",
+           "load_blob", "latest_step", "BlobLog", "BlobLogFollower"]

@@ -1,11 +1,16 @@
-"""Atomic snapshots of host objects and the append-only journal (port of
-``save_blob``, ``load_blob``, ``latest_step``, ``BlobLog`` and
-``BlobLogFollower`` of ``repro.checkpoint.store``).
+"""Checkpoints of tensor trees, atomic snapshots of host objects and the
+append-only journal (port of ``repro.checkpoint.store``).
 
-One directory per step, ``<dir>/step_%08d/``, holding the object as one
-pickled ``.npy`` and a ``manifest.json``; a save writes ``<step>.tmp``
-and renames it, so a crash mid-save never corrupts the newest complete
-snapshot.  ``BlobLog`` is the serving engine's write-ahead journal
+One directory per step, ``<dir>/step_%08d/``, and a ``manifest.json``.
+:func:`save_state` writes one ``.npy`` per leaf of a tensor tree, named
+by its '.'-joined path (the reference's layout; a bf16 leaf is stored as
+its uint16 bits, the manifest keeping ``bfloat16``), and
+:func:`restore_state` loads them into the structure of a template;
+:class:`CheckpointManager` saves on a thread (the host copy is made on
+the caller's thread), keeps the newest ``keep`` and restores the
+latest.  :func:`save_blob` holds a host object as one pickled ``.npy``.
+Every save writes ``<step>.tmp`` and renames it, so a crash mid-save
+never corrupts the newest complete checkpoint.  ``BlobLog`` is the serving engine's write-ahead journal
 (``<u32 length><u32 crc32>`` + pickle, fsync'd per append); a
 ``BlobLogFollower`` tails it for a hot standby.  Pickle: only for
 trusted, self-written state.
@@ -18,13 +23,96 @@ import os
 import pickle
 import shutil
 import struct
+import threading
 import zlib
 from typing import Optional
 
 import numpy as np
+import torch
 
-__all__ = ["save_blob", "load_blob", "latest_step", "BlobLog",
-           "BlobLogFollower"]
+from ..core.tree import tree_paths
+
+__all__ = ["save_state", "restore_state", "save_blob", "load_blob",
+           "latest_step", "BlobLog", "BlobLogFollower", "CheckpointManager"]
+
+_SEP = "."
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A host numpy copy of a leaf; bf16 as its uint16 bits.  Always a
+    copy: ``.cpu()`` of a CPU tensor is the tensor itself, which the
+    train step goes on to update in place while a save is on its
+    thread."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _host_tree(tree):
+    """The tree with every leaf copied to host numpy (bf16 kept as bits)
+    and its dtype name: ``{path: (array, dtype name)}``."""
+    return {path: (_to_numpy(leaf),
+                   str(leaf.dtype).replace("torch.", "")
+                   if isinstance(leaf, torch.Tensor)
+                   else str(np.asarray(leaf).dtype))
+            for path, leaf in tree_paths(tree, _SEP).items()}
+
+
+def _write_state(host, directory: str, step: int) -> str:
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {}
+    for path, (arr, dtype) in host.items():
+        fn = path.replace("/", "_") + ".npy"
+        np.save(os.path.join(tmp, fn), arr)
+        manifest[path] = {"shape": list(arr.shape), "dtype": dtype,
+                          "file": fn}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump({"step": step, "leaves": manifest}, f, indent=1)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def save_state(state, directory: str, step: int) -> str:
+    """Blocking save of a tensor tree.  Returns the checkpoint path."""
+    return _write_state(_host_tree(state), directory, step)
+
+
+def restore_state(template, directory: str, step: int, *, device=None):
+    """Load checkpoint ``step`` into the structure of ``template`` (a tree
+    of tensors, meta tensors included): new tensors of each template
+    leaf's dtype, on ``device`` (None: each template leaf's device; a
+    meta leaf loads to the CPU).  A shape that differs raises."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)["leaves"]
+
+    def load(key, leaf):
+        arr = np.load(os.path.join(path, key.replace("/", "_") + ".npy"))
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"ckpt leaf {key}: shape {arr.shape} != "
+                             f"{tuple(leaf.shape)}")
+        if manifest.get(key, {}).get("dtype") == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        dev = device if device is not None else (
+            "cpu" if leaf.device.type == "meta" else leaf.device)
+        return t.to(device=dev, dtype=leaf.dtype)
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{_SEP}{k}" if prefix else str(k))
+                    for k, v in node.items()}
+        return load(prefix, node)
+
+    return walk(template, "")
 
 
 def save_blob(obj, directory: str, step: int, *, name: str = "blob") -> str:
@@ -234,3 +322,51 @@ def latest_step(directory: str) -> Optional[int]:
              if d.startswith("step_") and not d.endswith(".tmp")
              and os.path.exists(os.path.join(directory, d, "manifest.json"))]
     return max(steps) if steps else None
+
+
+class CheckpointManager:
+    """Async save + retention + restore-latest of tensor trees."""
+
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    def save(self, state, step: int, *, blocking: bool = False):
+        """The host copy now (on the caller's thread), the files on a
+        worker thread unless ``blocking``."""
+        self.wait()
+        host = _host_tree(state)
+
+        def work():
+            _write_state(host, self.directory, step)
+            self._gc()
+
+        if blocking:
+            work()
+        else:
+            self._thread = threading.Thread(target=work, daemon=True)
+            self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def restore_latest(self, template, *, device=None):
+        """``(state, step)`` of the newest complete checkpoint, or
+        ``(None, None)``."""
+        self.wait()
+        step = latest_step(self.directory)
+        if step is None:
+            return None, None
+        return restore_state(template, self.directory, step,
+                             device=device), step
+
+    def _gc(self):
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)
+                       if d.startswith("step_") and not d.endswith(".tmp"))
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)

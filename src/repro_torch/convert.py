@@ -5,7 +5,10 @@ sees a JAX type.  Input: a nested dict whose leaves are numpy arrays; a
 quantized weight arrives as a dict with exactly the keys ``data`` and
 ``scale`` (the reference ``QTensor``'s payload and scale) and becomes a
 :class:`~repro_torch.core.qtypes.QTensor` of ``qtype``.  Stacked
-``(L, ...)`` layer leaves stay stacked.
+``(L, ...)`` layer leaves stay stacked.  The reference's whole train
+state converts the same way (``params``, the AdamW ``m``, ``v`` and
+``count``, ``step``): bf16 moments, which numpy carries as a 2-byte
+``bfloat16`` dtype, are taken over bit for bit, and 0-d leaves stay 0-d.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ def params_from_numpy(tree, *, device="cpu",
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     if not a.flags.writeable or not a.flags.c_contiguous:
-        a = np.ascontiguousarray(a).copy()
+        a = np.array(a, order="C")          # keeps a 0-d array 0-d
     return torch.from_numpy(a).to(device)

@@ -9,13 +9,13 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
-from .qtypes import FixedPointType
+from .qtypes import FixedPointType, MiniFloatType
 
 __all__ = ["LayerPrecision", "PrecisionPolicy", "FP32_PRECISION"]
 
-QType = Optional[FixedPointType]
+QType = Optional[Union[FixedPointType, MiniFloatType]]
 
 
 @dataclasses.dataclass(frozen=True)

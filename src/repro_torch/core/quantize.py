@@ -1,6 +1,12 @@
-"""Dynamic-range int8 quantization (port of ``repro.core.quantize``).
+"""Quantizers (port of ``repro.core.quantize``): straight-through fake
+quantization (QAT, PTQ accuracy studies) and dynamic-range int8.
 
-Same op order as the reference, so payloads and scales are bitwise
+:func:`fake_quant` round-trips a tensor through a fixed-point or
+minifloat type; its gradient is the clipping straight-through estimator,
+``g * (lo <= x <= hi)`` over the type's representable range, as the
+reference's ``custom_vjp``.
+
+For the int8 path: same op order as the reference, so payloads and scales are bitwise
 equal on the same weights: max-abs over the reduced axes,
 ``max(., 1e-12)``, ``/ int_max`` in float32, then ``round(x / scale)``
 as a true division with half-to-even rounding (``torch.round`` and
@@ -9,14 +15,47 @@ as a true division with half-to-even rounding (``torch.round`` and
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from .precision import PrecisionPolicy
-from .qtypes import FixedPointType, QTensor
+from .qtypes import FixedPointType, MiniFloatType, QTensor
 
-__all__ = ["calibrate_scale", "quantize_dynamic", "ptq_params"]
+__all__ = ["fake_quant", "calibrate_scale", "quantize_dynamic", "ptq_params",
+           "dequantize_params"]
+
+QType = Union[FixedPointType, MiniFloatType]
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Forward: the already-quantized ``q``; backward: the clipping STE."""
+
+    @staticmethod
+    def forward(ctx, x, q, lo: float, hi: float):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return q
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        mask = ((x >= lo) & (x <= hi)).to(g.dtype)
+        return g * mask, None, None, None
+
+
+def fake_quant(x: torch.Tensor, qtype: QType) -> torch.Tensor:
+    """Round-trip ``x`` through ``qtype`` (in x's dtype) with the
+    straight-through gradient: 1 inside ``[lo, hi]``, 0 outside."""
+    if isinstance(qtype, FixedPointType):
+        lo, hi = qtype.min_value, qtype.max_value
+    else:
+        hi = qtype.max_value
+        lo = -hi
+    with torch.no_grad():
+        q = qtype.quantize(x).to(x.dtype)
+    return _FakeQuant.apply(x, q, lo, hi)
 
 
 def calibrate_scale(x: torch.Tensor, qtype: FixedPointType,
@@ -83,9 +122,21 @@ def ptq_params(params, policy, *, channel_axes: Optional[Sequence[int]] = None,
               if isinstance(policy, PrecisionPolicy) else policy)
         if qt is None:
             return node
+        if isinstance(qt, MiniFloatType):
+            return qt.quantize(node)
         axes = (channel_axes if channel_axes is not None
                 else _weight_channel_axes(node.ndim))
         return quantize_dynamic(node, qt, channel_axes=axes)
 
     return walk(params, ())
 
+
+
+def dequantize_params(qparams, dtype=torch.float32):
+    """Inverse of :func:`ptq_params` (for accuracy-loss measurement):
+    every :class:`QTensor` leaf dequantized to ``dtype``."""
+    if isinstance(qparams, dict):
+        return {k: dequantize_params(v, dtype) for k, v in qparams.items()}
+    if isinstance(qparams, QTensor):
+        return qparams.dequantize(dtype)
+    return qparams

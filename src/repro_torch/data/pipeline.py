@@ -1,16 +1,23 @@
-"""Synthetic batches (copy of ``SyntheticLM`` and ``make_batch`` of
-``repro.data.pipeline``).
+"""Synthetic batches (copy of ``SyntheticLM``, ``make_batch``,
+``batch_struct`` and ``Prefetcher`` of ``repro.data.pipeline``).
 
-NumPy only and seeded, so the port's serving CLI and ``chip_smoke.py``
-draw the same prompts, and the same stub encoder frames and image
-patch embeddings, as the reference for a given seed.
+NumPy only and seeded, so the port's CLIs and ``chip_smoke.py`` draw the
+same prompts and training batches, and the same stub encoder frames and
+image patch embeddings, as the reference for a given seed.  A batch is a
+pure function of (seed, step): a restored training run replays its data
+without any loader state.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import queue
+import threading
+from typing import Iterator
 
-__all__ = ["SyntheticLM", "make_batch"]
+import numpy as np
+import torch
+
+__all__ = ["SyntheticLM", "make_batch", "batch_struct", "Prefetcher"]
 
 
 class SyntheticLM:
@@ -61,3 +68,62 @@ def make_batch(cfg, step: int, batch: int, seq: int, *, seed: int = 0,
         b["img_embed"] = rng.randn(batch, cfg.n_img_tokens,
                                    cfg.d_model).astype(dtype) * 0.02
     return b
+
+
+def batch_struct(cfg, batch: int, seq: int, dtype=torch.bfloat16):
+    """Shape-and-dtype stand-ins matching :func:`make_batch`, as tensors on
+    the ``meta`` device (no storage: the PyTorch form of the reference's
+    ``ShapeDtypeStruct``s, for dry runs)."""
+    meta = dict(device="meta")
+    s = {"tokens": torch.empty((batch, seq), dtype=torch.int32, **meta),
+         "labels": torch.empty((batch, seq), dtype=torch.int32, **meta)}
+    if cfg.family == "encdec":
+        s["enc_input"] = torch.empty(
+            (batch, min(seq, cfg.enc_len_cap), cfg.d_model), dtype=dtype,
+            **meta)
+    if cfg.family == "vlm":
+        s["img_embed"] = torch.empty((batch, cfg.n_img_tokens, cfg.d_model),
+                                     dtype=dtype, **meta)
+    return s
+
+
+class Prefetcher:
+    """One-step-ahead background batch producer: a thread calls
+    ``fn(step)`` for consecutive steps from ``start_step`` and queues
+    ``(step, batch)`` (at most ``depth`` ahead); iterate to take them in
+    order, :meth:`close` to stop."""
+
+    def __init__(self, fn, start_step: int = 0, depth: int = 2):
+        self._fn = fn
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        step = self._step
+        while not self._stop.is_set():
+            item = self._fn(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, item), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)

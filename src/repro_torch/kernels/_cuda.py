@@ -54,6 +54,7 @@ SOURCES = {"qmatmul": CSRC / "qmatmul.cu",
            "paged_attention": CSRC / "paged_attention.cu",
            "lut_activation": CSRC / "lut_activation.cu",
            "flash_attention": CSRC / "flash_attention.cu",
+           "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
            "quantize_rows": CSRC / "quantize_rows.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,8 +64,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel wrapper name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
                             "paged_attention_split": 0, "lut_activation": 0,
-                            "flash_attention": 0, "lut_gated_mul": 0,
-                            "quantize_rows": 0}
+                            "flash_attention": 0, "flash_attention_bwd": 0,
+                            "lut_gated_mul": 0, "quantize_rows": 0}
 #: source name -> {"seconds", "ptxas"} of the builds made or reused by this
 #: process (a reused build's ptxas lines come from the log beside it)
 BUILD_LOG: Dict[str, dict] = {}
@@ -91,8 +92,13 @@ SIGNATURES = {
                                  _P],
     },
     "flash_attention": {
-        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _F, _I, _I, _P],
+        "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _I, _P],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                                       _I, _P],
     },
     "quantize_rows": {
         "quantize_rows_launch": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I,

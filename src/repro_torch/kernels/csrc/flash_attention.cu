@@ -12,7 +12,11 @@
 //   m' = max(m, rowmax(logits)); p = exp(logits - m'), 0 where masked
 //   alpha = exp(m - m'); l = alpha * l + rowsum(p); acc = alpha * acc + p.v
 // and out = acc / max(l, 1e-30) in q's dtype (bf16 or f32), so a query
-// row that sees no key gives 0, as the TPU kernel does.  The plain version
+// row that sees no key gives 0, as the TPU kernel does.  Training asks
+// for the rows' log-sum-exp too, lse = m + log(l) in f32 with the natural
+// log (-inf for a row that sees no key), which the backward kernels
+// (flash_attention_bwd.cu) read; serving passes no lse pointer, and the
+// output does not depend on whether lse is written.  The plain version
 // is repro_torch.kernels.ref.flash_attention_plain for both kernels.
 //
 // What bounds it on the H100: operations.  4 * Sq * Skv * D flops per
@@ -77,6 +81,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -104,6 +109,7 @@ __global__ void __launch_bounds__(THREADS)
                                const float* __restrict__ k,
                                const float* __restrict__ v,
                                float* __restrict__ out,
+                               float* __restrict__ lse,
                                int hq, int group, int sq, int skv, int d,
                                float scale, int causal) {
   extern __shared__ float smem[];
@@ -250,6 +256,9 @@ __global__ void __launch_bounds__(THREADS)
       const float y = __fdiv_rn(acc[i][j], den);
       out[qbase + (size_t)r * d + c] = y;
     }
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)bb * hq + h) * sq + r] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
@@ -373,7 +382,8 @@ __global__ void __launch_bounds__(THREADS)
     flash_attention_bf16_kernel(const bf16* __restrict__ q,
                                 const bf16* __restrict__ k,
                                 const bf16* __restrict__ v,
-                                bf16* __restrict__ out, int hq, int group,
+                                bf16* __restrict__ out,
+                                float* __restrict__ lse, int hq, int group,
                                 int sq, int skv, int d, float scale,
                                 int causal, int vec) {
   constexpr int LD = DP + 8;
@@ -551,6 +561,11 @@ __global__ void __launch_bounds__(THREADS)
     const int r = q0 + wrow + g + 8 * i;
     if (r >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // m is in base-2 units (logits times log2(e)): lse = (m + log2 l) ln 2
+    if (lse != nullptr && t4 == 0)
+      lse[((size_t)bb * hq + h) * sq + r] =
+          l[i] > 0.f ? (m[i] + log2f(l[i])) * 0.6931471805599453f
+                     : -INFINITY;
     bf16* orow = out + (((size_t)bb * hq + h) * sq + r) * d;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
@@ -578,8 +593,9 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int DJ>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int b, int hq, int hkv, int sq, int skv,
-                       int d, float scale, int causal, cudaStream_t s) {
+                       void* out, float* lse, int b, int hq, int hkv, int sq,
+                       int skv, int d, float scale, int causal,
+                       cudaStream_t s) {
   auto kern = flash_attention_f32_kernel<DJ>;
   const size_t smem = smem_floats(d, DJ) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -588,15 +604,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), hq, hq / hkv,
-      sq, skv, d, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, hq,
+      hq / hkv, sq, skv, d, scale, causal);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int b, int hq, int hkv, int sq, int skv,
-                        int d, float scale, int causal, cudaStream_t s) {
+                        void* out, float* lse, int b, int hq, int hkv,
+                        int sq, int skv, int d, float scale, int causal,
+                        cudaStream_t s) {
   auto kern = tc::flash_attention_bf16_kernel<DP>;
   const size_t smem = tc::smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -609,7 +626,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const dim3 grid((sq + tc::BQ - 1) / tc::BQ, hq, b);
   kern<<<grid, tc::THREADS, smem, s>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out), hq,
+      static_cast<const tc::bf16*>(v), static_cast<tc::bf16*>(out), lse, hq,
       hq / hkv, sq, skv, d, scale, causal, vec);
   return cudaGetLastError();
 }
@@ -621,37 +638,39 @@ extern "C" const char* kernel_error_string(int err) {
 }
 
 // q (b, hq, sq, d), k and v (b, hkv, skv, d), out like q; all contiguous,
-// all bf16 (is_bf16) or all f32.  The wrapper checks 1 <= d <= 256,
+// all bf16 (is_bf16) or all f32.  lse: null, or (b, hq, sq) f32 for the
+// rows' natural log-sum-exp (training).  The wrapper checks 1 <= d <= 256,
 // hq % hkv == 0 and sq, skv >= 1; a shape outside that is refused here too.
 // f32: the CUDA-core kernel, D <= 64 or <= 256 (a narrower head runs in the
 // next wider instance, its columns past D zero); bf16: the tensor-core
 // kernel, D <= 64, 128, 192 or 256.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int b, int hq,
-                                      int hkv, int sq, int skv, int d,
-                                      float scale, int causal, int is_bf16,
-                                      void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int b, int hq, int hkv, int sq, int skv,
+                                      int d, float scale, int causal,
+                                      int is_bf16, void* stream) {
   if (d < 1 || d > 256 || hkv < 1 || hq % hkv != 0 || sq < 1 || skv < 1 ||
       b < 1 || hq > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   if (!is_bf16)
-    err = d <= 64 ? launch_f32<4>(q, k, v, out, b, hq, hkv, sq, skv, d, scale,
-                                  causal, s)
-                  : launch_f32<16>(q, k, v, out, b, hq, hkv, sq, skv, d,
+    err = d <= 64 ? launch_f32<4>(q, k, v, out, l, b, hq, hkv, sq, skv, d,
+                                  scale, causal, s)
+                  : launch_f32<16>(q, k, v, out, l, b, hq, hkv, sq, skv, d,
                                    scale, causal, s);
   else if (d <= 64)
-    err = launch_bf16<64>(q, k, v, out, b, hq, hkv, sq, skv, d, scale,
+    err = launch_bf16<64>(q, k, v, out, l, b, hq, hkv, sq, skv, d, scale,
                           causal, s);
   else if (d <= 128)
-    err = launch_bf16<128>(q, k, v, out, b, hq, hkv, sq, skv, d, scale,
+    err = launch_bf16<128>(q, k, v, out, l, b, hq, hkv, sq, skv, d, scale,
                            causal, s);
   else if (d <= 192)
-    err = launch_bf16<192>(q, k, v, out, b, hq, hkv, sq, skv, d, scale,
+    err = launch_bf16<192>(q, k, v, out, l, b, hq, hkv, sq, skv, d, scale,
                            causal, s);
   else
-    err = launch_bf16<256>(q, k, v, out, b, hq, hkv, sq, skv, d, scale,
+    err = launch_bf16<256>(q, k, v, out, l, b, hq, hkv, sq, skv, d, scale,
                            causal, s);
   return static_cast<int>(err);
 }

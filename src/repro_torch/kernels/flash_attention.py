@@ -6,7 +6,14 @@ Port of ``repro.kernels.flash_attention``:
   ``flash_attention_pallas``), :func:`flash_attention`, which serves the
   cache-free forward (the whisper encoder, ``lm.forward`` without a
   cache); Hopper kernel ``csrc/flash_attention.cu``, plain version
-  :func:`repro_torch.kernels.ref.flash_attention_plain`;
+  :func:`repro_torch.kernels.ref.flash_attention_plain`.  When autograd
+  records (training), a CUDA call runs as an autograd function: the
+  forward kernel also writes the rows' log-sum-exp, and the gradient is
+  the hand-written backward, :func:`flash_attention_bwd`
+  (``csrc/flash_attention_bwd.cu``; the reference leaves it to XLA's
+  autodiff), plain version
+  :func:`repro_torch.kernels.ref.flash_attention_bwd_plain`.  On CPU
+  tensors autograd runs through the plain forward;
 * paged attention over a block-table-indexed KV page pool: the unsplit
   route (TPU ``_paged_attention_unsplit``) and the split-KV
   flash-decoding route with its log-sum-exp combine (TPU
@@ -30,10 +37,12 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .ref import (combine_splits, flash_attention_plain, paged_attention_ref,
+from .ref import (combine_splits, flash_attention_bwd_plain,
+                  flash_attention_plain, paged_attention_ref,
                   paged_attention_split_ref)
 
-__all__ = ["flash_attention", "flash_attention_plain", "MAX_HEAD_DIM",
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention_bwd_plain", "MAX_HEAD_DIM",
            "paged_attention", "paged_attention_unsplit",
            "paged_attention_split", "combine_splits", "choose_kv_split",
            "auto_pages_per_step", "get_cost_constants", "set_cost_constants",
@@ -133,17 +142,8 @@ def _resolve_knobs(np_: int, ps: int, hkv: int, batch: int, kv_split,
 MAX_HEAD_DIM = 256
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    softmax_scale: Optional[float] = None):
-    """Cache-free attention: q (B, Hq, Sq, D) against k, v (B, Hkv, Skv, D),
-    ``Hq % Hkv == 0``, the queries the last Sq positions of the context;
-    f32 or bf16 (all three alike), f32 softmax and accumulation, output
-    in q's dtype.  ``softmax_scale`` None is ``D ** -0.5``.  bf16 runs the
-    tensor-core kernel, f32 the CUDA-core kernel (no TF32); both have
-    :func:`flash_attention_plain` as their plain version."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     softmax_scale=softmax_scale)
+def _check_flash(q, k, v):
+    """Validate what the flash kernels take; returns the geometry."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
@@ -166,18 +166,108 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"kernel's 1..{MAX_HEAD_DIM}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: operands on different devices")
+    return b, hq, hkv, sq, skv, d
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        softmax_scale: Optional[float] = None,
+                        with_lse: bool = False):
+    """One launch of the forward kernel on CUDA tensors: the output, and
+    with ``with_lse`` also the rows' natural log-sum-exp (B, Hq, Sq) f32
+    (-inf for a row that sees no key): ``(out, lse or None)``."""
+    b, hq, hkv, sq, skv, d = _check_flash(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lib = _cuda.library("flash_attention")
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        sq, skv, d, _scale(softmax_scale, d), int(bool(causal)),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, d,
+        _scale(softmax_scale, d), int(bool(causal)),
         int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
     _cuda.check(lib, err, "flash_attention")
     _cuda.LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        softmax_scale: Optional[float] = None):
+    """``(dq, dk, dv)`` of the cache-free attention from the forward's
+    output ``o`` and log-sum-exp ``lse`` and the output gradient ``do``,
+    in the operands' dtype (f32 sums): one launch of the backward (the
+    ``delta``, dk/dv and dq kernels) on CUDA tensors, deterministic.  Like
+    :func:`flash_attention_fwd` it raises on the CPU, where autograd
+    differentiates the plain forward (:func:`flash_attention`)."""
+    b, hq, hkv, sq, skv, d = _check_flash(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} "
+                         f"{o.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         f"must be like q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} is not ({b}, {hq}, {sq}) f32")
+    for t in (o, lse, do):
+        if t.device != q.device:
+            raise ValueError("flash_attention_bwd: operands on different "
+                             "devices")
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = _cuda.library("flash_attention_bwd")
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
+        _scale(softmax_scale, d), int(bool(causal)),
+        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+    _cuda.check(lib, err, "flash_attention_bwd")
+    _cuda.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its log-sum-exp, the backward kernel as
+    the gradient (CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, softmax_scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       softmax_scale=softmax_scale,
+                                       with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.softmax_scale = causal, softmax_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal,
+                                         softmax_scale=ctx.softmax_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    softmax_scale: Optional[float] = None):
+    """Cache-free attention: q (B, Hq, Sq, D) against k, v (B, Hkv, Skv, D),
+    ``Hq % Hkv == 0``, the queries the last Sq positions of the context;
+    f32 or bf16 (all three alike), f32 softmax and accumulation, output
+    in q's dtype.  ``softmax_scale`` None is ``D ** -0.5``.  bf16 runs the
+    tensor-core kernel, f32 the CUDA-core kernel (no TF32); both have
+    :func:`flash_attention_plain` as their plain version.  Under autograd
+    (an operand that requires grad) a CUDA call is differentiable through
+    :func:`flash_attention_bwd`; serving writes no log-sum-exp."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     softmax_scale=softmax_scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, bool(causal), softmax_scale)
+    return flash_attention_fwd(q, k, v, causal=causal,
+                               softmax_scale=softmax_scale)[0]
 
 
 def _check(q, k_pages, v_pages, block_tables, qpos):

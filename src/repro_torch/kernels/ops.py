@@ -88,8 +88,10 @@ def qmatmul(a_data, b_data, a_scale, b_scale, *, bias=None,
 def attention(q, k, v, *, causal: bool = True, softmax_scale=None,
               backend: Optional[str] = None, **kw) -> torch.Tensor:
     """Cache-free attention, q (B, Hq, Sq, D) against k, v (B, Hkv, Skv,
-    D): the ``flash_attention`` kernel (``cuda``) or the reference's
-    plain oracle (``ref``)."""
+    D): the ``flash_attention`` kernel (``cuda``; under autograd on CUDA
+    tensors an autograd function whose gradient is the
+    ``flash_attention_bwd`` kernel) or the reference's plain oracle
+    (``ref``, differentiated by autograd)."""
     return get_impl("attention", backend)(q, k, v, causal=causal,
                                           softmax_scale=softmax_scale, **kw)
 

@@ -30,6 +30,7 @@ from ..core.tables import TableSpec, get_table, table_lookup
 __all__ = ["lut_activation_ref", "apply_table", "lut_activation_plain",
            "lut_gated_mul_ref", "lut_gated_mul_plain", "quantize_rows_ref",
            "qmatmul_ref", "flash_attention_ref", "flash_attention_plain",
+           "flash_attention_lse_plain", "flash_attention_bwd_plain",
            "paged_attention_ref",
            "paged_attention_split_ref", "combine_splits",
            "sample_tokens_ref", "verify_tokens_ref"]
@@ -250,6 +251,59 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)
     return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+def _flash_pairs(q, k, causal: bool, softmax_scale):
+    """Scaled f32 logits (B, Hkv, G, Sq, Skv) of ``q.f32 * scale`` against
+    k, with the visibility mask (queries the last Sq positions)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    scale = (softmax_scale if softmax_scale is not None
+             else float(1.0 / np.sqrt(d)))
+    qs = q.reshape(b, hkv, hq // hkv, sq, d).to(torch.float32) * scale
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qs, k.to(torch.float32))
+    qpos = (skv - sq) + torch.arange(sq, device=q.device)[:, None]
+    mask = (qpos >= torch.arange(skv, device=q.device)[None, :]) if causal \
+        else torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    return qs, s, mask, scale
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                              causal: bool = True,
+                              softmax_scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """The rows' natural log-sum-exp (B, Hq, Sq) f32 over the visible keys
+    of ``q.f32 * scale . k``: what the forward kernel writes for training
+    (-inf for a row that sees no key)."""
+    _, s, mask, _ = _flash_pairs(q, k, causal, softmax_scale)
+    lse = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+    return lse.reshape(q.shape[0], q.shape[1], q.shape[2])
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              softmax_scale: Optional[float] = None):
+    """The plain version of the ``flash_attention_bwd`` kernel: the same
+    formulas in f32, ``p = exp(s - lse)`` on visible pairs (0 elsewhere),
+    ``delta = rowsum(do * o)``, ``ds = p * (do . v - delta)``, ``dv = p^T
+    do``, ``dk = ds^T (q * scale)``, ``dq = scale * ds . k``, the query
+    heads of a group summed into their KV head; ``(dq, dk, dv)`` in the
+    operands' dtypes."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    qs, s, mask, scale = _flash_pairs(q, k, causal, softmax_scale)
+    g = hq // hkv
+    lse_g = lse.reshape(b, hkv, g, sq, 1).to(torch.float32)
+    p = torch.where(mask, torch.exp(s - torch.where(
+        torch.isfinite(lse_g), lse_g, 0.0)), 0.0)
+    dof = do.reshape(b, hkv, g, sq, -1).to(torch.float32)
+    of = o.reshape(b, hkv, g, sq, -1).to(torch.float32)
+    delta = torch.sum(dof * of, dim=-1, keepdim=True)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v.to(torch.float32))
+    ds = p * (dp - delta)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qs)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(torch.float32)) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor):

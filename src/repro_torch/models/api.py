@@ -13,7 +13,7 @@ import torch
 from ..core.device import resolve_device
 from . import encdec, hybrid, lm, ssm_lm, vlm
 
-__all__ = ["get_family", "FAMILIES", "prefill_fn", "decode_fn",
+__all__ = ["get_family", "FAMILIES", "loss_fn", "prefill_fn", "decode_fn",
            "supports_chunked_prefill", "init_cache_fn",
            "init_paged_cache_fn", "set_block_table", "lane_leaves_fn",
            "invalidate_fn", "merge_slot_fn", "spec_state_fn",
@@ -30,6 +30,11 @@ def get_family(cfg) -> ModuleType:
     except KeyError:
         raise KeyError(f"family {cfg.family!r} is not ported yet (have "
                        f"{sorted(FAMILIES)}; ROADMAP.md queue 1)") from None
+
+
+def loss_fn(params, batch, cfg, ctx):
+    """Family-dispatched training loss: ``(scalar, metrics)``."""
+    return get_family(cfg).loss(params, batch, cfg, ctx)
 
 
 def prefill_fn(params, batch, cache, cfg, ctx, *, pos=None,

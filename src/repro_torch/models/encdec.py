@@ -15,6 +15,8 @@ self-cache (updated in place) and those cross K/V.  The cache is
 leaf stacked over layers, (L, B, Hkv, rows, Dh); the reference keys
 ``cross_kv`` as a tuple (k, v).  An int8 KV cache is refused: the
 reference casts float cross K/V straight to int8 without scales.
+:func:`loss` is the training loss of the teacher-forced forward, encoder
+and decoder layers checkpointed under ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ from ..nn.blocks import (dense_block_apply, dense_block_init, layer_slice,
                          scan_apply, stack_init)
 from ..nn.context import DEFAULT_CTX, QuantContext
 from ..nn.embedding import embed, embedding_init, unembed
-from .common import sinusoidal_table
+from .common import cross_entropy, sinusoidal_table
 
-__all__ = ["init", "encode", "forward", "init_cache", "prefill",
+__all__ = ["init", "encode", "forward", "loss", "init_cache", "prefill",
            "decode_step"]
 
 
@@ -98,7 +100,8 @@ def encode(params, enc_input: torch.Tensor, cfg,
     def body(p_l, x, _):
         return dense_block_apply(p_l, x, cfg, ctx, causal=False)
 
-    x, _ = scan_apply(params["encoder"], x, body, n_layers=cfg.enc_layers)
+    x, _ = scan_apply(params["encoder"], x, body, n_layers=cfg.enc_layers,
+                      remat=cfg.remat)
     return norm_apply(cfg, params["enc_norm"], x)
 
 
@@ -120,7 +123,8 @@ def _decode(params, tokens, enc, cfg, ctx, *, cache=None, cache_pos=None,
                                 cross_kv=per_layer["cross"])
 
     x, _ = scan_apply(params["decoder"], x, body, n_layers=cfg.n_layers,
-                      per_layer={"self": cache, "cross": cross_kv})
+                      per_layer={"self": cache, "cross": cross_kv},
+                      remat=cfg.remat if cache is None else "none")
     x = norm_apply(cfg, params["dec_norm"], x)
     return unembed(params["embed"], x, ctx)
 
@@ -130,6 +134,14 @@ def forward(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):
     against ``batch["enc_input"]``."""
     enc = encode(params, batch["enc_input"], cfg, ctx)
     return _decode(params, batch["tokens"], enc, cfg, ctx)
+
+
+def loss(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):
+    """Training loss of ``batch``: cross-entropy with the z-loss."""
+    logits = forward(params, batch, cfg, ctx)
+    ce, metrics = cross_entropy(logits, batch["labels"])
+    metrics["loss"] = ce.detach()
+    return ce, metrics
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32,

@@ -19,7 +19,8 @@ final states in (the SSM states are rebuilt from the call's tokens, so a
 prefill must hold the whole prompt; ``pos`` offsets only the attention
 caches).  Without a cache, :func:`forward` is the cache-free causal
 forward, its attention through the ``flash_attention`` kernel on the
-card.  Training's ``loss`` comes with item 16b (ROADMAP.md).
+card.  :func:`loss` is the training loss of the cache-free forward, the
+mamba layers checkpointed under ``cfg.remat`` as in the reference.
 """
 
 from __future__ import annotations
@@ -34,10 +35,11 @@ from ..nn.blocks import (dense_block_apply, dense_block_init, layer_slice,
 from ..nn.context import DEFAULT_CTX, QuantContext
 from ..nn.embedding import embed, embedding_init, unembed
 from ..nn.ssm import mamba2_state_spec
-from .common import copy_tree, stack_states
+from .common import copy_tree, cross_entropy, stack_states
 
-__all__ = ["init", "forward", "init_cache", "init_paged_cache", "prefill",
-           "decode_step", "lane_leaves", "spec_state", "spec_restore"]
+__all__ = ["init", "forward", "loss", "init_cache", "init_paged_cache",
+           "prefill", "decode_step", "lane_leaves", "spec_state",
+           "spec_restore"]
 
 
 def _group_structure(cfg):
@@ -83,7 +85,8 @@ def forward(params, tokens: torch.Tensor, cfg,
 
     def run(stack, n, x, states):
         x, new = scan_apply(stack, x, body, n_layers=n,
-                            per_layer=states if decode else None)
+                            per_layer=states if decode else None,
+                            remat="none" if decode else cfg.remat)
         return x, (None if decode else stack_states(new))
 
     ssm = None if cache is None else cache["ssm"]
@@ -129,6 +132,14 @@ def _per_group(cfg, one):
             return {key: rep(v) for key, v in t.items()}
         return t[None].repeat(n_groups, *([1] * t.ndim))
     return rep(one)
+
+
+def loss(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):
+    """Training loss of ``batch``: cross-entropy with the z-loss."""
+    logits = forward(params, batch["tokens"], cfg, ctx)[0]
+    ce, metrics = cross_entropy(logits, batch["labels"])
+    metrics["loss"] = ce.detach()
+    return ce, metrics
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

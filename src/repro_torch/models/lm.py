@@ -16,8 +16,9 @@ per-layer block tables ``(L, B, NP)`` that the engine keeps identical
 across layers.  GQA caches come in f32 or int8 (payload plus bf16
 per-(token, head) scales); an int8 MLA latent is bf16.  Without a cache,
 :func:`forward` is the cache-free causal forward, through the
-``flash_attention`` kernel on the card.  Training's ``loss`` comes with
-item 16b (ROADMAP.md).
+``flash_attention`` kernel on the card (its backward kernel under
+autograd), each layer checkpointed under ``cfg.remat``; :func:`loss` is
+the training loss, cross-entropy plus the MoE aux term.
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ from ..nn.blocks import (dense_block_apply, dense_block_init,
 from ..nn.context import DEFAULT_CTX, QuantContext
 from ..nn.embedding import embed, embedding_init, unembed
 from ..nn.linear import linear, linear_init
+from .common import cross_entropy
 
-__all__ = ["init", "forward", "init_cache", "init_paged_cache", "prefill",
-           "decode_step"]
+__all__ = ["init", "forward", "loss", "init_cache", "init_paged_cache",
+           "prefill", "decode_step"]
 
 
 def _split_layers(cfg) -> Tuple[int, int]:
@@ -76,6 +78,7 @@ def forward(params, tokens: torch.Tensor, cfg, ctx: QuantContext = DEFAULT_CTX,
     layers' aux losses summed (0 for a dense config)."""
     x = embed(params["embed"], tokens, ctx, scale_by_dim=cfg.embed_scale)
     n_dense, n_moe = _split_layers(cfg)
+    remat = cfg.remat if cache is None else "none"
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def dense_body(p_l, x, cache_l):
@@ -89,11 +92,12 @@ def forward(params, tokens: torch.Tensor, cfg, ctx: QuantContext = DEFAULT_CTX,
 
     if n_dense:
         x, _ = scan_apply(params["dense"], x, dense_body, n_layers=n_dense,
-                          per_layer=None if cache is None else cache["dense"])
+                          per_layer=None if cache is None else cache["dense"],
+                          remat=remat)
     if n_moe:
         x, auxes = scan_apply(params["moe"], x, moe_body, n_layers=n_moe,
                               per_layer=None if cache is None
-                              else cache["moe"])
+                              else cache["moe"], remat=remat)
         for a in auxes:
             aux = aux + a
     x = norm_apply(cfg, params["final_norm"], x)
@@ -102,6 +106,19 @@ def forward(params, tokens: torch.Tensor, cfg, ctx: QuantContext = DEFAULT_CTX,
     else:
         logits = linear(params["head"], x, ctx, path="head")
     return logits, cache, aux
+
+
+def loss(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):
+    """Training loss of ``batch = {"tokens", "labels"}``: cross-entropy
+    (with the z-loss) plus ``aux_loss_weight`` times the MoE aux loss."""
+    logits, _, aux = forward(params, batch["tokens"], cfg, ctx)
+    ce, metrics = cross_entropy(logits, batch["labels"])
+    total = ce
+    if cfg.moe is not None:
+        total = total + cfg.moe.aux_loss_weight * aux
+        metrics["moe_aux"] = aux.detach()
+    metrics["loss"] = total.detach()
+    return total, metrics
 
 
 def _stack_layers(tree, n: int):

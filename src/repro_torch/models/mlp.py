@@ -8,8 +8,8 @@ leaves of :func:`repro_torch.core.quantize.ptq_params`) each one runs the
 32.  ReLU is exact in every mode, as in the reference; :func:`predict`'s
 softmax goes through the paper's exp / invert tables under
 ``ctx.use_lut``.  The model is consumed directly (no serving family).
-Training is not ported yet (ROADMAP.md queue 1, item 16b): :func:`loss`
-evaluates.
+:func:`loss` is differentiable: the paper's flow trains it in f32, then
+sweeps fake quantization (``repro_torch.examples.train_jet_mlp``).
 """
 
 from __future__ import annotations
@@ -51,14 +51,14 @@ def predict(params, x: torch.Tensor, ctx: QuantContext = DEFAULT_CTX):
     return softmax(forward(params, x, ctx), ctx, axis=-1)
 
 
-@torch.no_grad()
 def loss(params, batch, ctx: QuantContext = DEFAULT_CTX):
     """Mean cross-entropy and accuracy of ``batch = {"x", "y"}``:
-    ``(loss, {"loss", "accuracy"})``, 0-d f32 tensors."""
+    ``(loss, {"loss", "accuracy"})``, 0-d f32 tensors (the metrics
+    detached)."""
     logits = forward(params, batch["x"], ctx).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, batch["y"][:, None].long())[:, 0]
     val = torch.mean(lse - ll)
     acc = torch.mean((torch.argmax(logits, -1) == batch["y"])
                      .to(torch.float32))
-    return val, {"loss": val, "accuracy": acc}
+    return val, {"loss": val.detach(), "accuracy": acc}

@@ -8,7 +8,8 @@ states into it (the tensors keep their addresses, so captured decode
 graphs stay valid).  The state is position-free, so ``pos`` is ignored,
 and a prefill rebuilds it from its own tokens: the Engine ingests a
 prompt with per-token decode steps instead (``supports_chunked_prefill``
-is false).  Training's ``loss`` comes with item 16b (ROADMAP.md).
+is false).  :func:`loss` is the training loss of the cache-free forward,
+each layer checkpointed under ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ from ..nn.blocks import (mamba_block_apply, mamba_block_init, norm_apply,
 from ..nn.context import DEFAULT_CTX, QuantContext
 from ..nn.embedding import embed, embedding_init, unembed
 from ..nn.ssm import mamba2_state_spec
-from .common import copy_tree, stack_states
+from .common import copy_tree, cross_entropy, stack_states
 
-__all__ = ["init", "forward", "init_cache", "init_paged_cache", "prefill",
-           "decode_step", "spec_state", "spec_restore"]
+__all__ = ["init", "forward", "loss", "init_cache", "init_paged_cache",
+           "prefill", "decode_step", "spec_state", "spec_restore"]
 
 
 def init(gen: torch.Generator, cfg, *, dtype=torch.float32, device=None):
@@ -50,10 +51,19 @@ def forward(params, tokens: torch.Tensor, cfg,
                                  decode=decode)
 
     x, states = scan_apply(params["layers"], x, body, n_layers=cfg.n_layers,
-                           per_layer=state if decode else None)
+                           per_layer=state if decode else None,
+                           remat="none" if decode else cfg.remat)
     x = norm_apply(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], x, ctx)
     return logits, (state if decode else stack_states(states))
+
+
+def loss(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):
+    """Training loss of ``batch``: cross-entropy with the z-loss."""
+    logits = forward(params, batch["tokens"], cfg, ctx)[0]
+    ce, metrics = cross_entropy(logits, batch["labels"])
+    metrics["loss"] = ce.detach()
+    return ce, metrics
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

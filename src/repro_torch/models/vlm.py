@@ -22,7 +22,9 @@ dtype), so a captured decode graph stays valid across prefills;
 Hkv, n_img_tokens, Dh)}`` (the reference keys ``cross_kv`` as a tuple).
 An int8 KV cache is refused: the reference casts the float cross K/V
 straight to int8 without scales.  There is no paged VLM cache, as in
-the reference.  Training's ``loss`` comes with item 16b (ROADMAP.md).
+the reference.  :func:`loss` is the training loss of the cache-free
+forward with the image, the self layers checkpointed under ``cfg.remat``
+as in the reference.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ from ..nn.blocks import (cross_block_apply, cross_block_init,
                          stack_init)
 from ..nn.context import DEFAULT_CTX, QuantContext
 from ..nn.embedding import embed, embedding_init, unembed
+from .common import cross_entropy
 
-__all__ = ["init", "forward", "init_cache", "prefill", "decode_step",
+__all__ = ["init", "forward", "loss", "init_cache", "prefill", "decode_step",
            "lane_leaves"]
 
 
@@ -107,7 +110,8 @@ def forward(params, tokens: torch.Tensor, img_embed: Optional[torch.Tensor],
         x, _ = scan_apply(layer_slice(params["groups"], g), x, body,
                           n_layers=k_self,
                           per_layer=None if cache is None
-                          else layer_slice(cache["self"], g))
+                          else layer_slice(cache["self"], g),
+                          remat=cfg.remat if cache is None else "none")
         p_x = layer_slice(params["cross"], g)
         kv = None
         if cross_kv is not None:
@@ -124,6 +128,14 @@ def forward(params, tokens: torch.Tensor, img_embed: Optional[torch.Tensor],
              else _cross_with_cached(p_x, x, kv, cfg, ctx))
     x = norm_apply(cfg, params["final_norm"], x)
     return unembed(params["embed"], x, ctx), cache
+
+
+def loss(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):
+    """Training loss of ``batch``: cross-entropy with the z-loss."""
+    logits = forward(params, batch["tokens"], batch["img_embed"], cfg, ctx)[0]
+    ce, metrics = cross_entropy(logits, batch["labels"])
+    metrics["loss"] = ce.detach()
+    return ce, metrics
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -21,7 +21,14 @@ layer's state in place.
 
 Stacks of identical blocks keep the reference's stacked ``(L, ...)``
 parameter leaves; :func:`scan_apply` is the ``lax.scan`` counterpart, a
-Python loop that slices layer ``l`` out of every leaf (views, no copies).
+Python loop over the layers of every leaf, unbound once into per-layer
+views (no copies; under autograd one node per leaf, whose backward
+stacks the layers' gradients once, where a view per layer would add L
+full-size gradients).
+Its ``remat`` is the reference's activation rematerialization: under
+"full" (or "dots", which the port runs as "full") each layer runs under
+``torch.utils.checkpoint`` while autograd records, so a training step
+keeps each layer's input and recomputes the rest in the backward.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..core.qtypes import QTensor
 from ..core.tables import GATED_FORMS
+from ..core.tree import tree_map
 from .attention import gqa_apply, gqa_init, mla_apply, mla_init
 from .context import DEFAULT_CTX, QuantContext
 from .linear import act_table, int8_qtype, linear, linear_init
@@ -239,19 +248,13 @@ def stack_init(gen, n: int, init_fn: Callable):
     (llama-3.2-vision's eight groups of four layers hold 28 GB in f32)."""
     first = init_fn(gen)
     if n == 1:
-        return _map_leaves(lambda t: t[None], first)
-    out = _map_leaves(lambda t: t.new_empty((n, *t.shape)), first)
+        return tree_map(lambda t: t[None], first)
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
     _copy_into(out, first, 0)
     del first
     for i in range(1, n):
         _copy_into(out, init_fn(gen), i)
     return out
-
-
-def _map_leaves(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _copy_into(out, tree, i: int) -> None:
@@ -272,14 +275,38 @@ def layer_slice(tree, l: int):
     return tree
 
 
-def scan_apply(stacked, x, body: Callable, *, n_layers: int, per_layer=None):
+def _unbind(tree, n: int):
+    """The ``n`` per-layer trees of a stacked tree, each leaf unbound once
+    along its leading axis (QTensor payload and scale together)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][l] for k in parts} for l in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return tree.unbind(0)
+    if isinstance(tree, QTensor):
+        return [QTensor(d, s, tree.qtype)
+                for d, s in zip(tree.data.unbind(0), tree.scale.unbind(0))]
+    return [tree] * n
+
+
+def scan_apply(stacked, x, body: Callable, *, n_layers: int, per_layer=None,
+               remat: str = "none"):
     """Run ``body(params_l, x, per_layer_l) -> (x', y_l)`` over the stack.
 
-    Returns ``(x_final, [y_l])``.
+    Returns ``(x_final, [y_l])``.  ``remat`` other than "none" checkpoints
+    each layer when autograd records (the values do not change).
     """
+    ckpt = remat != "none" and torch.is_grad_enabled()
+    layers = _unbind(stacked, n_layers)
     ys = []
     for l in range(n_layers):
         extra = None if per_layer is None else layer_slice(per_layer, l)
-        x, y = body(layer_slice(stacked, l), x, extra)
+        p_l = layers[l]
+        if ckpt:
+            x, y = torch.utils.checkpoint.checkpoint(
+                body, p_l, x, extra, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, y = body(p_l, x, extra)
         ys.append(y)
     return x, ys

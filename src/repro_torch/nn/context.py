@@ -1,11 +1,12 @@
 """Execution context threading the paper's knobs through the model stack
 (port of ``repro.nn.context``).
 
-The fields are the reference's.  Of the numeric modes the port runs
-``none`` (matmuls in ``compute_dtype``) and ``int8`` (the ``qmatmul``
-kernel), each with or without ``use_lut`` (the paper's constant-table
-activations and softmax); ``fake`` is refused with an error naming the
-ROADMAP.md item that will port it.  ``kv_cache_bits`` is carried as in
+The fields are the reference's, and so are the numeric modes: ``none``
+(matmuls in ``compute_dtype``), ``fake`` (straight-through fake
+quantization of the weights and, where the policy says so, the
+activations: QAT) and ``int8`` (the ``qmatmul`` kernel), each with or
+without ``use_lut`` (the paper's constant-table activations and
+softmax).  ``kv_cache_bits`` is carried as in
 the reference, where nothing reads it: the engine's ``kv_bits`` chooses
 the cache.
 """
@@ -22,7 +23,7 @@ from ..core.qtypes import FixedPointType
 
 __all__ = ["QuantContext", "DEFAULT_CTX"]
 
-_MODES = ("none", "int8")
+_MODES = ("none", "fake", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +59,6 @@ class QuantContext:
     per_position_attention: bool = False
 
     def __post_init__(self):
-        if self.mode == "fake":
-            raise NotImplementedError(
-                "mode='fake' (straight-through fake quantization) is not "
-                "ported yet: ROADMAP.md queue 1, item 2 (core) and item 16")
         if self.mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}")
         if self.reuse_factor < 1:

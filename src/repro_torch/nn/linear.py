@@ -2,6 +2,11 @@
 
 * ``none`` -- ``torch.matmul`` in ``compute_dtype`` (the reference leaves
   this product to XLA; a plain library matmul is its counterpart).
+* ``fake`` -- the weight (and the activation, where the policy gives a
+  type) fake-quantized in f32 with the straight-through gradient
+  (:func:`repro_torch.core.quantize.fake_quant`), then the same
+  ``torch.matmul``: the reference computes this product outside any
+  kernel too.  A layer whose policy has no weight type runs as ``none``.
 * ``int8`` -- per-row dynamic activation quantization (the
   ``quantize_rows`` kernel, one launch), then the ``qmatmul`` kernel on
   the pre-quantized weight (a :class:`QTensor` from
@@ -23,7 +28,7 @@ import torch
 
 from ..core.precision import LayerPrecision
 from ..core.qtypes import FixedPointType, QTensor
-from ..core.quantize import calibrate_scale
+from ..core.quantize import calibrate_scale, fake_quant
 from ..core.tables import GATED_FORMS, TableSpec
 from .activations import _LUT_DOMAIN, act_fn
 from .context import DEFAULT_CTX, QuantContext
@@ -120,6 +125,13 @@ def linear(p, x: torch.Tensor, ctx: QuantContext = DEFAULT_CTX, *,
     else:
         if prequant:
             w = w.dequantize(ctx.compute_dtype)
+        prec = ctx.policy.resolve(path)
+        # as the reference: a float weight without a type runs as "none"
+        fake = ctx.mode == "fake" and (prequant or prec.weights is not None)
+        if fake and prec.weights is not None:
+            w = fake_quant(w.to(torch.float32), prec.weights)
+        if fake and prec.activations is not None:
+            x = fake_quant(x.to(torch.float32), prec.activations)
         y = torch.matmul(x.to(ctx.compute_dtype), w.to(ctx.compute_dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)

@@ -1,2 +1,2 @@
-"""Step builders for serving and the CUDA-graph dispatch of the decode
-block (training is not ported yet)."""
+"""Step builders for training and serving, and the CUDA-graph dispatch of
+the decode block."""

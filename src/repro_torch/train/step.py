@@ -1,5 +1,18 @@
-"""Serving step builders (port of ``repro.train.step``: the serve step, the
-prefill step, the fused decode loop and the speculative decode loop).
+"""Train and serve step builders (port of ``repro.train.step``: the train
+state and step, the serve step, the prefill step, the fused decode loop
+and the speculative decode loop).
+
+Training: :func:`init_state` builds ``{"params", "opt", "step"}`` and
+:func:`build_train_step` the ``(state, batch) -> (state, metrics)`` step:
+the family's loss under autograd (its cache-free attention through the
+flash kernel and its backward kernel on the card), gradients accumulated
+in f32 over ``microbatches`` slices of the batch with the metrics
+``loss`` and ``accuracy`` averaged (the reference's scan), then AdamW
+with the learning rate ``lr_fn(step)``.  The update writes into the
+state's tensors (the reference's ``launch/train.py`` donates its state
+to the jitted step), so a full-width state is held once on the card.  The reference's
+sharded gradients (``grad_specs``) wait for the mesh (ROADMAP.md item
+18); training under ``int8`` or ``use_lut`` waits for item 16c.
 
 The reference runs ``steps`` decode steps inside one ``lax.scan`` under
 one ``jax.jit`` call; here the block is a Python loop of ``steps`` model
@@ -25,10 +38,14 @@ import torch
 from ..kernels.ops import sample_tokens, verify_tokens
 from ..kernels.prng import fold_in
 from ..kernels.speculative import draft_ngram
-from ..models.api import (decode_fn, get_family, prefill_fn,
+from ..core.device import resolve_device
+from ..core.tree import tree_leaves, tree_unflatten
+from ..optim import OptConfig, adamw_init, adamw_update
+from ..models.api import (decode_fn, get_family, loss_fn, prefill_fn,
                           spec_restore_fn, spec_state_fn)
 
-__all__ = ["build_serve_step", "build_prefill_step", "build_decode_loop",
+__all__ = ["init_state", "build_train_step", "build_serve_step",
+           "build_prefill_step", "build_decode_loop",
            "build_spec_decode_loop", "LOOP_BUILDS"]
 
 #: loop builds: every call of :func:`build_decode_loop` or
@@ -36,6 +53,101 @@ __all__ = ["build_serve_step", "build_prefill_step", "build_decode_loop",
 #: trace-and-compiles the same way), so a caller that rebuilds a loop per
 #: block shows here; reset by assigning zeros
 LOOP_BUILDS = {"decode": 0, "spec": 0}
+
+
+def init_state(gen: torch.Generator, cfg, *, dtype=torch.float32,
+               opt_cfg: OptConfig = OptConfig(), device=None):
+    """``{"params", "opt", "step"}``: the family's random init from
+    ``gen``, zero AdamW moments, step 0 (int32).  ``device`` None is the
+    GPU."""
+    device = resolve_device(device)
+    params = get_family(cfg).init(gen, cfg, dtype=dtype, device=device)
+    return {"params": params, "opt": adamw_init(params, opt_cfg),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _to_device(batch, device):
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def build_train_step(cfg, ctx, *, lr_fn: Callable,
+                     opt_cfg: OptConfig = OptConfig(), microbatches: int = 1,
+                     grad_specs=None) -> Callable:
+    """``(state, batch) -> (state, metrics)``, the state updated in place.
+
+    ``batch`` holds tensors or numpy arrays with leading dim B (moved to
+    the parameters' device); with ``microbatches`` > 1 each leaf is cut
+    into (M, B/M, ...) and the f32 gradients of the slices are summed in
+    order and scaled by 1/M, as ``loss`` and ``accuracy`` (the only
+    metrics kept then).  The metrics add ``grad_norm`` (before clipping)
+    and ``lr``, all 0-d tensors.  The step's ``compute_grads(params,
+    batch) -> (grads, metrics)`` attribute computes the gradients alone
+    (a tree like the params), updating nothing.
+    """
+    if grad_specs is not None:
+        raise NotImplementedError(
+            "grad_specs (sharded gradient accumulation) needs a device "
+            "mesh, which the port does not have yet: ROADMAP.md item 18")
+    if ctx.mode == "int8" or ctx.use_lut:
+        raise NotImplementedError(
+            f"training under {'--quant int8' if ctx.mode == 'int8' else ''}"
+            f"{' and ' if ctx.mode == 'int8' and ctx.use_lut else ''}"
+            f"{'--lut' if ctx.use_lut else ''} is not ported: the table "
+            f"kernels' and the int8 path's backward are ROADMAP.md item 16c "
+            f"(train with mode 'none' or 'fake')")
+    if microbatches < 1:
+        raise ValueError("microbatches >= 1")
+
+    def grad_of(params, batch):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        loss, metrics = loss_fn(tree_unflatten(params, leaves), batch, cfg,
+                                ctx)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return grads, metrics
+
+    def compute_grads(params, batch):
+        dev = tree_leaves(params)[0].device
+        batch = _to_device(batch, dev)
+        if microbatches == 1:
+            grads, metrics = grad_of(params, batch)
+            return tree_unflatten(params, grads), metrics
+        b = next(iter(batch.values())).shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch {b} is not a multiple of "
+                             f"microbatches {microbatches}")
+        n = b // microbatches
+        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                for p in tree_leaves(params)]
+        msum = {"loss": torch.zeros((), dtype=torch.float32, device=dev),
+                "accuracy": torch.zeros((), dtype=torch.float32, device=dev)}
+        for i in range(microbatches):
+            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            grads, metrics = grad_of(params, mb)
+            for acc, g in zip(gsum, grads):
+                acc.add_(g.to(torch.float32))
+            del grads
+            msum = {k: msum[k] + metrics[k] for k in msum}
+        inv = 1.0 / microbatches
+        return (tree_unflatten(params, [g.mul_(inv) for g in gsum]),
+                {k: v * inv for k, v in msum.items()})
+
+    def train_step(state, batch):
+        grads, metrics = compute_grads(state["params"], batch)
+        lr = lr_fn(state["step"])
+        params, opt, om = adamw_update(grads, state["opt"], state["params"],
+                                       lr, opt_cfg)
+        del grads
+        metrics = dict(metrics)
+        metrics.update(om)
+        metrics["lr"] = lr
+        return {"params": params, "opt": opt,
+                "step": state["step"] + 1}, metrics
+
+    train_step.compute_grads = compute_grads
+    return train_step
 
 
 def build_serve_step(cfg, ctx) -> Callable:

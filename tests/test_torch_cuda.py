@@ -2158,3 +2158,123 @@ def test_vlm_graphed_blocks_survive_a_second_prefill(card):
                                              "cuda"), b)
         assert (streams(graphed, cache, b) == want).all()
     assert graphed.captures == 1 and _addresses(cache) == addrs
+
+
+# -- the flash backward (training) ----------------------------------------------
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 1, 64, 64, 256, True),
+                                   (2, 4, 4, 77, 77, 64, False),
+                                   (1, 8, 2, 100, 333, 64, True),
+                                   (1, 4, 2, 50, 20, 32, True),
+                                   (1, 4, 4, 40, 40, 192, True),
+                                   (1, 2, 2, 33, 45, 24, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_matches_plain(card, shape, dtype):
+    """dq, dk, dv of the backward kernel against its plain version on the
+    same inputs (the forward's o and lse): f32 relative L2 <= 1e-5, bf16
+    <= 1e-3 (both round their f32 sums to bf16 once: in a tensor of ~2000
+    elements one that lands on the other side of a rounding boundary
+    moves the reading by ~1e-4, while a backward that rounds p and ds to
+    bf16 before the products reads ~2.6e-3, chip_smoke phase 3's
+    control); two launches give
+    the same bits; a row that sees no key (Sq > Skv, causal) has gradient
+    0; the forward's output with lse is bitwise the output without."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
+    from repro_torch.kernels.ref import flash_attention_lse_plain
+    b, hq, hkv, sq, skv, d, causal = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, hq, sq, d), generator=card, device="cuda").to(dt)
+    k, v = (torch.randn((b, hkv, skv, d), generator=card,
+                        device="cuda").to(dt) for _ in range(2))
+    do = torch.randn((b, hq, sq, d), generator=card, device="cuda").to(dt)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, with_lse=True)
+    assert torch.equal(o, flash_attention_fwd(q, k, v, causal=causal)[0])
+    want_lse = flash_attention_lse_plain(q, k, causal=causal)
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert torch.allclose(lse[fin], want_lse[fin], rtol=1e-4, atol=1e-4)
+    before = _cuda.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_bwd"] == before + 2
+    tol = 1e-5 if dt == torch.float32 else 1e-3
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == dt and torch.equal(x, y)
+        assert torch.isfinite(x).all() and _rel(x, w) <= tol
+    if causal and sq > skv:
+        assert (got[0][:, :, :sq - skv] == 0).all()
+
+
+def test_flash_attention_autograd_on_the_card(card):
+    """``flash_attention`` under autograd on CUDA tensors runs the forward
+    with lse and the backward kernel (one launch each), and its
+    gradients match autograd of the plain forward (f32, relative L2 <=
+    1e-5); without grad no backward is recorded."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+    q = torch.randn((2, 8, 48, 64), generator=card, device="cuda")
+    k, v = (torch.randn((2, 2, 48, 64), generator=card, device="cuda")
+            for _ in range(2))
+    do = torch.randn_like(q)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    c0 = _cuda.launch_counts()
+    got = torch.autograd.grad(flash_attention(*leaves, causal=True),
+                              leaves, do)
+    c1 = _cuda.launch_counts()
+    assert c1["flash_attention"] - c0["flash_attention"] == 1
+    assert c1["flash_attention_bwd"] - c0["flash_attention_bwd"] == 1
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*plain, causal=True),
+                               plain, do)
+    for x, w in zip(got, want):
+        assert _rel(x, w) <= 1e-5
+    with torch.no_grad():
+        assert not flash_attention(*leaves, causal=True).requires_grad
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """gemma-2b smoke, f32 compute, two steps of ``build_train_step`` on
+    the card (the flash forward and backward kernels) and on the CPU
+    (the plain versions) from the same state: losses within rtol 1e-5,
+    params within relative L2 1e-4 (AdamW's sign steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.optim import cosine_warmup
+    from repro_torch.train.step import build_train_step, init_state
+    cfg = get_config("gemma-2b").smoke()
+    ctx = QuantContext(compute_dtype=torch.float32)
+
+    def lr(s):
+        return cosine_warmup(s, peak=1e-3, warmup=1, total=4)
+    cpu = init_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    gpu = _to(cpu, "cuda")
+    steps = {d: build_train_step(cfg, ctx, lr_fn=lr) for d in ("cpu", "cuda")}
+    for i in range(2):
+        batch = make_batch(cfg, i, 4, 32)
+        cpu, mc = steps["cpu"](cpu, batch)
+        gpu, mg = steps["cuda"](gpu, batch)
+        assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-5 * abs(
+            float(mc["loss"]))
+
+    def leaves(t, p=""):
+        if isinstance(t, dict):
+            return [x for k, v in t.items() for x in leaves(v, p + "/" + k)]
+        return [(p, t)]
+    for (n, a), (_, b) in zip(leaves(cpu["params"]), leaves(gpu["params"])):
+        assert _rel(b.cpu(), a) <= 1e-4, n
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

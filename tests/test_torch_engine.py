@@ -102,7 +102,8 @@ def test_block_size_invariance_and_stop_rules():
 
 def test_refusals(tmp_path):
     """Bad values are refused by name (an unknown autotune mode, int4 KV,
-    the ``fake`` mode); the autotuner, the journal, the fleet and class
+    an unknown numeric mode; ``fake`` is a mode since training was
+    ported); the autotuner, the journal, the fleet and class
     quotas are accepted, by the Engine and the CLI; ``--lut``,
     ``--kv-bits 8`` and the dense cache (no ``--paged``) are served."""
     from repro_torch.launch.serve import Engine, main
@@ -118,8 +119,9 @@ def test_refusals(tmp_path):
     with pytest.raises(ValueError, match="kv_bits"):
         Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8,
                kv_bits=4)
-    with pytest.raises(NotImplementedError, match="fake"):
-        contexts("fake")
+    assert contexts("fake")[1].mode == "fake"
+    with pytest.raises(ValueError, match="mode"):
+        contexts("int4")
     eng = Engine(cfg, tctx, tparams, device="cpu", batch=2, max_len=8)
     assert not eng.paged and eng.kv_split is None
     # a sampled request is served; a negative top_k is a caller bug
