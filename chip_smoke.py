@@ -189,6 +189,16 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    a checkpoint ends bitwise on the unfailed run, and ``--quant fake``
    trains; (c) the jet example's flow on the card within 0.01 of the
    CPU's;
+   Path 14: the sharded trainer (``dist_train_path``, ``[dist]``
+   lines): a one-rank NCCL group and ``make_local_mesh(model=1)``;
+   gemma-2b at full width and depth with path 13 (a)'s settings, 3 steps
+   at microbatches 2 with ``grad_specs``, without and with the mesh: the
+   sharded step-0 gradients and losses bitwise the unsharded ones (one
+   rank runs the same kernels on the same rows), a planted fault (the
+   second microbatch's loss scaled by 1.01) failing that gate, the flash
+   kernels launched, NCCL on the card; wall, busy and peak memory beside
+   path 13's; (e) a smoke checkpoint saved from the mesh restores and
+   replays bitwise;
 5. print the kernels line, then the device line last.
 
 Weights are random (seeded ``torch.Generator`` on the card), quantized by
@@ -4363,6 +4373,272 @@ def train_path(torch, report, profile: bool) -> dict:
     return counts_all
 
 
+#: path 14: path 13 (a)'s settings through the DTensor path on a
+#: one-rank NCCL mesh, 3 steps at microbatches 2 with grad_specs; (e) the
+#: elastic save and restore at smoke width
+DIST_TRAIN = dict(arch="gemma-2b", batch=8, seq=256, steps=3, micro=2,
+                  peak=1e-4, warmup=1, total=8, seed=0)
+#: path 14's planted fault: the second microbatch's loss scaled by this,
+#: a gradient change that path 13's bf16 gate cannot see
+DIST_FAULT_SCALE = 1.01
+
+
+def _host_leaves(torch, tree):
+    from repro_torch.core.tree import tree_paths
+    from repro_torch.dist.sharding import is_dtensor
+    return {n: (g.to_local() if is_dtensor(g) else g).float().cpu()
+            for n, g in tree_paths(tree, "/").items()}
+
+
+def dist_train_path(torch, report, profile: bool) -> dict:
+    """Path 14: the sharded trainer (``repro_torch.dist``) on the card.
+
+    A one-rank NCCL process group (a ``FileStore`` under a temp dir) and
+    ``make_local_mesh(model=1)``; gemma-2b at published width and full
+    depth with path 13 (a)'s settings (f32 state, bf16 compute, remat
+    "full", batch 8 x 256, the same seed and schedule), 3 steps at
+    microbatches 2 with ``grad_specs`` on, once without a mesh (the
+    unsharded step) and once with the state placed as DTensors.  Gates:
+    the sharded step-0 gradients leaf by leaf and the 3 losses bitwise
+    the unsharded ones (on one rank the mesh changes no arithmetic; path
+    13 (a)'s bf16 gate, which two different attentions need, is printed
+    beside it); a planted fault, the second microbatch's loss scaled by
+    ``DIST_FAULT_SCALE``, must fail that gate; the flash forward and
+    backward kernels launched by the sharded steps; NCCL and the card, no gloo, no CPU; (e) at smoke width
+    a checkpoint saved from the mesh at step 2 restores (with the mesh's
+    shardings) and replays steps 2-3 bitwise.  Readings: wall and busy a
+    step and peak memory, beside path 13's.
+    """
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.dist import (PerfFlags, flags, named, param_specs,
+                                  set_flags, use_mesh)
+    from repro_torch.dist.sharding import is_dtensor
+    from repro_torch.kernels._cuda import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.optim import cosine_warmup
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import build_train_step, init_state
+
+    t = DIST_TRAIN
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    old_flags = flags()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    set_flags(PerfFlags(grad_specs=True))
+    try:
+        mesh = make_local_mesh(model=1)
+        backend = dist.get_backend()
+        log(f"[dist] one-rank process group, backend {backend}; mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on "
+            f"{mesh.device_type}")
+        if backend != "nccl" or mesh.device_type != "cuda":
+            raise AssertionError(f"path 14: backend {backend} on "
+                                 f"{mesh.device_type}, not NCCL on the card")
+        cfg = get_config(t["arch"])
+        ctx = QuantContext(compute_dtype=torch.bfloat16)
+
+        def lr_fn(s):
+            return cosine_warmup(s, peak=t["peak"], warmup=t["warmup"],
+                                 total=t["total"])
+
+        batches = [make_batch(cfg, i, t["batch"], t["seq"], seed=t["seed"])
+                   for i in range(t["steps"])]
+        tokens = t["batch"] * t["seq"]
+
+        # -- the unsharded step: step-0 gradients to the host, 3 losses --
+        state = init_state(torch.Generator(device="cuda").manual_seed(
+            t["seed"]), cfg, device="cuda")
+        plain = build_train_step(cfg, ctx, lr_fn=lr_fn,
+                                 microbatches=t["micro"])
+        g, _ = plain.compute_grads(state["params"], batches[0])
+        host = _host_leaves(torch, g)
+        del g
+        plain_losses = []
+        for b in batches:
+            state, m = plain(state, b)
+            plain_losses.append(float(m["loss"]))
+        del state, plain, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the sharded step on the mesh --------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh):
+            state = init_state(torch.Generator(device="cuda").manual_seed(
+                t["seed"]), cfg, device="cuda")
+            leaves = tree_leaves(state)
+            if not all(is_dtensor(x) and x.to_local().is_cuda
+                       for x in leaves):
+                raise AssertionError("path 14: a state leaf is not a DTensor "
+                                     "on the card")
+            step = build_train_step(
+                cfg, ctx, lr_fn=lr_fn, microbatches=t["micro"],
+                grad_specs=param_specs(state["params"], mesh))
+            tol = TRAIN_GRAD_TOL["bf16"]
+
+            def against_unsharded(g):
+                rel, same = {}, 0
+                for name, x in _host_leaves(torch, g).items():
+                    h = host[name]
+                    rel[name] = float((x - h).norm()
+                                      / h.norm().clamp_min(1e-30))
+                    same += bool(torch.equal(x, h))
+                return rel, same, max(rel, key=rel.get)
+
+            # the planted fault first, so the launch counts are the
+            # sound gradient's and steps'
+            real_loss = step_mod.loss_fn
+            calls = []
+
+            def scaled_loss(*a, **kw):
+                loss, metrics = real_loss(*a, **kw)
+                calls.append(1)
+                return (loss * DIST_FAULT_SCALE if len(calls) == 2
+                        else loss), metrics
+            step_mod.loss_fn = scaled_loss
+            try:
+                g, _ = step.compute_grads(state["params"], batches[0])
+            finally:
+                step_mod.loss_fn = real_loss
+            rel, same, worst = against_unsharded(g)
+            del g
+            fault = (same, (worst, rel[worst]))
+            log(f"[dist] planted fault (microbatch 2's loss x "
+                f"{DIST_FAULT_SCALE}): {same} of {len(rel)} leaves bitwise, "
+                f"worst leaf {worst} relative L2 {rel[worst]:.3g} (the bf16 "
+                f"gate {tol} would {'pass' if rel[worst] <= tol else 'fail'} "
+                f"it)")
+            if same == len(rel):
+                raise AssertionError("path 14: the planted fault passes the "
+                                     "bitwise gradient gate")
+            reset_launch_counts()
+            g, _ = step.compute_grads(state["params"], batches[0])
+            rel, same, worst = against_unsharded(g)
+            del g, host
+            log(f"[dist] step-0 gradients, sharded vs unsharded (bf16, "
+                f"microbatches {t['micro']}): {same} of {len(rel)} leaves "
+                f"bitwise (gate: all); worst leaf {worst} relative L2 "
+                f"{rel[worst]:.3g} (path 13's bf16 gate: {tol})")
+            if same != len(rel):
+                raise AssertionError(f"path 14: {len(rel) - same} gradient "
+                                     f"leaves differ from the unsharded "
+                                     f"step's; worst {worst} relative L2 "
+                                     f"{rel[worst]}")
+            losses, walls, busy, top = [], [], None, []
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i < t["steps"] - 1:
+                    state, m = step(state, b)
+                    torch.cuda.synchronize()
+                else:
+                    from torch.profiler import ProfilerActivity
+                    from torch.profiler import profile as tprof
+                    with tprof(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                        state, m = step(state, b)
+                        torch.cuda.synchronize()
+                    top = device_rows(prof)
+                    busy = sum(r[1] for r in top) or None
+                wall = time.perf_counter() - t0
+                losses.append(float(m["loss"]))
+                if i > 0:
+                    walls.append(wall)
+                log(f"[dist] step {i}: loss {losses[-1]:.6f} (unsharded "
+                    f"{plain_losses[i]:.6f}) grad_norm "
+                    f"{float(m['grad_norm']):.4f} wall {wall * 1e3:.1f} ms")
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        dl = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        log(f"[dist] losses sharded vs unsharded: bitwise "
+            f"{losses == plain_losses} (gate); largest relative difference "
+            f"{max(dl):.3g}")
+        if not all(math.isfinite(x) for x in losses) or losses != plain_losses:
+            raise AssertionError(f"path 14: losses {losses} vs unsharded "
+                                 f"{plain_losses}")
+        for k in ("flash_attention", "flash_attention_bwd"):
+            if counts.get(k, 0) == 0:
+                raise AssertionError(f"path 14: {k} never launched")
+        p13 = report.get("train", {}).get("a", {})
+        log(f"[dist] on {report.get('nvidia_smi', 'an unnamed card')}: "
+            f"wall a step {walls[0] * 1e3:.1f} ms (step 1; step 2 "
+            f"profiled {walls[-1] * 1e3:.1f}), busy {fmt_ms(busy)}, "
+            f"{tokens / walls[0]:.0f} tokens/s, peak memory {peak:.2f} GiB; "
+            f"path 13 (a) in this run: wall {p13.get('wall_ms', 0):.1f} ms, "
+            f"busy {fmt_ms(p13.get('busy_ms'))}, peak "
+            f"{p13.get('peak_gib', 0):.2f} GiB; flash forward "
+            f"{counts.get('flash_attention', 0)} and backward "
+            f"{counts.get('flash_attention_bwd', 0)} launches in "
+            f"{t['steps']} steps and one gradient")
+        for name, ms, n in top[:12 if profile else 6]:
+            log(f"[dist]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+        out["a"] = dict(losses=losses, plain_losses=plain_losses,
+                        loss_rel=dl, grad_worst=(worst, rel[worst]),
+                        fault_bitwise_leaves=fault[0],
+                        fault_worst=fault[1],
+                        grad_bitwise_leaves=same, leaves=len(rel),
+                        walls_s=walls, busy_ms=busy, peak_gib=peak,
+                        launches=counts, backend=backend,
+                        path13=dict(wall_ms=p13.get("wall_ms"),
+                                    busy_ms=p13.get("busy_ms"),
+                                    peak_gib=p13.get("peak_gib")),
+                        top=[(n, ms, c) for n, ms, c in top[:20]])
+        del state, step, m, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (e) elastic checkpoint at smoke width -----------------------
+        scfg = cfg.smoke()
+        sb = [make_batch(scfg, i, 4, 32) for i in range(4)]
+        with use_mesh(mesh), tempfile.TemporaryDirectory() as ck:
+            st = init_state(torch.Generator(device="cuda").manual_seed(1),
+                            scfg, device="cuda")
+            sh = named(param_specs(st, mesh), mesh)
+            sstep = build_train_step(scfg, ctx, lr_fn=lr_fn, microbatches=2,
+                                     grad_specs=param_specs(st["params"],
+                                                            mesh))
+            manager = CheckpointManager(ck)
+            for i in range(2):
+                st, _ = sstep(st, sb[i])
+            manager.save(st, 2)
+            for i in (2, 3):
+                st, _ = sstep(st, sb[i])
+            back, at = manager.restore_latest(st, shardings=sh)
+            for i in (2, 3):
+                back, _ = sstep(back, sb[i])
+            replay = all(
+                same_raw_bits(torch, a.to_local(), b.to_local())
+                if a.is_floating_point() else torch.equal(a.to_local(),
+                                                          b.to_local())
+                for a, b in zip(tree_leaves(st), tree_leaves(back)))
+        log(f"[dist] (e) smoke checkpoint from the mesh at step {at}, "
+            f"restored with its shardings, steps 2-3 replayed: bitwise "
+            f"{replay}")
+        if at != 2 or not replay:
+            raise AssertionError("path 14 (e): the restored run is not the "
+                                 "saved run bit for bit")
+        out["e"] = dict(step=at, bitwise=replay)
+    finally:
+        set_flags(old_flags)
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["dist"] = out
+    return counts
+
+
 def event_ms(torch, fn, reps: int = 5) -> float:
     """Median device time of ``fn`` (warm), CUDA events."""
     fn()
@@ -4924,6 +5200,9 @@ def main(argv=None) -> int:
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
         for k, v in train_path(torch, report, args.profile).items():
+            counts[k] = counts.get(k, 0) + v
+        torch.cuda.synchronize()
+        for k, v in dist_train_path(torch, report, args.profile).items():
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
 

@@ -10,8 +10,16 @@ its uint16 bits, the manifest keeping ``bfloat16``), and
 the caller's thread), keeps the newest ``keep`` and restores the
 latest.  :func:`save_blob` holds a host object as one pickled ``.npy``.
 Every save writes ``<step>.tmp`` and renames it, so a crash mid-save
-never corrupts the newest complete checkpoint.  ``BlobLog`` is the serving engine's write-ahead journal
-(``<u32 length><u32 crc32>`` + pickle, fsync'd per append); a
+never corrupts the newest complete checkpoint.  Under a mesh the layout
+is the same: a save gathers each DTensor leaf on the calling thread (the
+same leaves in the same order on every rank, one leaf whole at a time),
+the mesh's first rank alone copies it to the host and writes, the
+others drop it and wait at a barrier before its next save or restore;
+a restore places each leaf with the given shardings (or the template
+leaf's placements), so a checkpoint saved on one mesh restores onto
+another, or onto one process.  ``BlobLog`` is the serving engine's
+write-ahead journal (``<u32 length><u32 crc32>`` + pickle, fsync'd per
+append); a
 ``BlobLogFollower`` tails it for a hot standby.  Pickle: only for
 trusted, self-written state.
 """
@@ -30,7 +38,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.tree import tree_paths
+from ..core.tree import tree_leaves, tree_paths
+from ..dist.sharding import is_dtensor, shard_tensor
 
 __all__ = ["save_state", "restore_state", "save_blob", "load_blob",
            "latest_step", "BlobLog", "BlobLogFollower", "CheckpointManager"]
@@ -38,11 +47,28 @@ __all__ = ["save_state", "restore_state", "save_blob", "load_blob",
 _SEP = "."
 
 
+def _mesh_of(tree):
+    """The DeviceMesh of a tree's DTensor leaves, or None."""
+    for leaf in tree_leaves(tree):
+        if is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` has arrived (a barrier per mesh axis)."""
+    import torch.distributed as dist
+    for m in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(m))
+
+
 def _to_numpy(leaf) -> np.ndarray:
     """A host numpy copy of a leaf; bf16 as its uint16 bits.  Always a
     copy: ``.cpu()`` of a CPU tensor is the tensor itself, which the
     train step goes on to update in place while a save is on its
     thread."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -84,16 +110,31 @@ def save_state(state, directory: str, step: int) -> str:
     return _write_state(_host_tree(state), directory, step)
 
 
-def restore_state(template, directory: str, step: int, *, device=None):
+def restore_state(template, directory: str, step: int, *, device=None,
+                  shardings=None):
     """Load checkpoint ``step`` into the structure of ``template`` (a tree
-    of tensors, meta tensors included): new tensors of each template
-    leaf's dtype, on ``device`` (None: each template leaf's device; a
-    meta leaf loads to the CPU).  A shape that differs raises."""
+    of tensors, meta tensors and DTensors included): new tensors of each
+    template leaf's dtype, on ``device`` (None: each template leaf's
+    device; a meta leaf loads to the CPU).  ``shardings``, a tree of
+    :class:`~repro_torch.dist.NamedSharding` like ``template``, places
+    each leaf on its mesh (every rank reads the files; nothing is
+    communicated); without it a DTensor template leaf's placements are
+    used.  A shape that differs raises."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
+    flat_sh = ({} if shardings is None else tree_paths(shardings, _SEP))
 
     def load(key, leaf):
+        t = _load_leaf(key, leaf)
+        sh = flat_sh.get(key)
+        if sh is not None:
+            return shard_tensor(t, sh.mesh, sh.placements)
+        if is_dtensor(leaf):
+            return shard_tensor(t, leaf.device_mesh, leaf.placements)
+        return t
+
+    def _load_leaf(key, leaf):
         arr = np.load(os.path.join(path, key.replace("/", "_") + ".npy"))
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"ckpt leaf {key}: shape {arr.shape} != "
@@ -103,7 +144,8 @@ def restore_state(template, directory: str, step: int, *, device=None):
         else:
             t = torch.from_numpy(arr)
         dev = device if device is not None else (
-            "cpu" if leaf.device.type == "meta" else leaf.device)
+            "cpu" if leaf.device.type == "meta" else
+            leaf.to_local().device if is_dtensor(leaf) else leaf.device)
         return t.to(device=dev, dtype=leaf.dtype)
 
     def walk(node, prefix):
@@ -331,38 +373,56 @@ class CheckpointManager:
         self.directory = directory
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._mesh = None
         os.makedirs(directory, exist_ok=True)
 
     def save(self, state, step: int, *, blocking: bool = False):
-        """The host copy now (on the caller's thread), the files on a
-        worker thread unless ``blocking``."""
+        """The host copy now (on the caller's thread: DTensor leaves are
+        gathered there, collectives in order on every rank), the files on
+        a worker thread unless ``blocking``.  Under a mesh only its first
+        rank writes; every rank of it calls ``save``."""
         self.wait()
-        host = _host_tree(state)
+        self._mesh = _mesh_of(state)
+        if self._mesh is not None and any(self._mesh.get_coordinate()):
+            # another rank writes: take part in each leaf's gather, in
+            # the writer's order, and keep nothing
+            for leaf in tree_paths(state, _SEP).values():
+                if is_dtensor(leaf):
+                    leaf.full_tensor()
+            host = None
+        else:
+            host = _host_tree(state)
 
         def work():
             _write_state(host, self.directory, step)
             self._gc()
 
-        if blocking:
+        if host is not None and blocking:
             work()
-        else:
+        elif host is not None:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
+        if blocking:
+            self.wait()
 
     def wait(self):
+        """The last save is on disk (under a mesh: on every rank)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            _mesh_barrier(self._mesh)
+            self._mesh = None
 
-    def restore_latest(self, template, *, device=None):
+    def restore_latest(self, template, *, device=None, shardings=None):
         """``(state, step)`` of the newest complete checkpoint, or
-        ``(None, None)``."""
+        ``(None, None)``; ``shardings`` as :func:`restore_state`."""
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return restore_state(template, self.directory, step,
-                             device=device), step
+        return restore_state(template, self.directory, step, device=device,
+                             shardings=shardings), step
 
     def _gc(self):
         steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)

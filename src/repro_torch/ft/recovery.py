@@ -59,8 +59,10 @@ class ResilientLoop:
         self.restores = 0
 
     def run(self, state, *, start_step: int = 0, num_steps: int = 100,
-            log_every: int = 0) -> Dict:
-        """Returns ``{"state", "metrics", "restores", "step"}``."""
+            shardings=None, log_every: int = 0) -> Dict:
+        """Returns ``{"state", "metrics", "restores", "step"}``.
+        ``shardings`` places a restored state (elastic restore onto the
+        current mesh, :meth:`CheckpointManager.restore_latest`)."""
         step = start_step
         metrics = {}
         while step < start_step + num_steps:
@@ -86,7 +88,8 @@ class ResilientLoop:
                                step, e, self.restores, self.max_restores)
                 if self.restores > self.max_restores:
                     raise
-                restored, ckpt_step = self.manager.restore_latest(state)
+                restored, ckpt_step = self.manager.restore_latest(
+                    state, shardings=shardings)
                 if restored is None:
                     raise RuntimeError("no checkpoint to restore") from e
                 state, step = restored, ckpt_step

@@ -25,7 +25,11 @@ Port of ``repro.kernels.flash_attention``:
   :func:`~repro_torch.kernels.ref.paged_attention_split_ref` (split).
 
 Each wrapper runs its plain version for CPU tensors and launches its
-kernel (or raises) for CUDA tensors.
+kernel (or raises) for CUDA tensors.  Under a ``DeviceMesh``
+:func:`flash_attention` takes DTensors: it runs the same local call on
+each rank's shard (:func:`_flash_attention_sharded`; batch on the data
+axes, whole GQA groups of heads on ``model`` where the head counts allow,
+K/V replicated over ``model`` otherwise).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..dist.constrain import placements_of
+from ..dist.sharding import is_dtensor
 from . import _cuda
 from .ref import (combine_splits, flash_attention_bwd_plain,
                   flash_attention_plain, paged_attention_ref,
@@ -261,6 +267,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     :func:`flash_attention_plain` as their plain version.  Under autograd
     (an operand that requires grad) a CUDA call is differentiable through
     :func:`flash_attention_bwd`; serving writes no log-sum-exp."""
+    if is_dtensor(q):
+        return _flash_attention_sharded(q, k, v, causal, softmax_scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      softmax_scale=softmax_scale)
@@ -268,6 +276,61 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return _FlashAttention.apply(q, k, v, bool(causal), softmax_scale)
     return flash_attention_fwd(q, k, v, causal=causal,
                                softmax_scale=softmax_scale)[0]
+
+
+def _sharded_placements(mesh, b: int, hq: int, hkv: int):
+    """The kernels' placements of q (and o, lse, do) and of k, v on
+    ``mesh``, and the placements of k's and v's gradients: the batch on
+    the data axes where it divides them; the heads on ``model`` where
+    their count divides it (K/V heads dividing it means each rank holds
+    whole GQA groups); queries cut on ``model`` with K/V replicated
+    there make each rank differentiate only its heads' K/V, whose
+    gradients are then partial sums over ``model``."""
+    from torch.distributed.tensor import Partial, Shard
+    pq = placements_of((b, hq), mesh, "dp", "tp")
+    pkv = placements_of((b, hkv), mesh, "dp", "tp")
+    gkv = [Partial() if isinstance(a, Shard) and not isinstance(c, Shard)
+           else c for a, c in zip(pq, pkv)]
+    return pq, pkv, gkv
+
+
+def _local_kv_heads(k, v, hq: int, hq_local: int, rank: int):
+    """K/V replicated over ``model`` (B, Hkv, S, D) -> the heads that
+    queries ``[rank * hq_local, (rank + 1) * hq_local)`` attend: whole
+    groups, one group's head, or (a group split across ranks unevenly)
+    one K/V head per query head."""
+    hkv = k.shape[1]
+    g = hq // hkv
+    if hq_local % g == 0:
+        lo, n = rank * hq_local // g, hq_local // g
+        return k[:, lo:lo + n], v[:, lo:lo + n]
+    if g % hq_local == 0:
+        j = rank * hq_local // g
+        return k[:, j:j + 1], v[:, j:j + 1]
+    idx = (torch.arange(hq_local, device=k.device) + rank * hq_local) // g
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _flash_attention_sharded(q, k, v, causal, softmax_scale):
+    """:func:`flash_attention` on DTensors: the operands redistributed to
+    :func:`_sharded_placements`, the kernel (the plain version on the
+    CPU) run on each rank's local tensors, the output a DTensor of q's
+    placements.  Autograd runs through the same local call, so the
+    backward kernel takes ``do`` in the forward's placements."""
+    from torch.distributed.tensor import DTensor
+    mesh = q.device_mesh
+    b, hq = q.shape[:2]
+    hkv = k.shape[1]
+    pq, pkv, gkv = _sharded_placements(mesh, b, hq, hkv)
+    ql = q.redistribute(mesh, pq).to_local()
+    kl = k.redistribute(mesh, pkv).to_local(grad_placements=gkv)
+    vl = v.redistribute(mesh, pkv).to_local(grad_placements=gkv)
+    if ql.shape[1] != hq and kl.shape[1] == hkv:      # q heads cut, K/V not
+        rank = mesh.get_local_rank("model")
+        kl, vl = _local_kv_heads(kl, vl, hq, ql.shape[1], rank)
+    out = flash_attention(ql, kl, vl, causal=causal,
+                          softmax_scale=softmax_scale)
+    return DTensor.from_local(out, mesh, pq, run_check=False)
 
 
 def _check(q, k_pages, v_pages, block_tables, qpos):

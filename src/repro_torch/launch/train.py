@@ -7,9 +7,24 @@ Usage (CPU-scale; without ``--device cpu`` it runs on the card)::
         --smoke --steps 8 --batch 4 --seq 32 --ckpt-dir /tmp/ck \\
         --device cpu [--quant fake --qbits 8] [--fail-at 5]
 
-The reference's flags.  One device, no mesh: ``--model-parallel`` above 1
-is refused (ROADMAP.md item 18), and so are ``--quant int8`` and
-``--lut`` (their backward is item 16c).  ``--quant fake`` runs QAT: every
+Under ``torchrun`` (a process group in the environment) the state is
+sharded FSDP x TP over a ``(world / model, model)`` mesh, ``model`` being
+``--model-parallel``, as the reference's driver does: the state placed
+with ``param_specs``, each batch's rows over ``data``, the gradients
+pinned with ``grad_specs``, checkpoints restored elastically onto the
+mesh, logs and checkpoint files from rank 0.  NCCL on the card, gloo
+with ``--device cpu``::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch gemma-2b --smoke --steps 4 --batch 4 --seq 32 \
+        --model-parallel 2 --device cpu --ckpt-dir /tmp/ck
+
+Without a process group and with ``--model-parallel 1`` it is the
+single-device driver.  Refused by name: a ``--model-parallel`` that does
+not divide the world size; under more than one rank, the families and
+configs no test holds under a mesh yet (``encdec``, ``ssm``, ``hybrid``,
+``vlm``, MLA: ROADMAP.md item 18b); ``--quant int8`` and ``--lut``
+(their backward is item 16c).  ``--quant fake`` runs QAT: every
 weight fake-quantized to ``FixedPointType(qbits, max(qbits // 2, 2))``
 with the straight-through gradient.  The state is f32 with bf16 compute
 (``--f32``: f32 compute); checkpoints go to ``--ckpt-dir`` every
@@ -21,6 +36,7 @@ replaying.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import tempfile
@@ -33,10 +49,12 @@ from ..core.device import resolve_device
 from ..core.precision import PrecisionPolicy
 from ..core.qtypes import FixedPointType
 from ..data.pipeline import make_batch
+from ..dist import named, param_specs, use_mesh
 from ..ft import FaultInjector, ResilientLoop, StragglerMonitor
 from ..nn.context import QuantContext
 from ..optim import cosine_warmup
 from ..train.step import build_train_step, init_state
+from .mesh import init_distributed, make_local_mesh
 
 __all__ = ["build_ctx", "main"]
 
@@ -80,50 +98,74 @@ def main(argv=None):
                     help="cuda (default) or cpu (the plain kernel versions)")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs a device mesh, which the port does "
-            "not have yet: ROADMAP.md item 18 (train on one device)")
     if args.quant == "int8" or args.lut:
         raise NotImplementedError(
             "training under --quant int8 or --lut is not ported: their "
             "backward (the table kernels' slope, the int8 scales) is "
             "ROADMAP.md item 16c; use --quant none or fake")
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    device = resolve_device(args.device)
+    sharded = init_distributed(device) or args.model_parallel > 1
+    mesh = None
+    if sharded:
+        import torch.distributed as dist
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world % args.model_parallel:
+            raise ValueError(f"--model-parallel {args.model_parallel} does "
+                             f"not divide the world size {world}")
+        if world > 1 and (cfg.family != "lm" or cfg.attn_kind == "mla"):
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}"
+                f"{', MLA' if cfg.attn_kind == 'mla' else ''}) under a mesh "
+                f"of {world} ranks: only the lm family's GQA configs are "
+                f"held under a mesh; the rest is ROADMAP.md item 18b")
+        mesh = make_local_mesh(args.model_parallel, device=device)
+    rank0 = mesh is None or not any(mesh.get_coordinate())
+    logging.basicConfig(level=logging.INFO if rank0 else logging.WARNING,
+                        format="%(asctime)s %(name)s %(message)s")
     ctx = build_ctx(args)
-    step_fn = build_train_step(
-        cfg, ctx,
-        lr_fn=lambda s: cosine_warmup(s, peak=args.lr,
-                                      warmup=max(args.steps // 20, 1),
-                                      total=args.steps),
-        microbatches=args.microbatches)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = init_state(gen, cfg, device=device)
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        state = init_state(gen, cfg, device=device)
+        shardings = (None if mesh is None
+                     else named(param_specs(state, mesh), mesh))
+        step_fn = build_train_step(
+            cfg, ctx,
+            lr_fn=lambda s: cosine_warmup(s, peak=args.lr,
+                                          warmup=max(args.steps // 20, 1),
+                                          total=args.steps),
+            microbatches=args.microbatches,
+            grad_specs=(None if mesh is None
+                        else param_specs(state["params"], mesh)))
 
-    def batch_fn(step):
-        b = make_batch(cfg, step, args.batch, args.seq, seed=args.seed)
-        return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        def batch_fn(step):
+            b = make_batch(cfg, step, args.batch, args.seq, seed=args.seed)
+            if mesh is not None:
+                return b            # the step places each microbatch's rows
+            return {k: torch.as_tensor(v, device=device)
+                    for k, v in b.items()}
 
-    manager = CheckpointManager(args.ckpt_dir, keep=3)
-    restored, ckpt_step = manager.restore_latest(state)
-    start = 0
-    if restored is not None:
-        state, start = restored, ckpt_step
-        print(f"resumed from checkpoint step {start}")
-    loop = ResilientLoop(
-        step_fn, batch_fn, manager, checkpoint_every=args.ckpt_every,
-        fault_injector=FaultInjector(args.fail_at) if args.fail_at else None,
-        straggler=StragglerMonitor())
-    out = loop.run(state, start_step=start, num_steps=args.steps,
-                   log_every=args.log_every)
-    print(f"done: step={out['step']} "
-          f"loss={float(out['metrics']['loss']):.4f} "
-          f"restores={out['restores']}")
+        manager = CheckpointManager(args.ckpt_dir, keep=3)
+        restored, ckpt_step = manager.restore_latest(state,
+                                                     shardings=shardings)
+        start = 0
+        if restored is not None:
+            state, start = restored, ckpt_step
+            if rank0:
+                print(f"resumed from checkpoint step {start}")
+        loop = ResilientLoop(
+            step_fn, batch_fn, manager, checkpoint_every=args.ckpt_every,
+            fault_injector=(FaultInjector(args.fail_at) if args.fail_at
+                            else None),
+            straggler=StragglerMonitor())
+        out = loop.run(state, start_step=start, num_steps=args.steps,
+                       shardings=shardings, log_every=args.log_every)
+    if rank0:
+        print(f"done: step={out['step']} "
+              f"loss={float(out['metrics']['loss']):.4f} "
+              f"restores={out['restores']}")
     return out
 
 

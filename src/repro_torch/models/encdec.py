@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
+from ..dist.constrain import constrain
 from ..nn.attention import gqa_apply, gqa_cache_spec, gqa_init, gqa_project_kv
 from ..nn.blocks import (dense_block_apply, dense_block_init, layer_slice,
                          mlp_apply, mlp_init, norm_apply, norm_init,
@@ -126,7 +127,7 @@ def _decode(params, tokens, enc, cfg, ctx, *, cache=None, cache_pos=None,
                       per_layer={"self": cache, "cross": cross_kv},
                       remat=cfg.remat if cache is None else "none")
     x = norm_apply(cfg, params["dec_norm"], x)
-    return unembed(params["embed"], x, ctx)
+    return constrain(unembed(params["embed"], x, ctx), "dp", None, "tp")
 
 
 def forward(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):

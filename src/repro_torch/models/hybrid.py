@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
+from ..dist.constrain import constrain
 from ..nn.attention import gqa_cache_spec, gqa_paged_cache_spec
 from ..nn.blocks import (dense_block_apply, dense_block_init, layer_slice,
                          mamba_block_apply, mamba_block_init, norm_apply,
@@ -103,7 +104,7 @@ def forward(params, tokens: torch.Tensor, cfg,
         x, tail_states = run(params["tail"], tail, x,
                              None if ssm is None else ssm["tail"])
     x = norm_apply(cfg, params["final_norm"], x)
-    logits = unembed(params["embed"], x, ctx)
+    logits = constrain(unembed(params["embed"], x, ctx), "dp", None, "tp")
     if cache is not None and not decode:
         copy_tree(ssm["groups"], stack_states(groups))
         if tail:

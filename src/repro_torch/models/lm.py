@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.device import resolve_device
+from ..dist.constrain import constrain
 from ..nn.attention import (gqa_cache_spec, gqa_paged_cache_spec,
                             mla_cache_spec, mla_paged_cache_spec)
 from ..nn.blocks import (dense_block_apply, dense_block_init,
@@ -105,7 +106,7 @@ def forward(params, tokens: torch.Tensor, cfg, ctx: QuantContext = DEFAULT_CTX,
         logits = unembed(params["embed"], x, ctx)
     else:
         logits = linear(params["head"], x, ctx, path="head")
-    return logits, cache, aux
+    return constrain(logits, "dp", None, "tp"), cache, aux
 
 
 def loss(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):

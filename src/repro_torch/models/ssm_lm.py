@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
+from ..dist.constrain import constrain
 from ..nn.blocks import (mamba_block_apply, mamba_block_init, norm_apply,
                          norm_init, scan_apply, stack_init)
 from ..nn.context import DEFAULT_CTX, QuantContext
@@ -54,7 +55,7 @@ def forward(params, tokens: torch.Tensor, cfg,
                            per_layer=state if decode else None,
                            remat="none" if decode else cfg.remat)
     x = norm_apply(cfg, params["final_norm"], x)
-    logits = unembed(params["embed"], x, ctx)
+    logits = constrain(unembed(params["embed"], x, ctx), "dp", None, "tp")
     return logits, (state if decode else stack_states(states))
 
 

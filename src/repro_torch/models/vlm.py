@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from ..core.device import resolve_device
+from ..dist.constrain import constrain
 from ..nn.attention import gqa_apply, gqa_project_kv
 from ..nn.blocks import (cross_block_apply, cross_block_init,
                          dense_block_apply, dense_block_init, layer_slice,
@@ -127,7 +128,8 @@ def forward(params, tokens: torch.Tensor, img_embed: Optional[torch.Tensor],
         x = (cross_block_apply(p_x, x, None, cfg, ctx) if kv is None
              else _cross_with_cached(p_x, x, kv, cfg, ctx))
     x = norm_apply(cfg, params["final_norm"], x)
-    return unembed(params["embed"], x, ctx), cache
+    return constrain(unembed(params["embed"], x, ctx), "dp", None,
+                     "tp"), cache
 
 
 def loss(params, batch, cfg, ctx: QuantContext = DEFAULT_CTX):

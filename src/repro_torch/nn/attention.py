@@ -31,8 +31,12 @@ KV-cache regimes, and MLA (port of ``repro.nn.attention``).
 Caches are updated **in place** (the reference returns new arrays): a
 decode step writes ``B`` rows, not a copy of every layer's cache.  RoPE
 is skipped where ``use_rope`` is off (learned positions, whisper) and
-for cross-attention.  The reference's ``seq_kv`` mesh constraint on the
-dense cache is not ported (distribution, ROADMAP.md queue 1).
+for cross-attention.  Under a mesh q, k and v are pinned by
+:func:`_constrain_heads` after RoPE, as in the reference: heads on
+``tp`` where they divide it, else (``sp_attn``) queries on the sequence
+with K/V replicated, else the head dim on ``tp``.  The reference's
+``seq_kv`` constraint of the dense cache is serving under a mesh
+(ROADMAP.md item 18b): the flag is read there and raises under a mesh.
 
 MLA (deepseek-v2) keeps the reference's two forms.  Without a cache,
 the *naive* form materializes per-head K/V from the latent and attends
@@ -53,6 +57,9 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.qtypes import QTensor
+from ..dist.constrain import constrain, current_mesh
+from ..dist.options import flags
+from ..dist.sharding import mesh_shape
 from .activations import softmax
 from .context import DEFAULT_CTX, QuantContext
 from .linear import linear, linear_init
@@ -62,6 +69,24 @@ from .rope import apply_rope
 __all__ = ["AttnDims", "gqa_init", "gqa_apply", "gqa_cache_spec",
            "gqa_paged_cache_spec", "gqa_project_kv", "MLADims", "mla_init",
            "mla_apply", "mla_cache_spec", "mla_paged_cache_spec"]
+
+
+def _constrain_heads(t: torch.Tensor, role: str = "q") -> torch.Tensor:
+    """Pin (B, H, S, D) under a mesh: TP on heads when they divide the
+    model axis; else, under the ``sp_attn`` flag, queries on their
+    sequence axis and K/V replicated; else the head dim on ``tp``.
+    Identity without a mesh."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh_shape(mesh):
+        return t
+    tp = mesh_shape(mesh)["model"]
+    if t.shape[1] % tp == 0:
+        return constrain(t, "dp", "tp", None, None)
+    if flags().sp_attn and t.shape[2] > 1:
+        if role == "q":
+            return constrain(t, "dp", None, "tp", None)
+        return constrain(t, "dp", None, None, None)   # replicate K/V
+    return constrain(t, "dp", None, None, "tp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,7 +301,7 @@ def gqa_apply(p, x: torch.Tensor, d: AttnDims, ctx: QuantContext = DEFAULT_CTX,
     q = linear(p["wq"], x, ctx, path=f"{path}/wq")
     q = q.reshape(b, s, d.n_heads, d.head_dim).transpose(1, 2)
     if cached_kv is not None:
-        y = _einsum_attention(q, *cached_kv, ctx=ctx)
+        y = _einsum_attention(_constrain_heads(q, "q"), *cached_kv, ctx=ctx)
     else:
         y = _fresh_kv_attention(p, q, x, d, ctx, kv_input=kv_input,
                                 cache=cache, cache_pos=cache_pos, path=path)
@@ -306,6 +331,9 @@ def _fresh_kv_attention(p, q, x, d: AttnDims, ctx: QuantContext, *,
                        fraction=d.rope_fraction)
         k = apply_rope(k, positions[:, None], theta=d.rope_theta,
                        fraction=d.rope_fraction)
+    q = _constrain_heads(q, "q")
+    k = _constrain_heads(k, "kv")
+    v = _constrain_heads(v, "kv")
 
     if cache is None:                      # the flash kernel's path
         from ..kernels.ops import attention
@@ -349,6 +377,11 @@ def _cache_attention(q, k, v, d: AttnDims, ctx: QuantContext, cache,
                                backend=ctx.backend)
     ck, cv = ((_dequantize(rows(n), rows(f"{n}_scale"), cd)
                if quantized else rows(n)) for n in ("k", "v"))
+    if flags().seq_kv and current_mesh() is not None and not paged:
+        # the reference's sequence-sharded dense cache (small Hkv on the
+        # model axis) is serving under a mesh: ROADMAP.md item 18b
+        raise NotImplementedError("seq_kv: the dense cache under a mesh is "
+                                  "ROADMAP.md item 18b")
     return _einsum_attention(q, ck, cv, ctx=ctx,
                              mask=_cache_mask(pos, s, ck.shape[2], d.causal))
 
@@ -458,9 +491,10 @@ def _mla_naive(q_nope, q_rope, ckv, krope, w_uk, w_uv, d: MLADims,
     k = torch.cat([k_nope, krope[:, :, None].to(dtype).expand(
         b, s, h, d.qk_rope_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    q, k, v = (_constrain_heads(t.transpose(1, 2), role)
+               for t, role in ((q, "q"), (k, "kv"), (v, "kv")))
     vp = torch.nn.functional.pad(v, (0, d.qk_dim - d.v_head_dim))
-    y = attention(q.transpose(1, 2), k.transpose(1, 2), vp.transpose(1, 2),
-                  causal=True, softmax_scale=d.qk_dim ** -0.5,
+    y = attention(q, k, vp, causal=True, softmax_scale=d.qk_dim ** -0.5,
                   backend=ctx.backend)
     return y[..., :d.v_head_dim]
 

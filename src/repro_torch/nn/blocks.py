@@ -29,6 +29,11 @@ Its ``remat`` is the reference's activation rematerialization: under
 "full" (or "dots", which the port runs as "full") each layer runs under
 ``torch.utils.checkpoint`` while autograd records, so a training step
 keeps each layer's input and recomputes the rest in the backward.
+Under a mesh the residual stream is pinned to ``("dp", None, None)``
+before and after each layer, outside the checkpoint (the reference's
+pins), and a stacked leaf whose layer axis is sharded (a stacked 2-D
+leaf such as a norm scale, ``(L, d)`` on ``("dp", "tp")``) is gathered
+along it once before the unbind.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch.utils.checkpoint
 from ..core.qtypes import QTensor
 from ..core.tables import GATED_FORMS
 from ..core.tree import tree_map
+from ..dist.constrain import constrain, unshard
 from .attention import gqa_apply, gqa_init, mla_apply, mla_init
 from .context import DEFAULT_CTX, QuantContext
 from .linear import act_table, int8_qtype, linear, linear_init
@@ -282,7 +288,7 @@ def _unbind(tree, n: int):
         parts = {k: _unbind(v, n) for k, v in tree.items()}
         return [{k: parts[k][l] for k in parts} for l in range(n)]
     if isinstance(tree, torch.Tensor):
-        return tree.unbind(0)
+        return unshard(tree, 0).unbind(0)   # a sharded dim cannot unbind
     if isinstance(tree, QTensor):
         return [QTensor(d, s, tree.qtype)
                 for d, s in zip(tree.data.unbind(0), tree.scale.unbind(0))]
@@ -302,11 +308,15 @@ def scan_apply(stacked, x, body: Callable, *, n_layers: int, per_layer=None,
     for l in range(n_layers):
         extra = None if per_layer is None else layer_slice(per_layer, l)
         p_l = layers[l]
+        if x.ndim == 3:     # pin the residual stream's batch sharding
+            x = constrain(x, "dp", None, None)
         if ckpt:
             x, y = torch.utils.checkpoint.checkpoint(
                 body, p_l, x, extra, use_reentrant=False,
                 preserve_rng_state=False)
         else:
             x, y = body(p_l, x, extra)
+        if x.ndim == 3:
+            x = constrain(x, "dp", None, None)
         ys.append(y)
     return x, ys

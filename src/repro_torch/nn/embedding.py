@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..dist.constrain import fsdp_gather
+from ..dist.sharding import is_dtensor
 from .context import DEFAULT_CTX, QuantContext
 
 __all__ = ["embedding_init", "embed", "unembed"]
@@ -22,7 +24,10 @@ def embed(p, tokens: torch.Tensor, ctx: QuantContext = DEFAULT_CTX, *,
     multiplies by sqrt(d) rounded to that dtype first, as the reference
     does (gemma)."""
     tbl = p["table"]
-    y = tbl[tokens.to(torch.int64)].to(ctx.compute_dtype)
+    if is_dtensor(tbl):
+        y = _embed_sharded(tbl, tokens).to(ctx.compute_dtype)
+    else:
+        y = tbl[tokens.to(torch.int64)].to(ctx.compute_dtype)
     if scale_by_dim:
         # torch.full launches a fill; torch.tensor(..., device=) would copy
         # from the host and stall the stream
@@ -31,8 +36,36 @@ def embed(p, tokens: torch.Tensor, ctx: QuantContext = DEFAULT_CTX, *,
     return y
 
 
+def _embed_sharded(tbl, tokens):
+    """The lookup on DTensors, vocab-parallel: the table keeps its vocab
+    axis on ``model`` (its feature axis gathered over the data axes, the
+    FSDP gather), each rank looks up its rows' tokens that fall in its
+    vocab slice, and the result is a partial sum over ``model``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = tbl.device_mesh
+    names = list(mesh.mesh_dim_names)
+    tok = tokens.to(torch.int64)
+    rows = tok.placements                         # the batch on dp
+    on_model = ["model" in names
+                and isinstance(tbl.placements[names.index("model")], Shard)]
+    keep = [Shard(0) if n == "model" and on_model[0] else Replicate()
+            for n in names]
+    grad = [k if n == "model" else (Partial() if isinstance(r, Shard)
+                                    else Replicate())
+            for n, k, r in zip(names, keep, rows)]
+    tl = tbl.redistribute(mesh, keep).to_local(grad_placements=grad)
+    il = tok.to_local()
+    if not on_model[0]:
+        return DTensor.from_local(tl[il], mesh, rows, run_check=False)
+    lo = mesh.get_local_rank("model") * tl.shape[0]
+    inside = (il >= lo) & (il < lo + tl.shape[0])
+    y = tl[torch.where(inside, il - lo, 0)] * inside[..., None].to(tl.dtype)
+    out = [Partial() if n == "model" else r for n, r in zip(names, rows)]
+    return DTensor.from_local(y, mesh, out, run_check=False)
+
+
 def unembed(p, x: torch.Tensor, ctx: QuantContext = DEFAULT_CTX) -> torch.Tensor:
     """(B, S, D) -> logits (B, S, V) against the tied table: a plain
     product (the reference leaves it to XLA)."""
-    tbl = p["table"].to(ctx.compute_dtype)
+    tbl = fsdp_gather(p["table"]).to(ctx.compute_dtype)
     return torch.matmul(x.to(ctx.compute_dtype), tbl.t())

@@ -17,7 +17,8 @@ Under ``ctx.use_lut`` an int8 projection with a fusable activation
 (sigmoid, tanh, gelu, silu) runs bias and the activation table inside the
 ``qmatmul`` kernel's epilogue (:func:`act_table` picks the same table as
 ``act_fn``); every other path applies the identical ``act_fn`` after the
-product.
+product.  Under a mesh a float weight is gathered over the data axes
+before its product (FSDP), its ``model`` sharding kept.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from ..core.precision import LayerPrecision
 from ..core.qtypes import FixedPointType, QTensor
 from ..core.quantize import calibrate_scale, fake_quant
+from ..dist.constrain import fsdp_gather
 from ..core.tables import GATED_FORMS, TableSpec
 from .activations import _LUT_DOMAIN, act_fn
 from .context import DEFAULT_CTX, QuantContext
@@ -132,7 +134,8 @@ def linear(p, x: torch.Tensor, ctx: QuantContext = DEFAULT_CTX, *,
             w = fake_quant(w.to(torch.float32), prec.weights)
         if fake and prec.activations is not None:
             x = fake_quant(x.to(torch.float32), prec.activations)
-        y = torch.matmul(x.to(ctx.compute_dtype), w.to(ctx.compute_dtype))
+        y = torch.matmul(x.to(ctx.compute_dtype),
+                         fsdp_gather(w).to(ctx.compute_dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)
     if act is not None and not act_done:

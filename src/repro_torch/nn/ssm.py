@@ -35,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..dist.constrain import constrain
 from .activations import act_fn
 from .context import DEFAULT_CTX, QuantContext
 from .linear import linear, linear_init
@@ -153,6 +154,8 @@ def ssd_scan(p, xbc_raw: torch.Tensor, dt_raw: torch.Tensor, d: SSMDims,
         xbc_raw.to(f32), p["conv_w"].to(f32), p["conv_b"].to(f32)), ctx,
         path=f"{path}/conv_act")
     xh, b_, c_ = _heads(xbc, d)                    # (B,S,P,hd), (B,S,P,N)
+    # TP over SSD heads under a mesh: every einsum below is elementwise in P
+    xh, b_, c_ = (constrain(t, "dp", None, "tp", None) for t in (xh, b_, c_))
     dt = act_fn("softplus", dt_raw.to(f32) + p["dt_bias"], ctx,
                 path=f"{path}/dt")                  # (B,S,P)
     da = dt * -torch.exp(p["A_log"])

@@ -10,9 +10,13 @@ in f32 over ``microbatches`` slices of the batch with the metrics
 ``loss`` and ``accuracy`` averaged (the reference's scan), then AdamW
 with the learning rate ``lr_fn(step)``.  The update writes into the
 state's tensors (the reference's ``launch/train.py`` donates its state
-to the jitted step), so a full-width state is held once on the card.  The reference's
-sharded gradients (``grad_specs``) wait for the mesh (ROADMAP.md item
-18); training under ``int8`` or ``use_lut`` waits for item 16c.
+to the jitted step), so a full-width state is held once on the card.
+Under a mesh (:func:`repro_torch.dist.use_mesh`) :func:`init_state`
+places the state with ``param_specs`` (FSDP x TP DTensors) and the step
+takes the global batch on every rank, placing each microbatch's rows
+over the data axes; ``grad_specs`` pins the gradients and the f32
+accumulator to the parameters' placements under ``flags().grad_specs``.
+Training under ``int8`` or ``use_lut`` waits for ROADMAP.md item 16c.
 
 The reference runs ``steps`` decode steps inside one ``lax.scan`` under
 one ``jax.jit`` call; here the block is a Python loop of ``steps`` model
@@ -39,7 +43,11 @@ from ..kernels.ops import sample_tokens, verify_tokens
 from ..kernels.prng import fold_in
 from ..kernels.speculative import draft_ngram
 from ..core.device import resolve_device
-from ..core.tree import tree_leaves, tree_unflatten
+from ..core.tree import tree_leaves, tree_map, tree_unflatten
+from ..dist.constrain import current_mesh, reduce_partial
+from ..dist.options import flags
+from ..dist.sharding import (batch_specs, device_put, is_dtensor, named,
+                             param_specs, shard_tensor)
 from ..optim import OptConfig, adamw_init, adamw_update
 from ..models.api import (decode_fn, get_family, loss_fn, prefill_fn,
                           spec_restore_fn, spec_state_fn)
@@ -59,15 +67,42 @@ def init_state(gen: torch.Generator, cfg, *, dtype=torch.float32,
                opt_cfg: OptConfig = OptConfig(), device=None):
     """``{"params", "opt", "step"}``: the family's random init from
     ``gen``, zero AdamW moments, step 0 (int32).  ``device`` None is the
-    GPU."""
+    GPU.  Under a mesh every leaf is a DTensor (``param_specs``): the
+    params are drawn whole on every rank and cut to its shards, then the
+    moments are made as shards, so a rank holds the whole params once,
+    during the init, and never the whole moments."""
     device = resolve_device(device)
     params = get_family(cfg).init(gen, cfg, dtype=dtype, device=device)
-    return {"params": params, "opt": adamw_init(params, opt_cfg),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+    mesh = current_mesh()
+    if mesh is not None:
+        # every rank drew the same params; each keeps its own shards, and
+        # the moments are made from them, as shards
+        params = device_put(params, named(param_specs(params, mesh), mesh))
+    state = {"params": params, "opt": adamw_init(params, opt_cfg),
+             "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if mesh is None:
+        return state
+    # the counters, replicated like every 0-d leaf
+    return tree_map(lambda t, sh: t if is_dtensor(t) else shard_tensor(
+        t, mesh, sh.placements), state, named(param_specs(state, mesh), mesh))
 
 
 def _to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _place_rows(batch, mesh, device):
+    """A global batch (the same on every rank) -> DTensors with the rows on
+    the data axes (``batch_specs``); DTensor leaves are kept."""
+    host = {k: v for k, v in batch.items() if not is_dtensor(v)}
+    placed = device_put(_to_device(host, device),
+                        named(batch_specs(host, mesh), mesh))
+    return {k: placed.get(k, v) for k, v in batch.items()}
+
+
+def _full(t):
+    """A metric as a plain tensor on every rank."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def build_train_step(cfg, ctx, *, lr_fn: Callable,
@@ -83,11 +118,18 @@ def build_train_step(cfg, ctx, *, lr_fn: Callable,
     and ``lr``, all 0-d tensors.  The step's ``compute_grads(params,
     batch) -> (grads, metrics)`` attribute computes the gradients alone
     (a tree like the params), updating nothing.
+
+    Under a mesh the parameters are DTensors and ``batch`` is the global
+    batch on every rank: microbatch ``i`` is rows ``[i * B/M, (i + 1) *
+    B/M)``, placed over the data axes on its own (a slice of rows already
+    spread over the ranks would gather them); a DTensor batch is taken
+    as placed, at ``microbatches`` 1.  ``grad_specs`` (a spec tree like
+    the params, :func:`repro_torch.dist.param_specs`) pins each
+    microbatch's gradients and the f32 accumulator to those placements
+    when ``flags().grad_specs`` is set; otherwise they keep the
+    placements DTensor gives them.  The metrics come back as plain
+    tensors, the same on every rank.
     """
-    if grad_specs is not None:
-        raise NotImplementedError(
-            "grad_specs (sharded gradient accumulation) needs a device "
-            "mesh, which the port does not have yet: ROADMAP.md item 18")
     if ctx.mode == "int8" or ctx.use_lut:
         raise NotImplementedError(
             f"training under {'--quant int8' if ctx.mode == 'int8' else ''}"
@@ -98,38 +140,65 @@ def build_train_step(cfg, ctx, *, lr_fn: Callable,
     if microbatches < 1:
         raise ValueError("microbatches >= 1")
 
-    def grad_of(params, batch):
+    def _pin(grads, mesh):
+        if grad_specs is None or mesh is None or not flags().grad_specs:
+            return grads
+        return [g.redistribute(mesh, sh.placements) for g, sh in
+                zip(grads, tree_leaves(named(grad_specs, mesh)))]
+
+    def grad_of(params, batch, mesh):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         loss, metrics = loss_fn(tree_unflatten(params, leaves), batch, cfg,
                                 ctx)
+        # a partial loss would seed autograd with 1 on every rank
+        loss = reduce_partial(loss)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        return grads, metrics
+        return _pin(grads, mesh), metrics
 
     def compute_grads(params, batch):
-        dev = tree_leaves(params)[0].device
-        batch = _to_device(batch, dev)
+        first = tree_leaves(params)[0]
+        mesh = current_mesh() if is_dtensor(first) else None
+        if mesh is None:
+            return _compute_grads(params, batch, None, first.device)
+        from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication():
+            return _compute_grads(params, batch, mesh,
+                                  first.to_local().device)
+
+    def _compute_grads(params, batch, mesh, dev):
+        def place(b):
+            return (_to_device(b, dev) if mesh is None
+                    else _place_rows(b, mesh, dev))
         if microbatches == 1:
-            grads, metrics = grad_of(params, batch)
-            return tree_unflatten(params, grads), metrics
+            grads, metrics = grad_of(params, place(batch), mesh)
+            return (tree_unflatten(params, grads),
+                    {k: _full(v) for k, v in metrics.items()})
+        if mesh is not None and any(is_dtensor(v) for v in batch.values()):
+            raise ValueError("microbatches > 1 under a mesh take the global "
+                             "batch (numpy or plain tensors), not DTensors")
         b = next(iter(batch.values())).shape[0]
         if b % microbatches:
             raise ValueError(f"batch {b} is not a multiple of "
                              f"microbatches {microbatches}")
         n = b // microbatches
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                for p in tree_leaves(params)]
+        # the accumulator takes each gradient's placements: the
+        # parameters' when pinned
+        gsum = [None] * len(tree_leaves(params))
         msum = {"loss": torch.zeros((), dtype=torch.float32, device=dev),
                 "accuracy": torch.zeros((), dtype=torch.float32, device=dev)}
         for i in range(microbatches):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            grads, metrics = grad_of(params, mb)
-            for acc, g in zip(gsum, grads):
-                acc.add_(g.to(torch.float32))
+            mb = place({k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+            grads, metrics = grad_of(params, mb, mesh)
+            for j, g in enumerate(grads):
+                g = g.to(torch.float32)
+                if gsum[j] is None:
+                    gsum[j] = torch.zeros_like(g)
+                gsum[j].add_(g)
             del grads
-            msum = {k: msum[k] + metrics[k] for k in msum}
+            msum = {k: msum[k] + _full(metrics[k]) for k in msum}
         inv = 1.0 / microbatches
         return (tree_unflatten(params, [g.mul_(inv) for g in gsum]),
                 {k: v * inv for k, v in msum.items()})
@@ -141,8 +210,8 @@ def build_train_step(cfg, ctx, *, lr_fn: Callable,
                                        lr, opt_cfg)
         del grads
         metrics = dict(metrics)
-        metrics.update(om)
-        metrics["lr"] = lr
+        metrics.update({k: _full(v) for k, v in om.items()})
+        metrics["lr"] = _full(lr)
         return {"params": params, "opt": opt,
                 "step": state["step"] + 1}, metrics
 

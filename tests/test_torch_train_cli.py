@@ -231,11 +231,14 @@ def test_train_cli_fake_quant_and_refusals(tmp_path):
     out = train_cli.main(TRAIN_CLI + ["--steps", "3", "--quant", "fake",
                                    "--ckpt-dir", str(tmp_path)])
     assert np.isfinite(float(out["metrics"]["loss"]))
-    for extra, item in ((["--quant", "int8"], "16c"), (["--lut"], "16c"),
-                        (["--model-parallel", "2"], "item 18")):
+    for extra, item in ((["--quant", "int8"], "16c"), (["--lut"], "16c")):
         with pytest.raises(NotImplementedError, match=item):
             train_cli.main(TRAIN_CLI + ["--steps", "1", "--ckpt-dir",
                                      str(tmp_path / "r"), *extra])
+    # one process (no process group) is a world of 1 rank
+    with pytest.raises(ValueError, match="does not divide the world size 1"):
+        train_cli.main(TRAIN_CLI + ["--steps", "1", "--ckpt-dir",
+                                 str(tmp_path / "r"), "--model-parallel", "2"])
 
 
 # -- data, example, conversion ------------------------------------------------

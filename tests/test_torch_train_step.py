@@ -14,8 +14,8 @@ constants in another order), loss, accuracy and grad_norm within rtol
 L2 1e-4 and the moments within 1e-3 -- AdamW's first steps move every
 element by about lr * sign(g), so an element whose gradient is near 0
 can move either way when the two gradients differ in their last bits.
-The step counter and AdamW's count are equal.  Refusals: ``grad_specs``
-(item 18), ``int8`` and ``use_lut`` (item 16c).
+The step counter and AdamW's count are equal.  Refusals: ``int8`` and
+``use_lut`` (item 16c); ``grad_specs`` without a mesh changes nothing.
 """
 
 import numpy as np
@@ -124,10 +124,26 @@ def test_microbatched_gradients_average(setup):
 
 
 def test_refusals(setup):
-    cfg = setup[0]
+    """int8 and use_lut are refused (item 16c); ``grad_specs`` is not (it
+    pins gradients under a mesh only: without one, under the flag, the
+    gradients are bitwise the unpinned step's)."""
+    from repro_torch.dist import PerfFlags, flags, param_specs, set_flags
+    cfg, state, batches = setup
     _, tctx = contexts("none")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        build_train_step(cfg, tctx, lr_fn=_lr_t, grad_specs={})
+    ts = params_from_numpy(jax_to_numpy(state))
+    plain = build_train_step(cfg, tctx, lr_fn=_lr_t, microbatches=2)
+    pinned = build_train_step(cfg, tctx, lr_fn=_lr_t, microbatches=2,
+                              grad_specs=param_specs(
+                                  ts["params"], {"data": 1, "model": 1}))
+    old = flags()
+    set_flags(PerfFlags(grad_specs=True))
+    try:
+        gp, _ = pinned.compute_grads(ts["params"], batches[0])
+    finally:
+        set_flags(old)
+    g0, _ = plain.compute_grads(ts["params"], batches[0])
+    for k, t in flat(gp).items():
+        assert torch.equal(t, flat(g0)[k]), k
     _, t8 = contexts("int8")
     with pytest.raises(NotImplementedError, match="item 16c"):
         build_train_step(cfg, t8, lr_fn=_lr_t)
