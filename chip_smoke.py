@@ -11,7 +11,7 @@ Phases, one line each, any failure raises and the exit code is non-zero:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print ``ptxas`` usage, with
    a summary of the tensor-core flash, paged (both routes), tensor-core
-   qmatmul, table and quantizer instances;
+   qmatmul, table, quantizer and flash backward instances;
 2. print the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
 3. hold every kernel against its plain PyTorch version on the card at the
@@ -46,9 +46,9 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    library call's device time (median of cold-L2 launches, CUDA events)
    and the kernel/library factor beside the least time the card could
    take; then the flash backward (``flash_attention_bwd``, training's
-   gradient, three kernels in one launch) against its plain version at
+   gradient, its kernels in one launch) against its plain version at
    gemma-2b's training shape (B 8, 8 on 1 heads, S 256, D 256, causal,
-   bf16 and f32), the whisper encoder's, glm4's group of 16, deepseek's
+   bf16 and f32) and at path 14's microbatch (B 4), the whisper encoder's, glm4's group of 16, deepseek's
    MLA (V padded) and a ragged causal shape: dq, dk, dv within relative
    L2 1e-5 (f32) or 1e-4 (bf16, which a control that rounds p and ds to
    bf16 before their products must fail), bitwise across two launches, the forward's lse against the plain log-sum-exp and its
@@ -893,10 +893,12 @@ def check_flash(torch, timer, rows):
 
 
 #: the flash backward's cases, as FLASH_CASES: (h) gemma-2b's training
-#: step (path 13 (a)), the whisper encoder, glm4's group of 16, deepseek's
+#: step (path 13 (a)) and its microbatch under path 14 (B 4), the whisper
+#: encoder, glm4's group of 16, deepseek's
 #: MLA naive form (V zero-padded from 128), a ragged causal shape
 FLASH_BWD_CASES = [
     ("h gemma-train", 8, 8, 1, 256, 256, 256, True, ("bf16", "f32"), None),
+    ("h gemma-train B4", 4, 8, 1, 256, 256, 256, True, ("bf16", "f32"), None),
     ("h whisper-encoder", 8, 8, 8, 1500, 1500, 64, False, ("bf16",), None),
     ("h glm4 D128 group16", 1, 32, 2, 512, 512, 128, True, ("bf16",), None),
     ("h deepseek MLA", 1, 128, 128, 512, 512, 192, True, ("bf16",), 128),
@@ -4976,10 +4978,14 @@ def profile_block(torch, eng, prompts, gen_len):
 #: memory is dynamic, sized at launch; ptxas reports the static part): the
 #: tensor-core flash kernel, the paged kernel (both routes, one instance
 #: per head-dim class), the tensor-core qmatmul (<16, MB> decode, <128, 1>
-#: otherwise), the table kernel (<dtype, gated>) and the quantizer's
-#: register path (<dtype, threads a row>)
+#: otherwise), the table kernel (<dtype, gated>), the quantizer's
+#: register path (<dtype, threads a row>) and the flash backward's
+#: kernels (tensor cores: dq and dk/dv blocks in one grid <DP, DC>; CUDA
+#: cores: dk/dv and dq <DJ>)
 PTXAS_KERNELS = ("flash_attention_bf16_kernel", "paged_attention_kernel",
-                 "qmatmul_kernel", "lut_kernel", "quantize_rows_vec_kernel")
+                 "qmatmul_kernel", "lut_kernel", "quantize_rows_vec_kernel",
+                 "flash_bwd_bf16_kernel", "flash_bwd_dkdv_kernel",
+                 "flash_bwd_dq_kernel")
 
 
 def template_args(mangled: str):
@@ -5096,7 +5102,9 @@ def kernels_line(rows, counts):
             out[-1]["library_note"] = ("SDPA's backward on K/V expanded to "
                                        "the query heads (its forward not "
                                        "timed)")
-            out[-1]["kernels"] = ("three in one launch: delta, dk/dv, dq")
+            out[-1]["kernels"] = ("one launch: delta; the dq and dk/dv "
+                                  "blocks in one grid (bf16); the sum of "
+                                  "dk/dv's split partials")
         if name == "quantize_rows":
             out[-1]["library_note"] = ("none (no PyTorch call quantizes); "
                                        "context: torch.amax(x.abs(), 1) on "

@@ -97,8 +97,8 @@ SIGNATURES = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                                       _I, _P],
+                                       _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                       _I, _I, _I, _P],
     },
     "quantize_rows": {
         "quantize_rows_launch": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I,

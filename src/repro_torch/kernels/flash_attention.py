@@ -34,8 +34,9 @@ K/V replicated over ``model`` otherwise).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +50,7 @@ from .ref import (combine_splits, flash_attention_bwd_plain,
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_plain", "MAX_HEAD_DIM",
+           "FlashBwdPlan", "flash_bwd_plan",
            "paged_attention", "paged_attention_unsplit",
            "paged_attention_split", "combine_splits", "choose_kv_split",
            "auto_pages_per_step", "get_cost_constants", "set_cost_constants",
@@ -199,12 +201,121 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return out, lse
 
 
+#: the backward's Q rows per step of a dk/dv block's walk
+FLASH_BWD_Q_ROWS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """How the backward's dk/dv grid cuts the work of one shape
+    (``csrc/flash_attention_bwd.cu``, its ``Walk``).  A block owns
+    ``kv_rows`` rows of one KV head (a KV tile) and one of ``chunks``
+    column chunks of dk and dv.  The tile's items are (query head of its
+    group, 32-row Q step that can see the tile), head-major; a block runs
+    ``per`` consecutive items (:meth:`split_items`), so a tile with more
+    items takes more blocks (:meth:`splits`).  When a tile takes more
+    than one, every block writes f32 partial sums into a workspace of
+    ``workspace_bytes``, summed in split order by a second pass."""
+    b: int
+    hq: int
+    hkv: int
+    sq: int
+    skv: int
+    d: int
+    causal: bool
+    kv_rows: int
+    chunks: int
+    per: int
+
+    @property
+    def kv_tiles(self) -> int:
+        return -(-self.skv // self.kv_rows)
+
+    def _steps(self, kv_tile: int) -> range:
+        """The Q steps that can see the KV tile: causal, from the one
+        holding the first row that sees its first key (``q_off = Skv -
+        Sq``)."""
+        k0 = kv_tile * self.kv_rows
+        first = (max(0, k0 - (self.skv - self.sq)) if self.causal
+                 else 0) // FLASH_BWD_Q_ROWS
+        return range(first, -(-self.sq // FLASH_BWD_Q_ROWS))
+
+    def tile_items(self, kv_tile: int) -> List[Tuple[int, int]]:
+        """The KV tile's (query head of the group, Q step) items in
+        order."""
+        steps = self._steps(kv_tile)
+        return [(hh, st) for hh in range(self.hq // self.hkv) for st in steps]
+
+    def splits(self, kv_tile: int) -> int:
+        """Blocks of the KV tile: ``ceil(items / per)``, at least one."""
+        items = (self.hq // self.hkv) * len(self._steps(kv_tile))
+        return max(1, -(-items // self.per))
+
+    def split_items(self, kv_tile: int,
+                    split: int) -> List[Tuple[int, int]]:
+        """Block ``split`` of the tile: items ``[split * per, (split + 1)
+        * per)``."""
+        return self.tile_items(kv_tile)[split * self.per:
+                                        (split + 1) * self.per]
+
+    @property
+    def nsplit(self) -> int:
+        """The most blocks of a tile: the workspace's partials."""
+        return max(self.splits(t) for t in range(self.kv_tiles))
+
+    @property
+    def blocks(self) -> int:
+        """dk/dv blocks: each tile's splits x chunks x KV heads x batch."""
+        return (sum(self.splits(t) for t in range(self.kv_tiles))
+                * self.chunks * self.hkv * self.b)
+
+    @property
+    def workspace_bytes(self) -> int:
+        """f32 partials of dk and dv, ``nsplit`` of each (none without a
+        split)."""
+        if self.nsplit == 1:
+            return 0
+        return 2 * self.nsplit * self.b * self.hkv * self.skv * self.d * 4
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int, *,
+                   causal: bool, bf16: bool, sms: int) -> FlashBwdPlan:
+    """The backward's split for a shape, from the shape and the card's SM
+    count alone.  bf16 (tensor cores) takes 64-row KV tiles and, at D >
+    64, two column chunks, and ``per`` is the most items a block that
+    still gives the SMs 1.2 dk/dv blocks each: a causal shape's first
+    tiles, which have the most items, take the most blocks, and no more
+    partial sums are written than that needs (the dq blocks, in the same
+    grid, fill the rest; chip_bwd_variants.py times other ``per``).  f32
+    (CUDA cores) takes 32-row tiles, one chunk, and the fewest items a
+    block that keeps its own grid within two blocks an SM.  Without enough
+    work to split, ``per`` is every item of a tile or 1."""
+    kv_rows = 64 if bf16 else 32
+    chunks = 2 if bf16 and d > 64 else 1
+    plan = functools.partial(FlashBwdPlan, b, hq, hkv, sq, skv, d,
+                             bool(causal), kv_rows, chunks)
+    most = max(1, (hq // hkv) * -(-sq // FLASH_BWD_Q_ROWS))
+    lo, hi = 1, most                    # blocks fall as per grows
+    while lo < hi:
+        if bf16:                        # the largest with >= 1.2 sms blocks
+            mid = (lo + hi + 1) // 2
+            lo, hi = ((mid, hi) if plan(mid).blocks >= -(-6 * sms // 5)
+                      else (lo, mid - 1))
+        else:                           # the smallest with <= 2 sms blocks
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if plan(mid).blocks <= 2 * sms else (mid + 1,
+                                                                    hi)
+    return plan(lo)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         softmax_scale: Optional[float] = None):
     """``(dq, dk, dv)`` of the cache-free attention from the forward's
     output ``o`` and log-sum-exp ``lse`` and the output gradient ``do``,
     in the operands' dtype (f32 sums): one launch of the backward (the
-    ``delta``, dk/dv and dq kernels) on CUDA tensors, deterministic.  Like
+    ``delta``, dk/dv and dq kernels, and the reduction of dk/dv's split
+    partials, :func:`flash_bwd_plan`) on CUDA tensors, deterministic.  Like
     :func:`flash_attention_fwd` it raises on the CPU, where autograd
     differentiates the plain forward (:func:`flash_attention`)."""
     b, hq, hkv, sq, skv, d = _check_flash(q, k, v)
@@ -223,13 +334,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    plan = flash_bwd_plan(b, hq, hkv, sq, skv, d, causal=causal, bf16=bf16,
+                          sms=_cuda.sm_count(q.device))
+    ws = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                      device=q.device) if plan.nsplit > 1 else None)
     lib = _cuda.library("flash_attention_bwd")
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), b, hq, hkv, sq, skv, d,
-        _scale(softmax_scale, d), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+        dv.data_ptr(), delta.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, hq, hkv, sq, skv, d, _scale(softmax_scale, d), int(bool(causal)),
+        int(bf16), plan.per, _cuda.stream_of(q))
     _cuda.check(lib, err, "flash_attention_bwd")
     _cuda.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -2171,7 +2171,14 @@ def _rel(a, b) -> float:
                                    (1, 8, 2, 100, 333, 64, True),
                                    (1, 4, 2, 50, 20, 32, True),
                                    (1, 4, 4, 40, 40, 192, True),
-                                   (1, 2, 2, 33, 45, 24, False)])
+                                   (1, 2, 2, 33, 45, 24, False),
+                                   # split dk/dv work (flash_bwd_plan): a
+                                   # group of 16 over two KV tiles, MQA at
+                                   # B 4 and D 256, odd split counts (9
+                                   # and 3 blocks a tile)
+                                   (1, 16, 1, 100, 128, 64, True),
+                                   (4, 8, 1, 128, 128, 256, True),
+                                   (2, 6, 2, 70, 70, 48, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_kernel_matches_plain(card, shape, dtype):
     """dq, dk, dv of the backward kernel against its plain version on the
@@ -2182,7 +2189,9 @@ def test_flash_attention_bwd_kernel_matches_plain(card, shape, dtype):
     bf16 before the products reads ~2.6e-3, chip_smoke phase 3's
     control); two launches give
     the same bits; a row that sees no key (Sq > Skv, causal) has gradient
-    0; the forward's output with lse is bitwise the output without."""
+    0; the forward's output with lse is bitwise the output without.  The
+    last three shapes split the dk/dv work across blocks (a workspace and
+    a reduction pass)."""
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd)
