@@ -809,9 +809,14 @@ FLASH_CASES = [
     ("a whisper-encoder", 8, 8, 8, 1500, 1500, 64, False, ("bf16", "f32"),
      None),
     ("b gemma-prefill", 2, 8, 1, 512, 512, 256, True, ("bf16", "f32"), None),
+    # path 13 (a)'s forward: gemma-2b's training shape, B 8, S 256
+    ("b gemma-train fwd", 8, 8, 1, 256, 256, 256, True, ("bf16",), None),
     ("c ragged Sq<Skv causal", 2, 8, 2, 77, 200, 64, True, ("bf16",), None),
     ("c ragged Sq>Skv", 2, 8, 2, 200, 77, 64, False, ("bf16",), None),
     ("c MLA-width", 1, 16, 16, 256, 256, 192, True, ("bf16",), 128),
+    # a head dim TMA cannot address (not a multiple of 8): the mma.sync
+    # kernel, the one case that must not take the TMA kernel
+    ("c D60 mma route", 2, 8, 2, 200, 200, 60, True, ("bf16",), None),
     # path 10's cache-free forwards at S 512: glm4's group of 16 at D 128,
     # deepseek's MLA naive form (128 heads, D 192, V padded from 128)
     ("e glm4 D128 group16", 1, 32, 2, 512, 512, 128, True, ("bf16",), None),
@@ -824,16 +829,52 @@ FLASH_CASES = [
 ]
 
 
+def bf16_ulps(torch, a, b) -> int:
+    """The largest distance in bf16 ulps between two bf16 tensors (0 for
+    bitwise equal ones; +0 and -0 count as equal)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i >= 0, i, -(i & 0x7FFF))
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def flash_grids(b, hq, hkv, sq, skv, d, causal):
+    """Every grid the TMA kernel takes for a shape (FlashFwdPlan): one
+    consumer a block, two on 128 rows, two on a GQA head pair (even
+    groups), three on 192 rows (D <= 64)."""
+    from repro_torch.kernels.flash_attention import FlashFwdPlan
+    grids = {"one": (1, False), "two-rows": (2, False)}
+    if (hq // hkv) % 2 == 0:
+        grids["two-heads"] = (2, True)
+    if d <= 64:
+        grids["three"] = (3, False)
+    return {name: FlashFwdPlan(b, hq, hkv, sq, skv, d, causal, wgs, pack)
+            for name, (wgs, pack) in grids.items()}
+
+
+def grid_name(plan) -> str:
+    return {1: "one", 3: "three"}.get(plan.wgs, "two-heads" if
+                                      plan.pack_heads else "two-rows")
+
+
 def check_flash(torch, timer, rows):
     """The flash kernel against its plain version (same inputs, on the
     card), with SDPA's time as the library yardstick (never called by
-    the port).  bf16 (the tensor-core kernel, whose three bf16 terms of
+    the port).  bf16 (the tensor-core kernels, whose three bf16 terms of
     p carry the plain version's f32 p): one bf16 ulp of the output plus
     2e-5 (the f32 sums run in another order); f32 (the CUDA-core kernel):
-    atol = rtol = 2e-5."""
+    atol = rtol = 2e-5.  Every bf16 case must take the route that
+    ``flash_fwd_route`` gives it: the TMA kernel for a head dim that is a
+    multiple of 8 (every path's shape), the mma.sync kernel otherwise.
+    For the TMA kernel each case also logs its grid (``flash_fwd_plan``),
+    whether its output is bitwise the mma.sync kernel's on the same
+    inputs (or the largest difference in bf16 ulps), and the time of
+    every grid the kernel takes for the shape."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import (
+        FLASH_FWD_ROUTES, _flash_fwd_launch, flash_attention,
+        flash_attention_plain, flash_fwd_plan)
     g = torch.Generator(device="cuda").manual_seed(4)
     for (label, b, hq, hkv, sq, skv, d, causal, dtypes,
          dv) in FLASH_CASES:
@@ -846,7 +887,15 @@ def check_flash(torch, timer, rows):
                             device="cuda").to(dt)
             if dv is not None:        # MLA: V zero-padded to the qk width
                 v[..., dv:] = 0
+            route = ("f32" if dt == torch.float32 else
+                     "wgmma" if d % 8 == 0 else "mma")
+            before = dict(FLASH_FWD_ROUTES)
             got = flash_attention(q, k, v, causal=causal)
+            ran = [r for r in FLASH_FWD_ROUTES
+                   if FLASH_FWD_ROUTES[r] != before[r]]
+            if ran != [route]:
+                raise AssertionError(f"flash_attention {label} {dname}: ran "
+                                     f"{ran}, not the {route} kernel")
             want = flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             gf, wf = got.float(), want.float()
@@ -878,18 +927,40 @@ def check_flash(torch, timer, rows):
             bnd, by = bound_ms(nbytes, 4.0 * b * hq * pairs * d,
                                BF16_FLOP_PER_S if dt == torch.bfloat16
                                else F32_FLOP_PER_S)
-            rows.append(dict(kernel="flash_attention",
-                             case=f"{label} B={b} H={hq}/{hkv} Sq={sq} "
-                             f"Skv={skv} D={d} causal={causal} {dname}",
-                             max_abs_err=err, tol=tol, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bnd, bound_by=by))
+            row = dict(kernel="flash_attention",
+                       case=f"{label} B={b} H={hq}/{hkv} Sq={sq} "
+                       f"Skv={skv} D={d} causal={causal} {dname}",
+                       route=route, max_abs_err=err, tol=tol, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                       bound_by=by)
+            extra = ""
+            if route == "wgmma":
+                plan = flash_fwd_plan(b, hq, hkv, sq, skv, d, causal=causal,
+                                      sms=_cuda.sm_count(q.device))
+                old, _ = _flash_fwd_launch(q, k, v, causal, None, False,
+                                           None)
+                ulps = bf16_ulps(torch, got, old)
+                grid_ms = {name: timer(lambda: _flash_fwd_launch(
+                    q, k, v, causal, None, False, alt))
+                    for name, alt in flash_grids(b, hq, hkv, sq, skv, d,
+                                                 causal).items()}
+                grid_ms["mma.sync kernel"] = timer(lambda: _flash_fwd_launch(
+                    q, k, v, causal, None, False, None))
+                row.update(grid=grid_name(plan), blocks=plan.blocks,
+                           bitwise_old=ulps == 0, old_max_ulps=ulps,
+                           grid_ms=grid_ms)
+                extra = (f" grid={row['grid']} blocks={plan.blocks} "
+                         f"bitwise old kernel: "
+                         + ("yes" if ulps == 0 else f"max {ulps} ulp")
+                         + " grids(ms): " + " ".join(
+                             f"{k_}={v_:.4f}" for k_, v_ in grid_ms.items()))
+            rows.append(row)
             log(f"[check] flash_attention {rows[-1]['case']}: "
-                f"max_abs_err={err:.3g} ({tol}) kernel={ms:.4f}ms "
-                f"plain={plain_ms:.4f}ms "
+                f"route={route} max_abs_err={err:.3g} ({tol}) "
+                f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
                 f"library(SDPA)={fmt_ms(lib_ms)} "
                 f"kernel/library={over_library(rows[-1])} "
-                f"bound={bnd:.4f}ms ({by})")
+                f"bound={bnd:.4f}ms ({by})" + extra)
 
 
 #: the flash backward's cases, as FLASH_CASES: (h) gemma-2b's training
@@ -4298,7 +4369,10 @@ def train_path(torch, report, profile: bool) -> dict:
     wall = statistics.median(walls[:3])
     share = 6.0 * n_params * tokens / wall / BF16_FLOP_PER_S
     bwd_ms = sum(r[1] for r in top if "flash_bwd" in r[0])
-    fwd_ms = sum(r[1] for r in top if "flash_attention_" in r[0])
+    # the forward's kernels: the TMA one (flash_fwd_wgmma_kernel) and the
+    # mma.sync and f32 ones (flash_attention_*_kernel)
+    fwd_ms = sum(r[1] for r in top if "flash_fwd_" in r[0]
+                 or "flash_attention_" in r[0])
     log(f"[train] (a) wall a step {wall * 1e3:.1f} ms (median of steps "
         f"1-3), busy {fmt_ms(busy)} (step {t['steps'] - 1}, profiled), "
         f"{tokens / wall:.0f} tokens/s, {100 * share:.2f}% of bf16 peak "
@@ -4976,13 +5050,15 @@ def profile_block(torch, eng, prompts, gen_len):
 
 #: the redesigned kernels, by their names in ptxas's output (their shared
 #: memory is dynamic, sized at launch; ptxas reports the static part): the
-#: tensor-core flash kernel, the paged kernel (both routes, one instance
+#: tensor-core flash kernels (TMA and wgmma <DP, consumer warpgroups>;
+#: mma.sync <DP>), the paged kernel (both routes, one instance
 #: per head-dim class), the tensor-core qmatmul (<16, MB> decode, <128, 1>
 #: otherwise), the table kernel (<dtype, gated>), the quantizer's
 #: register path (<dtype, threads a row>) and the flash backward's
 #: kernels (tensor cores: dq and dk/dv blocks in one grid <DP, DC>; CUDA
 #: cores: dk/dv and dq <DJ>)
-PTXAS_KERNELS = ("flash_attention_bf16_kernel", "paged_attention_kernel",
+PTXAS_KERNELS = ("flash_fwd_wgmma_kernel", "flash_attention_bf16_kernel",
+                 "paged_attention_kernel",
                  "qmatmul_kernel", "lut_kernel", "quantize_rows_vec_kernel",
                  "flash_bwd_bf16_kernel", "flash_bwd_dkdv_kernel",
                  "flash_bwd_dq_kernel")
@@ -5188,7 +5264,11 @@ def main(argv=None) -> int:
     report["checks"] = rows
     counts = {}
     if not args.kernels:
-        # 4. the main path: gemma-2b's four paths, then whisper-base
+        # 4. the main path: gemma-2b's four paths, then whisper-base; the
+        # flash forward's launches by kernel are counted over all paths
+        from repro_torch.kernels.flash_attention import FLASH_FWD_ROUTES
+        for route in FLASH_FWD_ROUTES:
+            FLASH_FWD_ROUTES[route] = 0
         del timer
         counts = serve_main_path(torch, report, args.profile)
         torch.cuda.synchronize()
@@ -5213,6 +5293,13 @@ def main(argv=None) -> int:
         for k, v in dist_train_path(torch, report, args.profile).items():
             counts[k] = counts.get(k, 0) + v
         torch.cuda.synchronize()
+        # every path's bf16 forward runs the TMA kernel (the mma.sync
+        # kernel is for head dims and alignments that no path has)
+        report["flash_fwd_routes"] = dict(FLASH_FWD_ROUTES)
+        log(f"[paths] flash forward launches by kernel: {FLASH_FWD_ROUTES}")
+        if FLASH_FWD_ROUTES["mma"] or not FLASH_FWD_ROUTES["wgmma"]:
+            raise AssertionError(f"a path's bf16 flash forward ran the "
+                                 f"mma.sync kernel: {FLASH_FWD_ROUTES}")
 
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -93,7 +93,7 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _F, _I, _I, _P],
+                                   _I, _F, _I, _I, _I, _I, _P],
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,7 +50,8 @@ from .ref import (combine_splits, flash_attention_bwd_plain,
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_plain", "MAX_HEAD_DIM",
-           "FlashBwdPlan", "flash_bwd_plan",
+           "FlashFwdPlan", "flash_fwd_plan", "flash_fwd_route",
+           "FLASH_FWD_ROUTES", "FlashBwdPlan", "flash_bwd_plan",
            "paged_attention", "paged_attention_unsplit",
            "paged_attention_split", "combine_splits", "choose_kv_split",
            "auto_pages_per_step", "get_cost_constants", "set_cost_constants",
@@ -177,28 +178,169 @@ def _check_flash(q, k, v):
     return b, hq, hkv, sq, skv, d
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        softmax_scale: Optional[float] = None,
-                        with_lse: bool = False):
-    """One launch of the forward kernel on CUDA tensors: the output, and
-    with ``with_lse`` also the rows' natural log-sum-exp (B, Hq, Sq) f32
-    (-inf for a row that sees no key): ``(out, lse or None)``."""
+#: query rows of one consumer warpgroup's item in the TMA forward kernel,
+#: and the keys of one K/V tile
+FLASH_FWD_ROWS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashFwdPlan:
+    """How the TMA forward kernel's grid cuts one shape
+    (``csrc/flash_attention.cu``, ``fa3::flash_fwd_wgmma_kernel``).  A
+    block owns one KV head and ``wgs`` items, each 64 query rows of one
+    query head, one per consumer warpgroup: with ``pack_heads`` two query
+    heads of a GQA group at the same rows, else consecutive 64-row steps
+    of one head (``rows`` a block).  Blocks are numbered row tile first,
+    causal row tiles longest first (:meth:`items` is the kernel's
+    decode); a block loads the K/V tiles its longest item sees
+    (:meth:`block_tiles`)."""
+    b: int
+    hq: int
+    hkv: int
+    sq: int
+    skv: int
+    d: int
+    causal: bool
+    wgs: int
+    pack_heads: bool
+
+    @property
+    def rows(self) -> int:
+        """Query rows of a block's row tile."""
+        return FLASH_FWD_ROWS * (1 if self.pack_heads else self.wgs)
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.sq // self.rows)
+
+    @property
+    def units(self) -> int:
+        """Blocks of one row tile: (batch, KV head, pair of its query
+        heads), or (batch, query head)."""
+        if self.pack_heads:
+            return self.b * self.hkv * (self.hq // self.hkv // 2)
+        return self.b * self.hq
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.units
+
+    def items(self, block: int) -> List[Tuple[int, int, int]]:
+        """Block ``block``'s (batch, query head, first row) per consumer."""
+        rt, u = divmod(block, self.units)
+        r = self.row_tiles - 1 - rt if self.causal else rt
+        group = self.hq // self.hkv
+        if self.pack_heads:
+            pairs = group // 2
+            bb, rem = divmod(u, self.hkv * pairs)
+            hk, pair = divmod(rem, pairs)
+            return [(bb, hk * group + 2 * pair + c, r * FLASH_FWD_ROWS)
+                    for c in range(2)]
+        bb, h = divmod(u, self.hq)
+        return [(bb, h, r * self.rows + FLASH_FWD_ROWS * c)
+                for c in range(self.wgs)]
+
+    def item_tiles(self, row0: int) -> int:
+        """K/V tiles that 64 query rows from ``row0`` see (0 past Sq)."""
+        if row0 >= self.sq:
+            return 0
+        kv_end = (min(self.skv, self.skv - self.sq
+                      + min(row0 + FLASH_FWD_ROWS, self.sq))
+                  if self.causal else self.skv)
+        return max(0, -(-kv_end // FLASH_FWD_ROWS))
+
+    def block_tiles(self, block: int) -> int:
+        return max(self.item_tiles(r0) for _, _, r0 in self.items(block))
+
+
+@functools.lru_cache(maxsize=256)
+def flash_fwd_plan(b: int, hq: int, hkv: int, sq: int, skv: int, d: int, *,
+                   causal: bool, sms: int) -> FlashFwdPlan:
+    """The TMA forward kernel's grid for a shape, from the shape and the
+    card's SM count alone (chip_smoke phase 3 times every grid; PERF.md
+    section 6 has the times):
+
+    * D > 128: two consumers a block, two heads of a GQA group at the
+      same rows (even groups) or 128 rows of one head: a block has the
+      SM's shared memory to itself, and its consumers share each K/V tile
+      and take turns at the tensor cores.  One consumer (64-row blocks)
+      where the two-consumer grid would leave more than half the SMs
+      idle;
+    * D <= 64, not causal: three consumers on 192 rows of one head, where
+      that grid has a block for every SM: every consumer sees every tile,
+      and three share each K/V load;
+    * otherwise (D <= 128): one consumer a block, two blocks an SM, so
+      that an item's walk is exactly its own tiles (two-consumer blocks
+      measured slower at every such path shape)."""
+    group = hq // hkv
+    plan = functools.partial(FlashFwdPlan, b, hq, hkv, sq, skv, d,
+                             bool(causal))
+    one = plan(1, False)
+    if d > 128:
+        two = plan(2, group % 2 == 0)
+        return two if 2 * two.blocks >= sms else one
+    three = plan(3, False)
+    if d <= 64 and not causal and three.blocks >= sms:
+        return three
+    return one
+
+
+#: bf16 and f32 forward launches by kernel since the last reset: "wgmma"
+#: (the TMA kernel), "mma" (the mma.sync kernel, for what TMA cannot
+#: address), "f32" (CUDA cores); all count under ``LAUNCHES
+#: ["flash_attention"]``
+FLASH_FWD_ROUTES: Dict[str, int] = {"wgmma": 0, "mma": 0, "f32": 0}
+
+
+def flash_fwd_route(q, k, v) -> str:
+    """The forward kernel that contiguous ``q, k, v`` run: bf16 with a
+    head dim that is a multiple of 8 and 16-byte aligned operands (what
+    TMA addresses) take "wgmma", other bf16 calls "mma", f32 "f32"."""
+    if q.dtype != torch.bfloat16:
+        return "f32"
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return "wgmma" if q.shape[-1] % 8 == 0 and aligned else "mma"
+
+
+def _flash_fwd_launch(q, k, v, causal, softmax_scale, with_lse, plan):
+    """One launch on contiguous CUDA operands: the TMA kernel on
+    ``plan`` (a :class:`FlashFwdPlan`), or with ``plan`` None the
+    mma.sync kernel (bf16) or the CUDA-core kernel (f32)."""
     b, hq, hkv, sq, skv, d = _check_flash(q, k, v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lib = _cuda.library("flash_attention")
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, hq, hkv, sq, skv, d,
         _scale(softmax_scale, d), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), _cuda.stream_of(q))
+        int(q.dtype == torch.bfloat16), 0 if plan is None else plan.wgs,
+        int(plan is not None and plan.pack_heads), _cuda.stream_of(q))
     _cuda.check(lib, err, "flash_attention")
     _cuda.LAUNCHES["flash_attention"] += 1
+    FLASH_FWD_ROUTES["wgmma" if plan is not None else
+                     "mma" if q.dtype == torch.bfloat16 else "f32"] += 1
     return out, lse
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        softmax_scale: Optional[float] = None,
+                        with_lse: bool = False):
+    """One launch of the forward kernel on CUDA tensors: the output, and
+    with ``with_lse`` also the rows' natural log-sum-exp (B, Hq, Sq) f32
+    (-inf for a row that sees no key): ``(out, lse or None)``.  The
+    kernel is :func:`flash_fwd_route`'s, on :func:`flash_fwd_plan`'s grid
+    for the TMA kernel."""
+    b, hq, hkv, sq, skv, d = _check_flash(q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    plan = None
+    if flash_fwd_route(q, k, v) == "wgmma":
+        plan = flash_fwd_plan(b, hq, hkv, sq, skv, d, causal=bool(causal),
+                              sms=_cuda.sm_count(q.device))
+    return _flash_fwd_launch(q, k, v, causal, softmax_scale, with_lse, plan)
 
 
 #: the backward's Q rows per step of a dk/dv block's walk

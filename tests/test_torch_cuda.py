@@ -241,17 +241,24 @@ def test_flash_attention_kernel_never_reads_past_skv(card):
                                                 causal=causal))
 
 
-# (B, Hq, Hkv, Sq, Skv, D, causal) for the tensor-core kernel: Sq and Skv
+# (B, Hq, Hkv, Sq, Skv, D, causal) for the tensor-core kernels: Sq and Skv
 # off the 64-row tiles and the 128-row mark, a single query row, Sq > Skv
 # causal (the first rows see no key), every instance (D 32/64 -> 64, 128,
 # 192, 256), groups 1, 2 and 8, and a head dim that is not a multiple of 8
-# (the kernel stages it with plain loads)
+# (the mma.sync kernel, which stages it with plain loads); then shapes
+# whose flash_fwd_plan packs two query heads of a GQA group a block (a
+# group of 4 at D 192; gemma-2b's MQA at D 256, its training shape), and
+# one where it takes 64-row blocks of one consumer (gemma-2b's prefill
+# at B 2)
 FLASH_BF16_EDGES = [(1, 8, 8, 129, 191, 64, True), (2, 8, 1, 1, 300, 256, True),
                     (2, 4, 2, 1, 1, 32, False), (1, 8, 1, 200, 70, 64, True),
                     (1, 2, 1, 65, 130, 192, True), (1, 4, 4, 127, 63, 128,
                                                     False),
                     (2, 8, 1, 100, 257, 256, False), (1, 2, 2, 40, 90, 20,
-                                                      True)]
+                                                      True),
+                    (2, 16, 4, 300, 300, 192, True),
+                    (8, 8, 1, 256, 256, 256, True),
+                    (2, 8, 1, 512, 512, 256, True)]
 
 
 @pytest.mark.parametrize("shape", FLASH_BF16_EDGES,
@@ -260,15 +267,19 @@ def test_flash_attention_bf16_edge_shapes(card, shape):
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention import FLASH_FWD_ROUTES
     b, hq, hkv, sq, skv, d, causal = shape
     q, k, v = (torch.randn((b, h, s, d), generator=card,
                            device="cuda").bfloat16()
                for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
     before = _cuda.LAUNCHES["flash_attention"]
+    route = "wgmma" if d % 8 == 0 else "mma"
+    routed = FLASH_FWD_ROUTES[route]
     got = flash_attention(q, k, v, causal=causal)
     want = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    assert FLASH_FWD_ROUTES[route] == routed + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     _flash_close(got, want)
     if causal and sq > skv:         # rows that see no key are exactly 0
@@ -289,6 +300,62 @@ def test_flash_attention_bf16_unaligned_view(card):
     assert view.data_ptr() % 16 and view.is_contiguous()
     assert torch.equal(flash_attention(view, k, v, causal=True),
                        flash_attention(q, k, v, causal=True))
+
+
+# (B, Hq, Hkv, Sq, Skv, causal) for every grid of the TMA kernel at every
+# instance: ragged Sq and Skv, Sq > Skv causal (rows that see no key, an
+# item whose 64 rows see fewer tiles than its block's other item), and
+# one KV head whose K/V are views into buffers that hold NaN past Skv
+FLASH_PLAN_SHAPES = [(2, 4, 2, 130, 200, True), (1, 4, 2, 200, 70, True),
+                     (2, 4, 2, 100, 150, False), (1, 4, 1, 150, 190, True)]
+
+
+#: (grid, D): every grid at every instance (three consumers are built
+#: for D <= 64 only)
+FLASH_GRIDS = [(grid, d) for d in (32, 64, 128, 192, 256)
+               for grid in ("one", "two-rows", "two-heads", "three")
+               if grid != "three" or d <= 64]
+
+
+@pytest.mark.parametrize("grid,d", FLASH_GRIDS,
+                         ids=[f"{g}-{d}" for g, d in FLASH_GRIDS])
+@pytest.mark.parametrize("shape", FLASH_PLAN_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_flash_attention_bf16_every_grid(card, shape, grid, d):
+    """The TMA kernel on each grid that flash_fwd_plan can choose, its
+    output and log-sum-exp against the plain versions, and the output
+    bitwise the same with and without the log-sum-exp."""
+    from repro_torch.kernels.flash_attention import (FlashFwdPlan,
+                                                     _flash_fwd_launch,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ref import flash_attention_lse_plain
+    b, hq, hkv, sq, skv, causal = shape
+    q = torch.randn((b, hq, sq, d), generator=card, device="cuda").bfloat16()
+    kv = []
+    for _ in range(2):
+        buf = torch.full((b, hkv, skv + 37, d), float("nan"), device="cuda",
+                         dtype=torch.bfloat16)
+        buf[:, :, :skv] = torch.randn((b, hkv, skv, d), generator=card,
+                                      device="cuda").bfloat16()
+        kv.append(buf[:, :, :skv] if b * hkv == 1 else
+                  buf[:, :, :skv].contiguous())
+    k, v = kv
+    assert k.is_contiguous() and v.is_contiguous()
+    wgs = {"one": 1, "two-rows": 2, "two-heads": 2, "three": 3}[grid]
+    plan = FlashFwdPlan(b, hq, hkv, sq, skv, d, causal, wgs,
+                        grid == "two-heads")
+    got, lse = _flash_fwd_launch(q, k, v, causal, 0.2, True, plan)
+    out, _ = _flash_fwd_launch(q, k, v, causal, 0.2, False, plan)
+    want = flash_attention_plain(q, k, v, causal=causal, softmax_scale=0.2)
+    lse_p = flash_attention_lse_plain(q, k, causal=causal, softmax_scale=0.2)
+    torch.cuda.synchronize()
+    _flash_close(got, want)
+    assert torch.equal(got.view(torch.int16), out.view(torch.int16))
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(fin, torch.isfinite(lse))
+    torch.testing.assert_close(lse[fin], lse_p[fin], atol=1e-4, rtol=1e-5)
+    if causal and sq > skv:
+        assert (got[:, :, :sq - skv] == 0).all()
 
 
 def test_flash_attention_bf16_never_reads_past_skv(card):
