@@ -10,13 +10,16 @@ Phases, one line each, any failure raises and the exit code is non-zero:
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print ``ptxas`` usage, with
-   a summary of the tensor-core flash, paged (both routes), tensor-core
-   qmatmul, table, quantizer and flash backward instances;
+   a summary of the tensor-core flash, paged (both routes), qmatmul (the
+   TMA weight-stream, wgmma and narrow wgmma instances and the parent
+   kernel), table, quantizer and flash backward instances;
 2. print the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s
    name and power limit);
 3. hold every kernel against its plain PyTorch version on the card at the
    main path's shapes (gemma-2b at full width: qmatmul at M = 8 and 128
-   over every projection and at a verify pass's M = 40, over
+   over every projection, at a verify pass's M = 40 and at the
+   instances' edge M = 64 / 65 (each case's plan logged, the parent
+   kernel run and timed beside it, bitwise), over
    whisper-base's at M = 8, 128 and 12000 with and without a bias, and
    over the jet MLP's four layers at M = 1, 128 and 16384, over the
    rest of the lm family's projections (the untied heads at N = vocab,
@@ -278,22 +281,34 @@ def log(msg: str) -> None:
 
 
 class Timer:
-    """Device time of one call with a cold L2: a 256 MB write flushes the
-    50 MB L2, a spin kernel keeps the card busy while the host enqueues
-    the call (so host overhead is not timed), CUDA events bracket it."""
+    """Device time of one call with a cold L2: a 256 MB read before each
+    launch flushes the L2 and leaves it clean (a flush by a write left
+    dirty lines that the timed call wrote back: PERF.md section 6); a
+    spin kernel keeps the card busy while the host enqueues the call, so
+    host overhead is not timed; CUDA events bracket it.  The spin lasts
+    1M cycles, or longer where a warm call takes the host longer than
+    half of that to enqueue (a host-heavy call, such as autograd's)."""
+
+    #: the spin's cycles a second (the H100's top SM clock, 1.98 GHz)
+    SPIN_HZ = 1.98e9
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
 
     def __call__(self, fn, reps: int = 15) -> float:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        spin = max(1_000_000, int(2 * host * self.SPIN_HZ))
         pairs = []
         for _ in range(reps):
-            self.flush.zero_()
-            torch.cuda._sleep(1_000_000)
+            self.flush.amax()
+            torch.cuda._sleep(spin)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -323,51 +338,73 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
                                        else "operations")
 
 
-def check_qmatmul(torch, timer, rows):
-    from repro_torch.core.tables import TableSpec, get_table
-    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_plain
-    g = torch.Generator(device="cuda").manual_seed(1)
-    # (M, name, K, N, output type, epilogue table, bias)
-    cases = [(m, name, k, n, torch.bfloat16, None, False)
+def qmatmul_cases():
+    """Phase 3's qmatmul cases: (M, name, K, N, output type, epilogue
+    table or None, bias), from the model constants alone (the plan's CPU
+    test reads them too)."""
+    bf, f32 = "bfloat16", "float32"
+    cases = [(m, name, k, n, bf, None, False)
              for m in (8, 128) for name, k, n in GEMMA_PROJ]
-    cases.append((128, "wq f32", 2048, 2048, torch.float32, None, False))
-    # the fused epilogue: bias + gated gelu table (step 2^-6), and silu's
-    # gate table, whose step 20/1024 is not a power of two (both the
-    # kernel and its plain version index with (y - lo) * step_inv)
-    cases.append((128, "up+bias+lut", 2048, 2048, torch.float32,
-                  TableSpec("gelu_gate", 1024, -8.0, 8.0, None, "interp"),
-                  True))
-    cases.append((8, "up+bias+silu-lut", 2048, 16384, torch.bfloat16,
-                  TableSpec("silu_gate", 1024, -10.0, 10.0, None,
-                            "interp"), True))
+    cases.append((128, "wq f32", 2048, 2048, f32, None, False))
+    cases.append((128, "up+bias+lut", 2048, 2048, f32, "gelu", True))
+    cases.append((8, "up+bias+silu-lut", 2048, 16384, bf, "silu", True))
     # whisper-base's projections, without and with a bias (the epilogue's
     # fma(acc * sa, sb, bias))
-    cases += [(m, f"whisper {name}{'+bias' if bias else ''}", k, n,
-               torch.bfloat16, None, bias)
+    cases += [(m, f"whisper {name}{'+bias' if bias else ''}", k, n, bf,
+               None, bias)
               for m in (8, 128, 12000) for name, k, n in WHISPER_PROJ
               for bias in (False, True)]
-    # a speculative verify pass (path 6): 8 lanes x (k + 1) rows
-    cases += [(8 * (SPEC_K + 1), f"verify {name}", k, n, torch.bfloat16,
-               None, False) for name, k, n in GEMMA_PROJ]
+    # a speculative verify pass (path 6): 8 lanes x (k + 1) rows; the
+    # weight-stream instance's last row count (64) and the wide
+    # instance's first (65)
+    cases += [(m, f"{'verify ' if m == 8 * (SPEC_K + 1) else ''}{name}",
+               k, n, bf, None, False)
+              for m in (8 * (SPEC_K + 1), 64, 65) for name, k, n in GEMMA_PROJ]
     # the jet MLP's layers (path 7), f32 out with the bias epilogue
-    cases += [(m, f"jet {name}", k, n, torch.float32, None, True)
+    cases += [(m, f"jet {name}", k, n, f32, None, True)
               for m in (1, 128, 16384) for name, k, n in JET_PROJ]
     # path 10: a decode step's 8 rows everywhere, a prefill chunk's 128
     # on the heads
-    cases += [(m, name, k, n, torch.bfloat16, None, bias)
+    cases += [(m, name, k, n, bf, None, bias)
               for name, k, n, bias in FAMILY_PROJ
               for m in ((8, 128) if "head" in name else (8,))]
     # path 11: a decode step's 8 rows and 128
-    cases += [(m, name, k, n, torch.bfloat16, None, False)
+    cases += [(m, name, k, n, bf, None, False)
               for name, k, n in RECURRENT_PROJ for m in (8, 128)]
     # path 12: a decode step's 8 rows, the prefill prompt's 8 x 64 on the
     # MLP's up/gate, the image's 8 x 1601 rows on its K/V
-    cases += [(8, name, k, n, torch.bfloat16, None, False)
-              for name, k, n in VLM_PROJ]
-    cases += [(512, "vlm prefill up/gate", 4096, 14336, torch.bfloat16, None,
-               False),
-              (VLM_IMG_ROWS, "vlm image wk/wv", 4096, 1024, torch.bfloat16,
-               None, False)]
+    cases += [(8, name, k, n, bf, None, False) for name, k, n in VLM_PROJ]
+    cases += [(512, "vlm prefill up/gate", 4096, 14336, bf, None, False),
+              (VLM_IMG_ROWS, "vlm image wk/wv", 4096, 1024, bf, None, False)]
+    return cases
+
+
+def qmm_plan_name(plan) -> str:
+    """A qmatmul plan in a few words: instance, block tile (weight columns
+    x token rows), split, ring stages."""
+    return (f"{plan.instance} {plan.cols}x{plan.rows} split {plan.splits} "
+            f"ring {plan.stages}")
+
+
+def check_qmatmul(torch, timer, rows):
+    """qmatmul at every phase-3 case: the planned instance and the
+    parent kernel (the control instance) both bitwise the plain version,
+    each timed; the plan logged beside its time."""
+    from repro_torch.core.tables import TableSpec, get_table
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.qmatmul import (qmatmul, qmatmul_plain,
+                                             qmatmul_plan)
+    sms = _cuda.sm_count(torch.device("cuda", 0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    # the fused epilogue's tables: bias + gated gelu (step 2^-6), and
+    # silu's gate, whose step 20/1024 is not a power of two (both the
+    # kernel and its plain version index with (y - lo) * step_inv)
+    tables = {"gelu": TableSpec("gelu_gate", 1024, -8.0, 8.0, None,
+                                "interp"),
+              "silu": TableSpec("silu_gate", 1024, -10.0, 10.0, None,
+                                "interp")}
+    cases = [(m, name, k, n, getattr(torch, out), tables.get(table), bias)
+             for m, name, k, n, out, table, bias in qmatmul_cases()]
     for m, name, k, n, out_dtype, spec, with_bias in cases:
         a = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
                           dtype=torch.int8)
@@ -378,17 +415,28 @@ def check_qmatmul(torch, timer, rows):
         bias = (torch.randn((n,), generator=g, device="cuda")
                 if with_bias else None)
         kw = dict(act_spec=spec, act_gated=spec is not None)
+        plan = qmatmul_plan(m, n, k, sms)
+        control = qmatmul_plan(m, n, k, sms, "control")
         got = qmatmul(a, b, sa, sb, bias, out_dtype, **kw)
+        got_parent = qmatmul(a, b, sa, sb, bias, out_dtype, plan=control,
+                             **kw)
         want = qmatmul_plain(a, b, sa, sb, bias, out_dtype, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         # exact int32 accumulation and the same single-rounded epilogue
-        # operations in the same order: bitwise equal
+        # operations in the same order: bitwise equal, and bitwise the
+        # parent kernel's output (the control instance)
         tol = 0.0
-        if not (err <= tol and torch.isfinite(got).all().item()):
-            raise AssertionError(f"qmatmul {name} M={m}: max_abs_err {err} "
-                                 f"> tol {tol}")
+        if not (err <= tol and torch.isfinite(got).all().item()
+                and same_raw_bits(torch, got, got_parent)):
+            raise AssertionError(f"qmatmul {name} M={m} "
+                                 f"({qmm_plan_name(plan)}): max_abs_err "
+                                 f"{err} > tol {tol}, or not bitwise the "
+                                 f"parent kernel")
         ms = timer(lambda: qmatmul(a, b, sa, sb, bias, out_dtype, **kw))
+        parent_ms = (ms if plan == control else timer(
+            lambda: qmatmul(a, b, sa, sb, bias, out_dtype, plan=control,
+                            **kw)))
         plain_ms = timer(lambda: qmatmul_plain(a, b, sa, sb, bias, out_dtype,
                                                **kw), reps=5)
         lib_ms = ctx_ms = read_ms = None
@@ -417,10 +465,13 @@ def check_qmatmul(torch, timer, rows):
                          f"{str(out_dtype)[6:]}", max_abs_err=err, tol=tol,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          int_mm_m32_ms=ctx_ms, read_weights_ms=read_ms,
-                         bound_ms=bnd, bound_by=by))
-        log(f"[check] qmatmul {rows[-1]['case']}: max_abs_err={err:.3g} "
-            f"(tol {tol:.3g}) kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-            f"library={fmt_ms(lib_ms)} "
+                         bound_ms=bnd, bound_by=by,
+                         plan=qmm_plan_name(plan), parent_ms=parent_ms,
+                         bitwise_parent=True))
+        log(f"[check] qmatmul {rows[-1]['case']}: [{qmm_plan_name(plan)}] "
+            f"max_abs_err={err:.3g} (tol {tol:.3g}), bitwise the parent "
+            f"kernel; kernel={ms:.4f}ms parent={parent_ms:.4f}ms "
+            f"plain={plain_ms:.4f}ms library={fmt_ms(lib_ms)} "
             f"kernel/library={over_library(rows[-1])} "
             + (f"(context: _int_mm on A padded to M 32 {ctx_ms:.4f}ms, "
                f"amax reading B {read_ms:.4f}ms) "
@@ -5052,14 +5103,16 @@ def profile_block(torch, eng, prompts, gen_len):
 #: memory is dynamic, sized at launch; ptxas reports the static part): the
 #: tensor-core flash kernels (TMA and wgmma <DP, consumer warpgroups>;
 #: mma.sync <DP>), the paged kernel (both routes, one instance
-#: per head-dim class), the tensor-core qmatmul (<16, MB> decode, <128, 1>
-#: otherwise), the table kernel (<dtype, gated>), the quantizer's
+#: per head-dim class), qmatmul (the TMA instances <kind, boxes, rows>:
+#: kind 0 the weight stream, 1 wgmma; the parent kernel <16, MB> decode,
+#: <128, 1> otherwise), the table kernel (<dtype, gated>), the quantizer's
 #: register path (<dtype, threads a row>) and the flash backward's
 #: kernels (tensor cores: dq and dk/dv blocks in one grid <DP, DC>; CUDA
 #: cores: dk/dv and dq <DJ>)
 PTXAS_KERNELS = ("flash_fwd_wgmma_kernel", "flash_attention_bf16_kernel",
                  "paged_attention_kernel",
-                 "qmatmul_kernel", "lut_kernel", "quantize_rows_vec_kernel",
+                 "qmatmul_kernel", "qmm_tma_kernel", "lut_kernel",
+                 "quantize_rows_vec_kernel",
                  "flash_bwd_bf16_kernel", "flash_bwd_dkdv_kernel",
                  "flash_bwd_dq_kernel")
 
@@ -5192,6 +5245,8 @@ def kernels_line(rows, counts):
                                        "to M 32, and amax reading B")
             out[-1]["context_int_mm_m32_ms"] = rep["int_mm_m32_ms"]
             out[-1]["context_read_weights_ms"] = rep["read_weights_ms"]
+            out[-1]["plan"] = rep["plan"]
+            out[-1]["parent_kernel_ms"] = rep["parent_ms"]
     return {"kernels": out}
 
 

@@ -79,6 +79,9 @@ SIGNATURES = {
     "qmatmul": {
         "qmatmul_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                            _F, _I, _I, _I, _I, _P, _P, _P],
+        "qmatmul_tma_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P],
     },
     "paged_attention": {
         "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -524,6 +524,54 @@ def test_qmatmul_tiling_edges_bitwise(card, m, k, n):
     assert torch.equal(got, want)
 
 
+#: the plan's instances at their edges: the weight stream's row counts
+#: (M 16/17, 64, verify's 40), the wgmma instance's first rows (65) and
+#: its 128-row tiles (128/129); K 256 (2 stages) and 16384; the jet's
+#: four layers at M 16384 (fc3's N 5 on the control); N 5 at decode; the
+#: narrow tile at the M edges, K in one or two k32 steps
+QMM_PLAN_CASES = ([(m, k, 2048) for m in (16, 17, 40, 64, 65, 128, 129)
+                   for k in (256, 16384)]
+                  + [(16384, 16, 64), (16384, 64, 32), (16384, 32, 32),
+                     (16384, 32, 5), (8, 2048, 5), (65, 16, 64),
+                     (129, 48, 48)])
+
+
+@pytest.mark.parametrize("mkn", QMM_PLAN_CASES, ids=str)
+def test_qmatmul_plan_instances_bitwise(card, mkn):
+    """The planned instance, the control (the parent kernel) and the TMA
+    instance of the row count unsplit and split three ways (the narrow
+    tile: at each of its row counts): each one counted launch, each
+    ``torch.equal`` the plain version."""
+    import dataclasses
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.qmatmul import (NARROW, NARROW_ROWS, qmatmul,
+                                             qmatmul_plain, qmatmul_plan)
+    m, k, n = mkn
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    a, b, sa, sb = _qmm_operands(card, m, k, n)
+    bias = torch.randn((n,), generator=card, device="cuda")
+    plan = qmatmul_plan(m, n, k, sms)
+    plans = [plan, qmatmul_plan(m, n, k, sms, "control")]
+    tma = "stream" if m <= 64 else "wgmma"
+    if n % 16 == 0:
+        p0 = qmatmul_plan(m, n, k, sms, tma)
+        plans += ([dataclasses.replace(p0, rows=r) for r in NARROW_ROWS]
+                  if p0.cols == NARROW else
+                  [dataclasses.replace(p0, splits=s)
+                   for s in sorted({1, min(3, -(-k // 128))})])
+    assert plan.instance == ("control" if n % 16 or (m <= 16 and k <= 512)
+                             else tma)
+    for dt in (torch.float32, torch.bfloat16):
+        want = qmatmul_plain(a, b, sa, sb, bias, dt)
+        for p in plans:
+            before = _cuda.LAUNCHES["qmatmul"]
+            got = qmatmul(a, b, sa, sb, bias, dt, plan=p)
+            torch.cuda.synchronize()
+            assert _cuda.LAUNCHES["qmatmul"] == before + 1
+            assert torch.equal(got, want), p
+
+
 @pytest.mark.parametrize("m", [8, 16, 128])
 @pytest.mark.parametrize("value", [-128, 127])
 def test_qmatmul_extreme_operands_exact(card, m, value):
@@ -547,8 +595,8 @@ def test_qmatmul_split_k_twice_leaves_workspace_zeroed(card, mkn):
     plain version."""
     from repro_torch.kernels import qmatmul as qmod
     m, k, n = mkn
-    assert qmod._splitk_plan(m, n, k, torch.cuda.get_device_properties(
-        0).multi_processor_count) > 1
+    assert qmod.qmatmul_plan(m, n, k, torch.cuda.get_device_properties(
+        0).multi_processor_count).splits > 1
     a, b, sa, sb = _qmm_operands(card, m, k, n)
     want = qmod.qmatmul_plain(a, b, sa, sb, out_dtype=torch.bfloat16)
     for _ in range(2):
@@ -791,14 +839,15 @@ def test_qmatmul_unsplit_call_leaves_workspace_alone(card):
     from repro_torch.kernels import qmatmul as qmod
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     m, k, n = 8, 16384, 2048
-    assert qmod._splitk_plan(m, n, k, sms) > 1
+    assert qmod.qmatmul_plan(m, n, k, sms).splits > 1
     a, b, sa, sb = _qmm_operands(card, m, k, n)
     assert torch.equal(qmod.qmatmul(a, b, sa, sb),
                        qmod.qmatmul_plain(a, b, sa, sb))
     big = [_qmm_operands(card, 12000, k2, n2)
            for k2, n2 in ((512, 2048), (2048, 512))]
     for a2, b2, sa2, sb2 in big:
-        assert qmod._splitk_plan(12000, b2.shape[1], b2.shape[0], sms) == 1
+        assert qmod.qmatmul_plan(12000, b2.shape[1], b2.shape[0],
+                                 sms).splits == 1
         want = qmod.qmatmul_plain(a2, b2, sa2, sb2)
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()

@@ -18,7 +18,8 @@ def _port_files():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "chip_ab.py",
                                         ROOT / "chip_bwd_variants.py",
-                                        ROOT / "chip_fwd_variants.py"]
+                                        ROOT / "chip_fwd_variants.py",
+                                        ROOT / "chip_qmatmul_variants.py"]
 
 
 def test_import_leaves_jax_out():
