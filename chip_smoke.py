@@ -60,7 +60,14 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    256000): bitwise its plain version on the card, threefry bits bitwise
    the CPU's, its device time from a CUDA graph replay and its device
    kernels per call; likewise ``verify_tokens_fused`` (speculative
-   decoding's acceptance rule) at (8, 5, 256000);
+   decoding's acceptance rule) at (8, 5, 256000); the backward kernels
+   of training under --lut and --quant int8 at gemma-2b's training
+   shapes (2048 tokens): lut_gated_mul_bwd and lut_activation_bwd over
+   (2048, 16384), every indexing, bf16 and f32, bitwise; quantize_rows_bwd
+   over K 2048 and 16384 with ties, zero and floor rows, bitwise;
+   qmatmul_bwd over every projection (the gate also with the gated GELU
+   epilogue, one with a bias) within QMM_BWD_TOL of the plain version
+   and bitwise across launches;
 4. serve full-width gemma-2b, bf16 compute, batch 8, prompt 128, gen 32,
    on four paths, each with the launch counters reset just before it and
    read just after, failing if a kernel of the path never launched:
@@ -191,7 +198,15 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    ``launch.train.main`` at smoke width: a fault at step 5 restored from
    a checkpoint ends bitwise on the unfailed run, and ``--quant fake``
    trains; (c) the jet example's flow on the card within 0.01 of the
-   CPU's;
+   CPU's; (d) ``train_quant_path``: gemma-2b at full width and depth
+   under --quant int8 --lut, bf16, 3 steps: step 0's gradients held
+   against the plain versions' (the attention on the flash kernels on
+   both sides) within TRAIN_GRAD_TOL, which the table slope one entry off
+   and a zeroed b_scale gradient must fail; 126 qmatmul_bwd and
+   quantize_rows_bwd launches a step; wall, busy, tokens/s, peak memory;
+   one gradient each of gemma-2b under --lut (lut_gated_mul_bwd once a
+   layer) and mamba2-370m under --lut at full depth (lut_activation_bwd
+   three times a layer), gated alike;
    Path 14: the sharded trainer (``dist_train_path``, ``[dist]``
    lines): a one-rank NCCL group and ``make_local_mesh(model=1)``;
    gemma-2b at full width and depth with path 13 (a)'s settings, 3 steps
@@ -707,6 +722,179 @@ def check_quantize_rows(torch, timer, rows):
             f" library=none kernel/library={over_library(rows[-1])} "
             f"(context: torch.amax(x.abs(), 1) {read_ms:.4f}ms) "
             f"bound={bnd:.5f}ms ({by})")
+
+
+#: the backward kernels' cases at gemma-2b's training shapes (path 13 (d):
+#: batch 8 x 256 = 2048 tokens): the table pass over the MLP's (2048,
+#: 16384) gate, quantize_rows over the projections' inputs (K 2048 and
+#: 16384), qmatmul's scales over every projection (M 2048; the gate with
+#: the gated GELU table in its epilogue, as under --quant int8 --lut)
+TRAIN_TOKENS = 8 * 256
+#: qmatmul_bwd's gate: each of dsa, dsb, dbias within this share of the
+#: plain version's largest magnitude (f32 sums of up to 16384 terms in
+#: another order; measured ~2-4e-7 on the card), and bitwise across two
+#: launches
+QMM_BWD_TOL = 1e-5
+
+
+def check_train_bwd(torch, timer, rows):
+    """The backward kernels of training under --lut and --quant int8
+    against their plain backward (``kernels/ref.py``) on the card at
+    gemma-2b's training shapes: lut_gated_mul_bwd (dg, dup) and
+    lut_activation_bwd (dx) bitwise, bf16 and f32, every indexing, with
+    points at the table's ends planted; quantize_rows_bwd bitwise, bf16
+    and f32, with tied, all-zero and floor rows planted; qmatmul_bwd (dsa,
+    dsb, dbias) within QMM_BWD_TOL of the plain version's largest
+    magnitude and bitwise across two launches, with and without a bias
+    and the gated table.  Yardsticks: none for the tables (no PyTorch call
+    is a table lookup's slope); autograd's backward of ``torch.amax(
+    x.abs(), 1)`` for quantize_rows (the same gradient without the floor);
+    ``torch._int_mm`` plus the three reductions for qmatmul (no epilogue
+    derivative)."""
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lut_activation import (lut_activation_bwd,
+                                                    lut_gated_mul_bwd)
+    from repro_torch.kernels.qmatmul import qmatmul_bwd
+    from repro_torch.kernels.quantize_rows import quantize_rows_bwd
+    g = torch.Generator(device="cuda").manual_seed(9)
+    m = TRAIN_TOKENS
+    for indexing in ("interp", "nearest", "trunc"):
+        for dt in (torch.bfloat16, torch.float32):
+            spec = TableSpec("gelu_gate", 1024, -8.0, 8.0, None, indexing)
+            shape = (m, 16384)
+            x = (torch.randn(shape, generator=g, device="cuda") * 4).to(dt)
+            x.view(-1)[:6] = torch.tensor([-8.0, 8.0 - 1 / 64, 8.0, -9.0, 9.0,
+                                           -8.0 + 1 / 64], device="cuda")
+            up = torch.randn(shape, generator=g, device="cuda").to(dt)
+            dy = torch.randn(shape, generator=g, device="cuda").to(dt)
+            for name in ("lut_gated_mul_bwd", "lut_activation_bwd"):
+                if name == "lut_gated_mul_bwd":
+                    def run():
+                        return lut_gated_mul_bwd(x, up, dy, spec)
+
+                    def plain():
+                        return ref.lut_gated_mul_bwd_plain(x, up, dy, spec)
+                    tensors = 5       # g, up, dh in; dg, dup out
+                else:
+                    def run():
+                        return (lut_activation_bwd(x, dy, spec),)
+
+                    def plain():
+                        return (ref.lut_activation_bwd_plain(x, dy, spec),)
+                    # x, dy in, dx out; a step function's gradient is 0,
+                    # which needs no input
+                    tensors = 3 if indexing == "interp" else 1
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    err = max((a.float() - b.float()).abs().max().item()
+                              for a, b in zip(got, want))
+                    raise AssertionError(f"{name} {indexing} {dt}: not "
+                                         f"bitwise (max_abs_err {err})")
+                ms = timer(run)
+                plain_ms = timer(plain, reps=5)
+                nbytes = tensors * x.numel() * x.element_size() + 4 * spec.n
+                bnd, by = bound_ms(nbytes, 16.0 * x.numel(), F32_FLOP_PER_S)
+                rows.append(dict(
+                    kernel=name, case=f"gelu_gate {indexing} {m}x16384 "
+                    f"{str(dt)[6:]}", max_abs_err=0.0, tol=0.0, ms=ms,
+                    plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+                    bound_by=by))
+                log(f"[check] {name} {rows[-1]['case']}: bitwise (lo, the "
+                    f"last entry, hi and outside planted) kernel={ms:.4f}ms "
+                    f"plain={plain_ms:.4f}ms library=none "
+                    f"kernel/library={over_library(rows[-1])} "
+                    f"bound={bnd:.5f}ms ({by})")
+            del x, up, dy
+    qt = FixedPointType(8, 4)
+    for k in (2048, 16384):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=g, device="cuda") * 3
+            x[0] = 0.0
+            x[1] = 0.0
+            x[1, 7] = 1e-12
+            x[2, [5, 9]] = -(x[2].abs().max() + 1)
+            x[2, 11] = -x[2, 5]
+            x = x.to(dt)
+            ds = torch.randn((m, 1), generator=g, device="cuda")
+            got = quantize_rows_bwd(x, ds, qt)
+            want = ref.quantize_rows_bwd_plain(x, ds, qt)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"quantize_rows_bwd {m}x{k} {dt}: "
+                                     f"not bitwise")
+            ms = timer(lambda: quantize_rows_bwd(x, ds, qt))
+            plain_ms = timer(lambda: ref.quantize_rows_bwd_plain(x, ds, qt),
+                             reps=5)
+            xa = x.detach().requires_grad_(True)
+            amax = xa.abs().amax(dim=1, keepdim=True)
+            lib_ms = timer(lambda: torch.autograd.grad(amax, xa, ds,
+                                                       retain_graph=True))
+            nbytes = 2 * m * k * x.element_size() + 4 * m
+            bnd, by = bound_ms(nbytes, 4.0 * m * k, F32_FLOP_PER_S)
+            rows.append(dict(kernel="quantize_rows_bwd",
+                             case=f"{m}x{k} {str(dt)[6:]}", max_abs_err=0.0,
+                             tol=0.0, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bnd, bound_by=by))
+            log(f"[check] quantize_rows_bwd {rows[-1]['case']}: bitwise "
+                f"(tied, zero and floor rows) kernel={ms:.4f}ms "
+                f"plain={plain_ms:.4f}ms library={lib_ms:.4f}ms (amax's "
+                f"backward) kernel/library={over_library(rows[-1])} "
+                f"bound={bnd:.5f}ms ({by})")
+            del x, xa, amax
+    gelu = TableSpec("gelu_gate", 1024, -8.0, 8.0, None, "interp")
+    cases = [(name, kk, nn, None, False) for name, kk, nn in GEMMA_PROJ]
+    cases += [("up/gate +gelu epilogue", 2048, 16384, gelu, True),
+              ("wq +bias", 2048, 2048, None, False)]
+    for name, kk, nn, spec, gated in cases:
+        a = torch.randint(-127, 128, (m, kk), generator=g, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (kk, nn), generator=g, device="cuda",
+                          dtype=torch.int8)
+        # scales that put the pre-activations over the table's domain
+        sa = torch.rand((m, 1), generator=g, device="cuda") * 0.02 / kk ** 0.5
+        sb = torch.rand((1, nn), generator=g, device="cuda") * 0.02
+        bias = (torch.randn(nn, generator=g, device="cuda")
+                if "bias" in name else None)
+        dout = torch.randn((m, nn), generator=g, device="cuda").to(
+            torch.bfloat16)
+        kw = dict(act_spec=spec, act_gated=gated)
+        got = qmatmul_bwd(a, b, sa, sb, bias, dout, **kw)
+        again = qmatmul_bwd(a, b, sa, sb, bias, dout, **kw)
+        want = ref.qmatmul_bwd_plain(a, b, sa, sb, bias, dout, **kw)
+        torch.cuda.synchronize()
+        det = all(torch.equal(u, v) for u, v in zip(got, again)
+                  if u is not None)
+        rel = max(((u - v).abs().max() / v.abs().max().clamp_min(1e-30))
+                  .item() for u, v in zip(got, want) if u is not None)
+        if not (det and rel <= QMM_BWD_TOL):
+            raise AssertionError(f"qmatmul_bwd {name}: deterministic {det}, "
+                                 f"relative error {rel} (<= {QMM_BWD_TOL})")
+        ms = timer(lambda: qmatmul_bwd(a, b, sa, sb, bias, dout, **kw))
+        plain_ms = timer(lambda: ref.qmatmul_bwd_plain(a, b, sa, sb, bias,
+                                                       dout, **kw), reps=5)
+
+        def library():
+            acc = torch._int_mm(a, b).float()
+            d = dout.float()
+            return ((d * sb) * acc).sum(1), (d * (acc * sa)).sum(0), \
+                d.sum(0)
+        lib_ms = timer(library)
+        nbytes = (m * kk + kk * nn + m * nn * dout.element_size()
+                  + 4 * (m + 3 * nn))
+        bnd, by = bound_ms(nbytes, 2.0 * m * nn * kk, INT8_OPS_PER_S)
+        rows.append(dict(kernel="qmatmul_bwd", case=f"{name} M={m} K={kk} "
+                         f"N={nn} dout bfloat16", max_abs_err=rel,
+                         tol=QMM_BWD_TOL, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bnd, bound_by=by))
+        log(f"[check] qmatmul_bwd {rows[-1]['case']}: relative error "
+            f"{rel:.3g} (<= {QMM_BWD_TOL}), bitwise across launches "
+            f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms library={lib_ms:.4f}ms"
+            f" (_int_mm + reductions) kernel/library="
+            f"{over_library(rows[-1])} bound={bnd:.5f}ms ({by})")
+        del a, b, dout
 
 
 #: paged attention's head layouts (Hq, Hkv, D): gemma-2b's, then path
@@ -4308,6 +4496,7 @@ def train_path(torch, report, profile: bool) -> dict:
         g_ref, _ = ref.compute_grads(state["params"], batches[0])
         host_ref = [(n, g.float().cpu())
                     for n, g in tree_paths(g_ref, "/").items()]
+        ref_finite = all(bool(torch.isfinite(h).all()) for _, h in host_ref)
         del g_ref
         gc.collect()
 
@@ -4497,6 +4686,282 @@ def train_path(torch, report, profile: bool) -> dict:
                              f"the CPU's by more than {JET_TRAIN_TOL}: {diffs}")
     out["c"] = dict(card=gpu, cpu=cpu, diffs=diffs)
     report["train"] = out
+    return counts_all
+
+
+#: path 13 (d): gemma-2b at published width and full depth trained under
+#: --quant int8 --lut (the launch CLI's policy, FixedPointType(8, 4)),
+#: bf16 compute, 3 steps; (d2) one gradient of gemma-2b under --lut with
+#: float weights; (d3) one of mamba2-370m under --lut at full width and
+#: depth (its ungated tables: softplus on dt, silu on the conv and the
+#: gate, lut_activation; a whole 256-token SSD chunk, whose masked decays
+#: overflow f32 -- see ``nn/ssm.ssd_scan``)
+TRAIN_QUANT = dict(arch="gemma-2b", batch=8, seq=256, steps=3, peak=1e-4,
+                   warmup=1, total=8, seed=0, table_arch="mamba2-370m")
+#: (d)'s gradient gate: step 0's gradients through the kernels against the
+#: same gradients through the plain versions (``backend="ref"``), leaf by
+#: leaf in relative L2, in f32 compute at TRAIN_GRAD_TOL["f32"] (which the
+#: two planted faults must fail); both sides must be finite.  Both sides
+#: run the flash kernels for the
+#: attention (path 13 (a) holds those against their plain versions), so
+#: the two forwards are bit for bit the same -- the int8 products, the
+#: quantizer and the tables are bitwise their plain versions -- and the
+#: reading is the backward kernels' alone (an int8 code that flipped on
+#: an attention output's last bit would otherwise move a gradient far
+#: more than any kernel's error)
+
+
+def _planted_qmm_bwd(torch, qk, real, kind):
+    """Planted faults of qmatmul's backward: the epilogue's table read one
+    entry off (its slope, and the gated form's value, taken from the
+    next entry: the wrapper's table, and the plain version's, which a
+    CPU rehearsal runs), or the b_scale gradient zeroed."""
+    from repro_torch.kernels import ref
+    def bad(a, b, sa, sb, bias, dout, act_spec=None, act_gated=False):
+        if kind == "zeroed b_scale gradient":
+            dsa, dsb, dbias = real(a, b, sa, sb, bias, dout,
+                                   act_spec=act_spec, act_gated=act_gated)
+            return dsa, torch.zeros_like(dsb), dbias
+        table = None if act_spec is None else qk.get_table(act_spec)
+
+        class Shifted:
+            def values(self, dev):
+                return table.values(dev).roll(-1)
+        orig = qk.get_table, ref.get_table
+        qk.get_table = ref.get_table = lambda spec: Shifted()
+        try:
+            return real(a, b, sa, sb, bias, dout, act_spec=act_spec,
+                        act_gated=act_gated)
+        finally:
+            qk.get_table, ref.get_table = orig
+    return bad
+
+
+def train_quant_path(torch, report, profile: bool) -> dict:
+    """Path 13 (d): the paper's training under --quant int8 --lut.
+
+    (d1) gemma-2b at published width and full depth, ``init_state`` and
+    ``build_train_step`` under the launch CLI's --quant int8 --lut context
+    (weights quantized per column and activations per row at each call,
+    the gated GELU table in the gate projection's qmatmul epilogue), bf16
+    compute, remat "full", batch 8 x 256 tokens: step 0's gradients held
+    against the plain versions' (see TRAIN_QUANT) in f32 compute, the
+    planted faults (the table slope one entry off; qmatmul's b_scale
+    gradient zeroed) failing the f32 gate; then 3 steps (finite losses):
+    wall (step 1), busy (step 2, profiled), tokens/s, peak memory,
+    launches a step -- one qmatmul_bwd and one quantize_rows_bwd per int8
+    projection (7 a layer).  (d2) gemma-2b under --lut with float
+    weights: one f32 gradient, gated alike, lut_gated_mul_bwd once a
+    layer.  (d3) mamba2-370m under --lut at full width and depth: one f32
+    gradient, gated alike, lut_activation_bwd three times a layer (dt's
+    softplus, the conv's and the gate's silu: the table alone)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.core.registry import get_impl, register_op
+    from repro_torch.core.tree import tree_leaves, tree_paths
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import qmatmul as qk
+    from repro_torch.kernels._cuda import launch_counts, reset_launch_counts
+    from repro_torch.nn.context import QuantContext
+    from repro_torch.optim import cosine_warmup
+    from repro_torch.train.step import build_train_step, init_state
+
+    t = TRAIN_QUANT
+    out = {}
+    counts_all = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    def ctx_of(mode, cd, backend=None):
+        policy = (PrecisionPolicy.uniform(FixedPointType(8, 4))
+                  if mode == "int8" else PrecisionPolicy())
+        return QuantContext(mode=mode, policy=policy, use_lut=True,
+                            compute_dtype=cd, backend=backend)
+
+    def lr_fn(s):
+        return cosine_warmup(s, peak=t["peak"], warmup=t["warmup"],
+                             total=t["total"])
+
+    def gate(label, cfg, params, batch, mode, faults=()):
+        tol = TRAIN_GRAD_TOL["f32"]
+        f32 = torch.float32
+        kern = build_train_step(cfg, ctx_of(mode, f32), lr_fn=lr_fn)
+        ref = build_train_step(cfg, ctx_of(mode, f32, "ref"), lr_fn=lr_fn)
+        oracle = get_impl("attention", "ref")
+        register_op("attention", "ref")(get_impl("attention", "cuda"))
+        try:
+            g_ref, _ = ref.compute_grads(params, batch)
+        finally:
+            register_op("attention", "ref")(oracle)
+        host_ref = [(n, g.float().cpu())
+                    for n, g in tree_paths(g_ref, "/").items()]
+        ref_finite = all(bool(torch.isfinite(h).all()) for _, h in host_ref)
+        del g_ref
+        gc.collect()
+
+        def readings(grads):
+            rel = {}
+            for (name, g), (_, h) in zip(tree_paths(grads, "/").items(),
+                                          host_ref):
+                r = h.to("cuda")
+                rel[name] = float((g.float() - r).norm()
+                                  / r.norm().clamp_min(1e-30))
+                del r
+            return rel
+
+        reset_launch_counts()
+        grads, metrics = kern.compute_grads(params, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add(counts)
+        finite = all(bool(torch.isfinite(g).all()) for g in
+                     tree_leaves(grads))
+        rel = readings(grads)
+        del grads
+        worst = max(rel, key=rel.get)
+        log(f"[train] ({label}) gradient gate, f32 compute, step 0, "
+            f"kernels vs plain versions (backend='ref', the attention on "
+            f"the flash kernels on both sides): worst leaf {worst} "
+            f"relative L2 {rel[worst]:.3g} (<= {tol}); loss "
+            f"{float(metrics['loss']):.4f}; launches of one gradient: "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not (finite and ref_finite and rel[worst] <= tol):
+            raise AssertionError(f"path 13 ({label}): f32 gradient leaf "
+                                 f"{worst} relative L2 {rel[worst]} beyond "
+                                 f"{tol} (finite: kernels {finite}, plain "
+                                 f"versions {ref_finite})")
+        planted = {}
+        for kind in faults:
+            real = get_impl("qmatmul_bwd", "cuda")
+            register_op("qmatmul_bwd", "cuda")(
+                _planted_qmm_bwd(torch, qk, real, kind))
+            try:
+                gf, _ = kern.compute_grads(params, batch)
+            finally:
+                register_op("qmatmul_bwd", "cuda")(real)
+            rf = readings(gf)
+            del gf
+            w = max(rf, key=rf.get)
+            planted[kind] = (w, rf[w])
+            log(f"[train] ({label}) planted fault ({kind}), f32: worst "
+                f"leaf {w} relative L2 {rf[w]:.3g}")
+            if rf[w] <= tol:
+                raise AssertionError(f"path 13 ({label}): planted fault "
+                                     f"({kind}) passed the f32 gradient "
+                                     f"gate ({rf[w]})")
+        del host_ref, kern, ref
+        gc.collect()
+        return dict(worst=(worst, rel[worst]), tol=tol, launches=counts,
+                    planted=planted)
+
+    # -- (d1) gemma-2b under --quant int8 --lut -----------------------------
+    cfg = get_config(t["arch"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(torch.Generator(device="cuda").manual_seed(t["seed"]),
+                       cfg, device="cuda")
+    batches = [make_batch(cfg, i, t["batch"], t["seq"], seed=t["seed"])
+               for i in range(t["steps"])]
+    tokens = t["batch"] * t["seq"]
+    log(f"[train] (d1) {t['arch']} at full width and depth ({cfg.n_layers} "
+        f"layers) under --quant int8 --lut (FixedPointType(8, 4)), bf16 "
+        f"compute, remat {cfg.remat}, {t['batch']} x {t['seq']} tokens")
+    gates = {"f32": gate("d1", cfg, state["params"], batches[0], "int8",
+                         faults=("table slope one entry off",
+                                 "zeroed b_scale gradient"))}
+    per_layer = 7 * cfg.n_layers
+    g_counts = gates["f32"]["launches"]
+    for k in ("qmatmul_bwd", "quantize_rows_bwd"):
+        if g_counts.get(k, 0) != per_layer:
+            raise AssertionError(f"path 13 (d1): {k} launched "
+                                 f"{g_counts.get(k, 0)} times in a gradient,"
+                                 f" not once per int8 projection "
+                                 f"({per_layer})")
+    step_fn = build_train_step(cfg, ctx_of("int8", torch.bfloat16),
+                               lr_fn=lr_fn)
+    reset_launch_counts()
+    losses, walls, busy, top = [], [], None, []
+    for i in range(t["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < t["steps"] - 1:
+            state, m = step_fn(state, batches[i])
+            torch.cuda.synchronize()
+        else:
+            from torch.profiler import ProfilerActivity, profile as tprof
+            with tprof(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                state, m = step_fn(state, batches[i])
+                torch.cuda.synchronize()
+            top = device_rows(prof)
+            busy = sum(r[1] for r in top) or None
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        losses.append(float(m["loss"]))
+        log(f"[train] (d1) step {i}: loss {losses[-1]:.4f} grad_norm "
+            f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.3g} wall "
+            f"{wall * 1e3:.1f} ms")
+    counts = launch_counts()
+    add(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"path 13 (d1): non-finite loss {losses}")
+    step_counts = {k: v / t["steps"] for k, v in counts.items() if v}
+    for k in ("qmatmul_bwd", "quantize_rows_bwd"):
+        if step_counts.get(k, 0) != per_layer:
+            raise AssertionError(f"path 13 (d1): {k} {step_counts.get(k)} "
+                                 f"launches a step, not {per_layer}")
+    wall = walls[1]
+    bwd = {k: sum(r[1] for r in top if f in r[0]) for k, f in (
+        ("qmatmul_bwd", "qmm_bwd_"), ("quantize_rows_bwd",
+                                      "quantize_rows_bwd"))}
+    log(f"[train] (d1) wall a step {wall * 1e3:.1f} ms (step 1), busy "
+        f"{fmt_ms(busy)} (step 2, profiled), {tokens / wall:.0f} tokens/s, "
+        f"peak memory {peak:.2f} GiB; launches a step {step_counts}; device "
+        f"ms a step: qmatmul_bwd {bwd['qmatmul_bwd']:.2f}, quantize_rows_bwd "
+        f"{bwd['quantize_rows_bwd']:.2f}")
+    for name, ms, n in top[:12 if profile else 8]:
+        log(f"[train]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    out["d1"] = dict(layers=cfg.n_layers, gates=gates, losses=losses,
+                     walls_s=walls, wall_ms=wall * 1e3, busy_ms=busy,
+                     tokens_per_s=tokens / wall, peak_gib=peak,
+                     launches_per_step=step_counts, bwd_device_ms=bwd,
+                     top=[(n, ms, c) for n, ms, c in top[:20]])
+    del step_fn, m
+
+    # -- (d2) gemma-2b under --lut, float weights ---------------------------
+    out["d2"] = gate("d2", cfg, state["params"], batches[0], "none")
+    if out["d2"]["launches"].get("lut_gated_mul_bwd", 0) != cfg.n_layers:
+        raise AssertionError(f"path 13 (d2): lut_gated_mul_bwd launched "
+                             f"{out['d2']['launches'].get('lut_gated_mul_bwd')}"
+                             f" times, not once a layer ({cfg.n_layers})")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d3) mamba2-370m under --lut --------------------------------------
+    mcfg = get_config(t["table_arch"])
+    mstate = init_state(torch.Generator(device="cuda").manual_seed(t["seed"]),
+                        mcfg, device="cuda")
+    mbatch = make_batch(mcfg, 0, t["batch"], t["seq"], seed=t["seed"])
+    log(f"[train] (d3) {t['table_arch']} at full width and depth "
+        f"({mcfg.n_layers} layers) under --lut, f32 compute, "
+        f"{t['batch']} x {t['seq']} tokens (SSD chunk {mcfg.ssm.chunk})")
+    out["d3"] = gate("d3", mcfg, mstate["params"], mbatch, "none")
+    tables = 3 * mcfg.n_layers
+    if out["d3"]["launches"].get("lut_activation_bwd", 0) != tables:
+        raise AssertionError(f"path 13 (d3): lut_activation_bwd launched "
+                             f"{out['d3']['launches'].get('lut_activation_bwd')}"
+                             f" times, not three times a layer ({tables})")
+    del mstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train_quant"] = out
     return counts_all
 
 
@@ -5172,7 +5637,13 @@ def kernels_line(rows, counts):
             "flash_attention_bwd": "h gemma-train B=8 H=8/1 Sq=256 Skv=256 "
                                    "D=256 causal=True bf16",
             "lut_gated_mul": "gelu_gate interp 8x16384 bfloat16",
-            "quantize_rows": "8x2048 bfloat16"}
+            "quantize_rows": "8x2048 bfloat16",
+            "lut_gated_mul_bwd": f"gelu_gate interp {TRAIN_TOKENS}x16384 "
+                                 f"bfloat16",
+            "lut_activation_bwd": f"gelu_gate interp {TRAIN_TOKENS}x16384 "
+                                  f"bfloat16",
+            "quantize_rows_bwd": f"{TRAIN_TOKENS}x2048 bfloat16",
+            "qmatmul_bwd": "up/gate +gelu epilogue"}
     source = {"qmatmul": "src/repro_torch/kernels/csrc/qmatmul.cu",
               "paged_attention_unsplit":
                   "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -5187,7 +5658,14 @@ def kernels_line(rows, counts):
               "lut_gated_mul":
                   "src/repro_torch/kernels/csrc/lut_activation.cu",
               "quantize_rows":
-                  "src/repro_torch/kernels/csrc/quantize_rows.cu"}
+                  "src/repro_torch/kernels/csrc/quantize_rows.cu",
+              "lut_gated_mul_bwd":
+                  "src/repro_torch/kernels/csrc/lut_activation.cu",
+              "lut_activation_bwd":
+                  "src/repro_torch/kernels/csrc/lut_activation.cu",
+              "quantize_rows_bwd":
+                  "src/repro_torch/kernels/csrc/quantize_rows.cu",
+              "qmatmul_bwd": "src/repro_torch/kernels/csrc/qmatmul_bwd.cu"}
     replaces = {"qmatmul": "src/repro/kernels/qmatmul.py:104",
                 "paged_attention_unsplit":
                     "src/repro/kernels/flash_attention.py:217",
@@ -5203,7 +5681,19 @@ def kernels_line(rows, counts):
                 # after it (activations.py:41, blocks.py:72)
                 "lut_gated_mul": "src/repro/kernels/lut_activation.py:74",
                 # no Pallas kernel: the XLA fusion before every int8 matmul
-                "quantize_rows": "src/repro/nn/linear.py:88"}
+                "quantize_rows": "src/repro/nn/linear.py:88",
+                # no Pallas kernel: XLA's autodiff of what the forward
+                # kernels compute (training under --lut and --quant int8)
+                "lut_gated_mul_bwd": "XLA autodiff of src/repro/kernels/"
+                                     "lut_activation.py:36 (the table) and "
+                                     "src/repro/nn/activations.py:41, "
+                                     "nn/blocks.py:72",
+                "lut_activation_bwd": "XLA autodiff of src/repro/kernels/"
+                                      "lut_activation.py:36",
+                "quantize_rows_bwd": "XLA autodiff of "
+                                     "src/repro/core/quantize.py:85-87",
+                "qmatmul_bwd": "XLA autodiff of src/repro/kernels/ref.py:32 "
+                               "(the forward of qmatmul.py:104)"}
     out = []
     for name in pick:
         mine = [r for r in rows if r["kernel"] == name]
@@ -5239,6 +5729,16 @@ def kernels_line(rows, counts):
                                        "context: torch.amax(x.abs(), 1) on "
                                        "the same bytes")
             out[-1]["context_amax_abs_ms"] = rep["amax_abs_ms"]
+        if name in ("lut_gated_mul_bwd", "lut_activation_bwd"):
+            out[-1]["library_note"] = ("none (no PyTorch call is a table "
+                                       "lookup's slope)")
+        if name == "quantize_rows_bwd":
+            out[-1]["library_note"] = ("autograd's backward of torch.amax("
+                                       "x.abs(), 1) (no 1e-12 floor)")
+        if name == "qmatmul_bwd":
+            out[-1]["library_note"] = ("torch._int_mm, then the three "
+                                       "reductions in f32 (no epilogue "
+                                       "derivative)")
         if name == "qmatmul":
             out[-1]["library_note"] = ("none at M 8 (torch._int_mm needs M "
                                        "> 16); context: _int_mm on A padded "
@@ -5298,6 +5798,7 @@ def main(argv=None) -> int:
     # 3. kernels vs plain versions
     timer = Timer(torch)
     rows = []
+    t_checks = time.perf_counter()
     check_qmatmul(torch, timer, rows)
     torch.cuda.synchronize()
     check_attention(torch, timer, rows)
@@ -5308,6 +5809,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     check_quantize_rows(torch, timer, rows)
     torch.cuda.synchronize()
+    check_train_bwd(torch, timer, rows)
+    torch.cuda.synchronize()
     check_flash(torch, timer, rows)
     torch.cuda.synchronize()
     check_flash_bwd(torch, timer, rows)
@@ -5317,6 +5820,8 @@ def main(argv=None) -> int:
     check_verify(torch, timer, report)
     torch.cuda.synchronize()
     report["checks"] = rows
+    report["checks_s"] = time.perf_counter() - t_checks
+    log(f"[paths] phase 3 (kernel checks): {report['checks_s']:.1f}s")
     counts = {}
     if not args.kernels:
         # 4. the main path: gemma-2b's four paths, then whisper-base; the
@@ -5325,29 +5830,28 @@ def main(argv=None) -> int:
         for route in FLASH_FWD_ROUTES:
             FLASH_FWD_ROUTES[route] = 0
         del timer
-        counts = serve_main_path(torch, report, args.profile)
-        torch.cuda.synchronize()
-        for k, v in serve_whisper(torch, report, args.profile).items():
-            counts[k] = counts.get(k, 0) + v
-        torch.cuda.synchronize()
-        for k, v in serve_jet(torch, report).items():
-            counts[k] = counts.get(k, 0) + v
-        torch.cuda.synchronize()
-        for k, v in serve_family(torch, report).items():
-            counts[k] = counts.get(k, 0) + v
-        torch.cuda.synchronize()
-        for k, v in serve_recurrent(torch, report).items():
-            counts[k] = counts.get(k, 0) + v
-        torch.cuda.synchronize()
-        for k, v in serve_vlm(torch, report).items():
-            counts[k] = counts.get(k, 0) + v
-        torch.cuda.synchronize()
-        for k, v in train_path(torch, report, args.profile).items():
-            counts[k] = counts.get(k, 0) + v
-        torch.cuda.synchronize()
-        for k, v in dist_train_path(torch, report, args.profile).items():
-            counts[k] = counts.get(k, 0) + v
-        torch.cuda.synchronize()
+        seconds = report["path_seconds"] = {}
+        for name, run in (
+                ("1-4, 6, 8, 9 (gemma-2b serving)",
+                 lambda: serve_main_path(torch, report, args.profile)),
+                ("5 (whisper)",
+                 lambda: serve_whisper(torch, report, args.profile)),
+                ("7 (jet)", lambda: serve_jet(torch, report)),
+                ("10 (family)", lambda: serve_family(torch, report)),
+                ("11 (recurrent)", lambda: serve_recurrent(torch, report)),
+                ("12 (vlm)", lambda: serve_vlm(torch, report)),
+                ("13 a-c (train)",
+                 lambda: train_path(torch, report, args.profile)),
+                ("13 d (int8 / table training)",
+                 lambda: train_quant_path(torch, report, args.profile)),
+                ("14 (dist)",
+                 lambda: dist_train_path(torch, report, args.profile))):
+            t0 = time.perf_counter()
+            for k, v in run().items():
+                counts[k] = counts.get(k, 0) + v
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            log(f"[paths] path {name}: {seconds[name]:.1f}s")
         # every path's bf16 forward runs the TMA kernel (the mma.sync
         # kernel is for head dims and alignments that no path has)
         report["flash_fwd_routes"] = dict(FLASH_FWD_ROUTES)

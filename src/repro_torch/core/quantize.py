@@ -65,7 +65,10 @@ def calibrate_scale(x: torch.Tensor, qtype: FixedPointType,
     reduce_axes = tuple(a for a in range(x.ndim) if a not in kept)
     amax = torch.amax(torch.abs(x), dim=reduce_axes, keepdim=True) \
         if reduce_axes else torch.abs(x)
-    amax = torch.clamp_min(amax, 1e-12)
+    # maximum, not clamp_min: at a tie with the floor its gradient is 0.5,
+    # as jnp.maximum's (the weights' per-column scale is differentiated
+    # under --quant int8)
+    amax = torch.maximum(amax, torch.full_like(amax, 1e-12))
     # the divisor as a tensor: PyTorch's CUDA division by a host scalar
     # multiplies by its reciprocal, an ulp away from the reference's
     # (and the CPU's) correctly rounded quotient

@@ -55,7 +55,8 @@ SOURCES = {"qmatmul": CSRC / "qmatmul.cu",
            "lut_activation": CSRC / "lut_activation.cu",
            "flash_attention": CSRC / "flash_attention.cu",
            "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
-           "quantize_rows": CSRC / "quantize_rows.cu"}
+           "quantize_rows": CSRC / "quantize_rows.cu",
+           "qmatmul_bwd": CSRC / "qmatmul_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,7 +66,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
                             "paged_attention_split": 0, "lut_activation": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
-                            "lut_gated_mul": 0, "quantize_rows": 0}
+                            "lut_gated_mul": 0, "quantize_rows": 0,
+                            "lut_activation_bwd": 0, "lut_gated_mul_bwd": 0,
+                            "quantize_rows_bwd": 0, "qmatmul_bwd": 0}
 #: source name -> {"seconds", "ptxas"} of the builds made or reused by this
 #: process (a reused build's ptxas lines come from the log beside it)
 BUILD_LOG: Dict[str, dict] = {}
@@ -93,6 +96,10 @@ SIGNATURES = {
                                   _P],
         "lut_gated_mul_launch": [_P, _P, _P, _P, _L, _I, _F, _F, _I, _I, _I,
                                  _P],
+        "lut_activation_bwd_launch": [_P, _P, _P, _P, _L, _I, _F, _F, _I, _I,
+                                      _I, _P],
+        "lut_gated_mul_bwd_launch": [_P, _P, _P, _P, _P, _P, _L, _I, _F, _F,
+                                     _I, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -106,6 +113,12 @@ SIGNATURES = {
     "quantize_rows": {
         "quantize_rows_launch": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I,
                                  _P],
+        "quantize_rows_bwd_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
+    },
+    "qmatmul_bwd": {
+        "qmatmul_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                               _P],
     },
 }
 

@@ -17,6 +17,17 @@
 // y1 * frac` into fma(y0, 1 - frac, y1 * frac) (as its interpret mode on
 // the CPU shows), and the plain version computes that same single
 // rounding, so the result is bitwise the plain version's.
+//
+// table_bwd is its gradient: the cotangent of y given the cotangent dz of
+// the table's value z (ungated; the gated form's is fma(dy, z,
+// table_bwd(y, dy * y)), as XLA compiles jax.grad of y * z), with the
+// forward's index math.  It is what XLA compiles jax.grad of
+// lut_activation.py:36 into (held by tests/test_torch_lut_grad.py):
+//   interp:  v = fma(dz, t[i1], -(dz * t[i0]));  (v * c) * step_inv
+//            c = 1 inside (0 < pos < n-1), 0.5 at pos == 0 or pos == n-1
+//            (jnp.clip's gradient at a bound), 0 outside
+//   nearest, trunc: 0 (a step function)
+// The plain twin is repro_torch.kernels.ref.apply_table_bwd.
 
 #pragma once
 
@@ -42,4 +53,20 @@ __device__ __forceinline__ float apply_table(float y, const float* t, int n,
     z = t[(int)r];
   }
   return gated ? __fmul_rn(y, z) : z;
+}
+
+__device__ __forceinline__ float table_bwd(float y, float dz, const float* t,
+                                           int n, float lo, float step_inv,
+                                           int indexing) {
+  if (indexing != kInterp) return 0.f;
+  const float pos = __fmul_rn(__fsub_rn(y, lo), step_inv);
+  const float top = (float)(n - 1);
+  const float c = (pos > 0.f && pos < top)
+                      ? 1.f
+                      : ((pos == 0.f || pos == top) ? 0.5f : 0.f);
+  const float pc = fminf(fmaxf(pos, 0.f), top);
+  const int i0 = (int)floorf(pc);
+  const int i1 = min(i0 + 1, n - 1);
+  const float v = __fmaf_rn(dz, t[i1], -__fmul_rn(dz, t[i0]));
+  return __fmul_rn(__fmul_rn(v, c), step_inv);
 }

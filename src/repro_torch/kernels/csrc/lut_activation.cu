@@ -47,6 +47,21 @@
 //    (repro_torch.kernels.ref.lut_activation_plain, lut_gated_mul_plain).
 // Not yet done (a later change): taking g and up from the neighbouring
 // matmul's epilogue, which would remove the pass.
+//
+// The backward entry points (training under --lut; no Pallas kernel: the
+// reference leaves the gradient to XLA's autodiff of the same code):
+//   lut_activation_bwd: dx = table_bwd(x, dy)  (apply_table.cuh: the
+//     slope (t[i1] - t[i0]) * step_inv as XLA compiles it, 0.5 at a clip
+//     bound, 0 outside and under nearest / trunc);
+//   lut_gated_mul_bwd: with z = T(g) and a = (g * z) each rounded to dt as
+//     the forward rounds them,
+//       dup = dh * a,   da = dh * up   (each rounded to dt),
+//       dg  = fma(da, z, table_bwd(g, da * g))   (f32, rounded once)
+//     -- XLA's compiled jax.grad of the reference's gated form in f32.
+// Bitwise repro_torch.kernels.ref.lut_activation_bwd_plain and
+// lut_gated_mul_bwd_plain.  Bound by bytes (2-3 tensors in, 1-2 out); one
+// grid-stride pass, the table staged in shared memory as above; scalar
+// loads, coalesced (a simple first kernel).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -183,6 +198,74 @@ cudaError_t launch(const void* x, const void* up, const void* table,
   return cudaGetLastError();
 }
 
+__device__ __forceinline__ float ld(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float rnd(float v, float) { return v; }
+__device__ __forceinline__ float rnd(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void st(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void st(__nv_bfloat16* p, long long i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// ungated: x, dy -> dx; gated: g = x, up, dh = dy -> dg = dx, dup
+template <typename T, bool GATED>
+__global__ void __launch_bounds__(THREADS)
+lut_bwd_kernel(const T* __restrict__ x, const T* __restrict__ up,
+               const T* __restrict__ dy, T* __restrict__ dx,
+               T* __restrict__ dup, const float* __restrict__ table,
+               long long count, Table t) {
+  extern __shared__ float tab[];
+  stage(table, tab, t.n);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < count; i += stride) {
+    const float xf = ld(x, i), df = ld(dy, i);
+    if (!GATED) {
+      st(dx, i, table_bwd(xf, df, tab, t.n, t.lo, t.step_inv, t.indexing));
+      continue;
+    }
+    const float uf = ld(up, i);
+    const float z = rnd(lookup(xf, tab, t), T{});
+    const float a = rnd(__fmul_rn(xf, z), T{});
+    st(dup, i, __fmul_rn(df, a));
+    const float da = rnd(__fmul_rn(df, uf), T{});
+    const float s = table_bwd(xf, __fmul_rn(da, xf), tab, t.n, t.lo,
+                              t.step_inv, t.indexing);
+    st(dx, i, __fmaf_rn(da, z, s));
+  }
+}
+
+template <bool GATED>
+cudaError_t launch_bwd(const void* x, const void* up, const void* dy,
+                       const void* table, void* dx, void* dup,
+                       long long count, const Table& t, int is_bf16, int sms,
+                       cudaStream_t s) {
+  const Grid g = grid_for(count, sms);
+  const size_t smem = (size_t)t.n * sizeof(float);
+  const float* tbl = static_cast<const float*>(table);
+  if (is_bf16) {
+    using B = __nv_bfloat16;
+    lut_bwd_kernel<B, GATED><<<g.blocks, g.threads, smem, s>>>(
+        static_cast<const B*>(x), static_cast<const B*>(up),
+        static_cast<const B*>(dy), static_cast<B*>(dx), static_cast<B*>(dup),
+        tbl, count, t);
+  } else {
+    lut_bwd_kernel<float, GATED><<<g.blocks, g.threads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(up),
+        static_cast<const float*>(dy), static_cast<float*>(dx),
+        static_cast<float*>(dup), tbl, count, t);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int err) {
@@ -209,5 +292,30 @@ extern "C" int lut_gated_mul_launch(const void* g, const void* up,
                                     int sms, void* stream) {
   return static_cast<int>(launch<true>(
       g, up, table, out, count, Table{table_n, lo, step_inv, indexing},
+      is_bf16, sms, static_cast<cudaStream_t>(stream)));
+}
+
+// dx = the table's gradient at x times dy (x, dy, dx of one dtype)
+extern "C" int lut_activation_bwd_launch(const void* x, const void* dy,
+                                         const void* table, void* dx,
+                                         long long count, int table_n,
+                                         float lo, float step_inv,
+                                         int indexing, int is_bf16, int sms,
+                                         void* stream) {
+  return static_cast<int>(launch_bwd<false>(
+      x, nullptr, dy, table, dx, nullptr, count,
+      Table{table_n, lo, step_inv, indexing}, is_bf16, sms,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// (dg, dup) of out = ((g * table(g)).to(dt)) * up, given dh
+extern "C" int lut_gated_mul_bwd_launch(const void* g, const void* up,
+                                        const void* dh, const void* table,
+                                        void* dg, void* dup, long long count,
+                                        int table_n, float lo, float step_inv,
+                                        int indexing, int is_bf16, int sms,
+                                        void* stream) {
+  return static_cast<int>(launch_bwd<true>(
+      g, up, dh, table, dg, dup, count, Table{table_n, lo, step_inv, indexing},
       is_bf16, sms, static_cast<cudaStream_t>(stream)));
 }

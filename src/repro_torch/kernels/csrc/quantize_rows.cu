@@ -36,6 +36,19 @@
 //  * the int8 row is written as 8 (bf16) or 4 (f32) bytes a vector.
 // Not yet done (a later change): feeding qmatmul's A stage directly, which
 // would remove the int8 round trip and the launch.
+//
+// The backward (training under --quant int8; no Pallas kernel: XLA's
+// autodiff of the chain above): q = round(x / s) is a constant (round's
+// gradient is 0), so x gets the gradient of s alone, ds (rows) f32, at
+// each row's arg-max-abs elements:
+//   g  = ds / qmax;  x 0.5 where amax == 1e-12 (the floor tied), 0 below
+//   g /= count of i with |x_i| == amax          (ties split evenly)
+//   dx = |x_i| == amax ? (x_i >= 0 ? g : -g) : 0, in x's dtype
+// -- jax.grad of calibrate_scale op for op (jnp.max's and jnp.maximum's
+// tie rules, jnp.abs's select), bitwise repro_torch.kernels.ref.
+// quantize_rows_bwd_plain.  Bound by bytes (x read, dx written; ds a
+// float a row).  A simple kernel: a 256-thread block a row, x read twice
+// (the max and its count, then dx; the second read from L2).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -213,6 +226,68 @@ cudaError_t launch(const void* x, void* q, void* s, int rows, int K,
   return cudaGetLastError();
 }
 
+constexpr int BWD_THREADS = 256;
+
+template <typename T>
+__device__ __forceinline__ void store_as(T* p, size_t i, float v);
+template <>
+__device__ __forceinline__ void store_as<float>(float* p, size_t i, float v) {
+  p[i] = v;
+}
+template <>
+__device__ __forceinline__ void store_as<__nv_bfloat16>(__nv_bfloat16* p,
+                                                        size_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+quantize_rows_bwd_kernel(const T* __restrict__ x, const float* __restrict__ ds,
+                         T* __restrict__ dx, int K, float qmax) {
+  __shared__ float red_m[BWD_THREADS / 32];
+  __shared__ int red_c[BWD_THREADS / 32];
+  const size_t base = (size_t)blockIdx.x * K;
+  // the row's max |x| and how many elements hold it
+  float m = 0.f;
+  int c = 0;
+  for (int i = threadIdx.x; i < K; i += BWD_THREADS) {
+    const float a = fabsf(to_f32(x[base + i]));
+    if (a > m) {
+      m = a;
+      c = 1;
+    } else if (a == m) {
+      ++c;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, m, off);
+    const int oc = __shfl_xor_sync(0xffffffffu, c, off);
+    c = (om > m) ? oc : (om == m ? c + oc : c);
+    m = fmaxf(m, om);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    red_m[warp] = m;
+    red_c[warp] = c;
+  }
+  __syncthreads();
+  float amax = red_m[0];
+  for (int w = 1; w < BWD_THREADS / 32; ++w) amax = fmaxf(amax, red_m[w]);
+  int count = 0;
+  for (int w = 0; w < BWD_THREADS / 32; ++w)
+    if (red_m[w] == amax) count += red_c[w];
+  // ds / qmax through max(amax, 1e-12) (0.5 at the tie), then split
+  float g = __fdiv_rn(ds[blockIdx.x], qmax);
+  g = amax > 1e-12f ? g : (amax == 1e-12f ? __fmul_rn(g, 0.5f) : 0.f);
+  g = __fdiv_rn(g, (float)count);
+  for (int i = threadIdx.x; i < K; i += BWD_THREADS) {
+    const float v = to_f32(x[base + i]);
+    store_as<T>(dx, base + i,
+                fabsf(v) == amax ? (v >= 0.f ? g : -g) : 0.f);
+  }
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int err) {
@@ -233,4 +308,22 @@ extern "C" int quantize_rows_launch(const void* x, void* q, void* s, int rows,
   return static_cast<int>(
       is_bf16 ? launch<__nv_bfloat16>(x, q, s, rows, K, qp, sms, st)
               : launch<float>(x, q, s, rows, K, qp, sms, st));
+}
+
+// dx (rows x K, x's dtype) of s = max(max |x_row|, 1e-12) / qmax given ds
+// (rows f32); x as in quantize_rows_launch
+extern "C" int quantize_rows_bwd_launch(const void* x, const void* ds,
+                                        void* dx, int rows, int K, float qmax,
+                                        int is_bf16, void* stream) {
+  if (rows < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    quantize_rows_bwd_kernel<__nv_bfloat16><<<rows, BWD_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(ds),
+        static_cast<__nv_bfloat16*>(dx), K, qmax);
+  else
+    quantize_rows_bwd_kernel<float><<<rows, BWD_THREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(ds),
+        static_cast<float*>(dx), K, qmax);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,14 @@ above it, with a narrow tile where N and K are at most 64, the parent
 cp.async kernel as the control for what TMA cannot address);
 :func:`qmatmul_plan` picks one, its tiles, split and ring from the shape
 and the SM count.
+
+Training under ``--quant int8`` differentiates it through
+:class:`QmatmulFn`: the int8 payloads are constants, so the gradients
+are those of ``a_scale``, ``b_scale`` and ``bias``
+(:func:`qmatmul_bwd`: the ``qmatmul_bwd`` kernel, ``csrc/qmatmul_bwd.cu``,
+which recomputes the int32 products and reduces ``dout`` through the
+epilogue's derivative; plain version :func:`~repro_torch.kernels.ref.
+qmatmul_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -24,10 +32,11 @@ import torch
 
 from ..core.tables import INDEXING, TableSpec, get_table
 from . import _cuda
+from .ref import qmatmul_bwd_plain
 from .ref import qmatmul_ref as qmatmul_plain
 
 __all__ = ["qmatmul", "qmatmul_plain", "qmatmul_plan", "QmmPlan",
-           "MAX_TABLE"]
+           "qmatmul_bwd", "QmatmulFn", "MAX_TABLE"]
 
 #: longest activation table the kernel keeps in shared memory
 MAX_TABLE = 8192
@@ -221,6 +230,19 @@ def _workspace(dev, plan: QmmPlan):
                                  plan.tiles).data_ptr())
 
 
+def _table(act_spec: Optional[TableSpec], dev):
+    """The epilogue's table as the kernels take it: (values or None, n,
+    lo, step_inv, indexing); ``step_inv`` rounded to f32 once, on the
+    host, as the plain versions do."""
+    if act_spec is None:
+        return None, 0, 0.0, 0.0, 0
+    if act_spec.n > MAX_TABLE:
+        raise ValueError(f"activation table of {act_spec.n} entries "
+                         f"exceeds the kernel's {MAX_TABLE}")
+    return (get_table(act_spec).values(dev), act_spec.n, act_spec.lo,
+            1.0 / act_spec.step, INDEXING.index(act_spec.indexing))
+
+
 def _vector(s, n: int, what: str, device) -> torch.Tensor:
     """A scale given as scalar, (n,), (n, 1) or (1, n) -> contiguous (n,) f32."""
     s = torch.as_tensor(s, dtype=torch.float32, device=device)
@@ -270,15 +292,7 @@ def qmatmul(a_data: torch.Tensor, b_data: torch.Tensor, a_scale, b_scale,
     sa = _vector(a_scale, m, "a_scale", dev)
     sb = _vector(b_scale, n, "b_scale", dev)
     bias_t = None if bias is None else _vector(bias, n, "bias", dev)
-    table, table_n, lo, step_inv, indexing = None, 0, 0.0, 0.0, 0
-    if act_spec is not None:
-        if act_spec.n > MAX_TABLE:
-            raise ValueError(f"activation table of {act_spec.n} entries "
-                             f"exceeds the kernel's {MAX_TABLE}")
-        table = get_table(act_spec).values(dev)
-        table_n, lo = act_spec.n, act_spec.lo
-        step_inv = 1.0 / act_spec.step          # once, on the host
-        indexing = INDEXING.index(act_spec.indexing)
+    table, table_n, lo, step_inv, indexing = _table(act_spec, dev)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
@@ -310,3 +324,97 @@ def qmatmul(a_data: torch.Tensor, b_data: torch.Tensor, a_scale, b_scale,
     _cuda.check(lib, err, f"qmatmul ({plan.instance})")
     _cuda.LAUNCHES["qmatmul"] += 1
     return out
+
+
+#: the backward kernel's output tile (rows x columns); its partial sums
+#: are one float per (column tile, row) and per (row tile, column)
+BWD_TILE = 64
+
+
+def qmatmul_bwd(a_data: torch.Tensor, b_data: torch.Tensor, a_scale,
+                b_scale, bias: Optional[torch.Tensor], dout: torch.Tensor, *,
+                act_spec: Optional[TableSpec] = None,
+                act_gated: bool = False):
+    """``(dsa (M,), dsb (N,), dbias (N,) or None)``, f32: the gradients of
+    :func:`qmatmul`'s scales and bias given ``dout`` (M, N) (f32 or bf16).
+    Two launches counted as one: the partial sums per 64 x 64 output
+    tile, then their sums in tile order (deterministic)."""
+    if a_data.device.type == "cpu":
+        return qmatmul_bwd_plain(a_data, b_data, a_scale, b_scale, bias, dout,
+                                 act_spec=act_spec, act_gated=act_gated)
+    if a_data.device.type != "cuda":
+        raise ValueError(f"qmatmul_bwd: unsupported device {a_data.device}")
+    dev = a_data.device
+    if a_data.dtype != torch.int8 or b_data.dtype != torch.int8:
+        raise TypeError(f"qmatmul_bwd takes int8 operands, got "
+                        f"{a_data.dtype} and {b_data.dtype}")
+    m, k = a_data.shape
+    n = b_data.shape[1]
+    if b_data.shape[0] != k or tuple(dout.shape) != (m, n) or k == 0:
+        raise ValueError(f"qmatmul_bwd shapes {tuple(a_data.shape)} x "
+                         f"{tuple(b_data.shape)} -> {tuple(dout.shape)}")
+    if dout.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qmatmul_bwd takes an f32 or bf16 dout, not "
+                        f"{dout.dtype}")
+    a, b, d = a_data.contiguous(), b_data.contiguous(), dout.contiguous()
+    sa = _vector(a_scale, m, "a_scale", dev)
+    sb = _vector(b_scale, n, "b_scale", dev)
+    bias_t = None if bias is None else _vector(bias, n, "bias", dev)
+    dsa = torch.empty(m, dtype=torch.float32, device=dev)
+    dsb = torch.empty(n, dtype=torch.float32, device=dev)
+    dbias = None if bias is None else torch.empty_like(dsb)
+    if m == 0 or n == 0:
+        return (dsa.zero_(), dsb.zero_(),
+                None if dbias is None else dbias.zero_())
+    table, table_n, lo, step_inv, indexing = _table(act_spec, dev)
+    mt, nt = -(-m // BWD_TILE), -(-n // BWD_TILE)
+    part_m = torch.empty(nt * m, dtype=torch.float32, device=dev)
+    part_n = torch.empty(mt * n, dtype=torch.float32, device=dev)
+    part_b = None if bias is None else torch.empty_like(part_n)
+    lib = _cuda.library("qmatmul_bwd")
+    err = lib.qmatmul_bwd_launch(
+        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+        None if bias_t is None else bias_t.data_ptr(),
+        None if table is None else table.data_ptr(), d.data_ptr(),
+        part_m.data_ptr(), part_n.data_ptr(),
+        None if part_b is None else part_b.data_ptr(), dsa.data_ptr(),
+        dsb.data_ptr(), None if dbias is None else dbias.data_ptr(),
+        m, n, k, table_n, lo, step_inv, indexing, int(bool(act_gated)),
+        int(d.dtype == torch.bfloat16), _cuda.stream_of(dsa))
+    _cuda.check(lib, err, "qmatmul_bwd")
+    _cuda.LAUNCHES["qmatmul_bwd"] += 1
+    return dsa, dsb, dbias
+
+
+def _grad_as(d: Optional[torch.Tensor], like: torch.Tensor,
+             needed: bool) -> Optional[torch.Tensor]:
+    """A scale's or bias's gradient ``d`` in the shape and dtype of the
+    tensor it belongs to (summed where that was a scalar)."""
+    if d is None or not needed:
+        return None
+    if like.numel() != d.numel():
+        d = d.sum()
+    return d.reshape(like.shape).to(like.dtype)
+
+
+class QmatmulFn(torch.autograd.Function):
+    """``fwd(a, b, sa, sb, bias) -> out`` with the gradients of ``sa``,
+    ``sb`` and ``bias`` from ``bwd(a, b, sa, sb, bias, dout) -> (dsa,
+    dsb, dbias)``; ``a`` and ``b`` (int8) get none.  A backend's forward
+    and backward (with the epilogue's table bound in), chosen by
+    :func:`repro_torch.kernels.ops.qmatmul`."""
+
+    @staticmethod
+    def forward(ctx, a, b, sa, sb, bias, fwd, bwd):
+        ctx.save_for_backward(a, b, sa, sb, bias)
+        ctx.bwd = bwd
+        return fwd(a, b, sa, sb, bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        a, b, sa, sb, bias = ctx.saved_tensors
+        dsa, dsb, dbias = ctx.bwd(a, b, sa, sb, bias, dout)
+        need = ctx.needs_input_grad
+        return (None, None, _grad_as(dsa, sa, need[2]),
+                _grad_as(dsb, sb, need[3]), _grad_as(dbias, bias, need[4]),
+                None, None)

@@ -14,6 +14,11 @@ f32 once; the two agree whenever the step is a power of two and may pick
 a neighbouring entry otherwise.  :func:`lut_activation_plain` and the
 epilogue of :func:`qmatmul_ref` use the kernel form, so that each is
 bitwise the plain version of its kernel.
+
+The ``*_bwd_plain`` functions are the plain versions of the backward
+kernels (training under ``--lut`` and ``--quant int8``): each computes
+what XLA compiles ``jax.grad`` of the reference's code into, op for op
+in f32 (``tests/test_torch_lut_grad.py`` holds them against it).
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from ..core.tables import TableSpec, get_table, table_lookup
 
 __all__ = ["lut_activation_ref", "apply_table", "lut_activation_plain",
            "lut_gated_mul_ref", "lut_gated_mul_plain", "quantize_rows_ref",
-           "qmatmul_ref", "flash_attention_ref", "flash_attention_plain",
+           "qmatmul_ref", "apply_table_bwd", "lut_activation_bwd_plain",
+           "lut_gated_mul_bwd_plain", "quantize_rows_bwd_plain",
+           "qmatmul_bwd_plain", "flash_attention_ref", "flash_attention_plain",
            "flash_attention_lse_plain", "flash_attention_bwd_plain",
            "paged_attention_ref",
            "paged_attention_split_ref", "combine_splits",
@@ -91,6 +98,72 @@ def apply_table(y: torch.Tensor, values: torch.Tensor, *, lo: float,
     return y * z if gated else z
 
 
+def apply_table_bwd(y: torch.Tensor, dz: torch.Tensor, values: torch.Tensor,
+                    *, lo: float, step_inv: float,
+                    indexing: str) -> torch.Tensor:
+    """The cotangent of ``y`` (f32) given the cotangent ``dz`` of the
+    ungated table value ``z = apply_table(y)`` (the plain twin of
+    ``csrc/apply_table.cuh``'s ``table_bwd``).  ``interp``: ``(fma(dz,
+    t[i1], -(dz * t[i0])) * c) * step_inv`` with ``c`` 1 inside the clip,
+    0.5 at a bound (``pos`` 0 or ``n - 1``: ``jnp.clip``'s gradient there)
+    and 0 outside -- what XLA compiles ``jax.grad`` of the reference's
+    ``apply_table`` into.  ``nearest`` and ``trunc`` are step functions:
+    0.  The gated form's cotangent is ``fma(dy, z, apply_table_bwd(y, dy
+    * y))``."""
+    if indexing != "interp":
+        return torch.zeros_like(y)
+    n = values.shape[0]
+    top = float(n - 1)
+    pos = (y - lo) * step_inv
+    c = torch.where((pos > 0) & (pos < top), 1.0,
+                    torch.where((pos == 0) | (pos == top), 0.5, 0.0))
+    i0 = torch.floor(torch.clamp(pos, 0.0, top)).to(torch.int64)
+    i1 = torch.clamp_max(i0 + 1, n - 1)
+    v = fma_f32(dz, values[i1], -(dz * values[i0]))
+    return (v * c) * step_inv
+
+
+def _rounded(v: torch.Tensor, dtype) -> torch.Tensor:
+    """``v`` (f32) rounded to ``dtype`` and back."""
+    return v.to(dtype).to(torch.float32)
+
+
+def _table_args(spec: TableSpec, device):
+    return dict(values=get_table(spec).values(device), lo=spec.lo,
+                step_inv=1.0 / spec.step, indexing=spec.indexing)
+
+
+def lut_activation_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
+                             spec: TableSpec) -> torch.Tensor:
+    """The plain version of the ``lut_activation_bwd`` kernel: ``dx`` of
+    :func:`lut_activation_plain` given ``dy``, :func:`apply_table_bwd` in
+    f32, in ``x``'s dtype."""
+    t = _table_args(spec, x.device)
+    return apply_table_bwd(x.to(torch.float32), dy.to(torch.float32),
+                           **t).to(x.dtype)
+
+
+def lut_gated_mul_bwd_plain(g: torch.Tensor, up: torch.Tensor,
+                            dh: torch.Tensor, spec: TableSpec):
+    """The plain version of the ``lut_gated_mul_bwd`` kernel: ``(dg, dup)``
+    of ``h = ((g * T(g)).to(dt)) * up`` given ``dh``, in ``g``'s dtype
+    ``dt``.  With ``z = T(g)`` and ``a = g * z`` rounded to ``dt`` as the
+    forward rounds them: ``dup = dh * a`` and ``da = dh * up``, each
+    rounded to ``dt``, and ``dg = fma(da, z, apply_table_bwd(g, da * g))``
+    in f32, rounded once.  In f32 this is XLA's compiled ``jax.grad`` of
+    the reference's gated form (``nn/activations.py:41``, then
+    ``nn/blocks.py:72``)."""
+    dt = g.dtype
+    t = _table_args(spec, g.device)
+    gf, uf, df = (v.to(torch.float32) for v in (g, up, dh))
+    z = _rounded(apply_table(gf, **t), dt)
+    a = _rounded(gf * z, dt)
+    dup = (df * a).to(dt)
+    da = _rounded(df * uf, dt)
+    dg = fma_f32(da, z, apply_table_bwd(gf, da * gf, **t))
+    return dg.to(dt), dup
+
+
 def lut_activation_plain(x: torch.Tensor, spec: TableSpec) -> torch.Tensor:
     """The plain version of the ``lut_activation`` kernel (TPU
     ``lut_activation_pallas``): :func:`apply_table` in f32, the result
@@ -128,6 +201,30 @@ def quantize_rows_ref(x: torch.Tensor, qtype: FixedPointType):
     s = calibrate_scale(x2, qtype, channel_axes=(0,))
     q = torch.clamp(torch.round(x2 / s), qtype.int_min, qtype.int_max)
     return q.to(qtype.dtype), s
+
+
+def quantize_rows_bwd_plain(x: torch.Tensor, ds: torch.Tensor,
+                            qtype: FixedPointType) -> torch.Tensor:
+    """The plain version of the ``quantize_rows_bwd`` kernel: ``dx`` (in
+    ``x``'s dtype) given the cotangent ``ds`` (T, 1) of the row scale ``s
+    = max(max |x_row|, 1e-12) / int_max``; ``q`` is a constant (round's
+    gradient is 0).  As ``jax.grad`` of the reference's
+    ``calibrate_scale``: ``ds / int_max``, halved where the row's max is
+    the 1e-12 floor exactly and 0 below it, split evenly among the tied
+    arg-max-abs elements, with ``x``'s sign (+ at 0)."""
+    xf = x.to(torch.float32)
+    a = xf.abs()
+    amax = a.amax(dim=1, keepdim=True)
+    floor = torch.tensor(1e-12, dtype=torch.float32, device=x.device)
+    g = ds.reshape(-1, 1).to(torch.float32)
+    # divided by a tensor: CUDA's division by a host scalar multiplies by
+    # its reciprocal, an ulp away from the correctly rounded quotient
+    g = g / torch.full_like(g, qtype.int_max)
+    g = torch.where(amax > floor, g,
+                    torch.where(amax == floor, g * 0.5, 0.0))
+    hit = a == amax
+    g = g / hit.sum(dim=1, keepdim=True).to(torch.float32)
+    return torch.where(hit, torch.where(xf >= 0, g, -g), 0.0).to(x.dtype)
 
 
 def int8_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -177,6 +274,47 @@ def qmatmul_ref(a_data: torch.Tensor, b_data: torch.Tensor,
                         step_inv=1.0 / act_spec.step,
                         indexing=act_spec.indexing, gated=act_gated)
     return y.to(out_dtype)
+
+
+def qmatmul_bwd_plain(a_data: torch.Tensor, b_data: torch.Tensor, a_scale,
+                      b_scale, bias: Optional[torch.Tensor],
+                      dout: torch.Tensor, *,
+                      act_spec: Optional[TableSpec] = None,
+                      act_gated: bool = False):
+    """The plain version of the ``qmatmul_bwd`` kernel: ``(dsa (M,), dsb
+    (N,), dbias (N,) or None)`` of :func:`qmatmul_ref` given ``dout`` (M,
+    N); the int8 payloads are constants.  ``pre`` is bitwise the
+    forward's; ``dpre`` is ``dout`` through the epilogue's table
+    (:func:`apply_table_bwd`; gated ``fma(dout, z, apply_table_bwd(pre,
+    dout * pre))``); then ``dsa = sum_n (dpre * sb) * acc``, ``dsb =
+    sum_m dpre * (acc * sa)`` and ``dbias = sum_m dpre``, the products as
+    XLA's transposes form them, the sums in torch's order."""
+    dev = a_data.device
+    m, n = a_data.shape[0], b_data.shape[1]
+    acc = int8_matmul_exact(a_data, b_data).to(torch.float32)
+    sa = torch.as_tensor(a_scale, dtype=torch.float32,
+                         device=dev).reshape(-1, 1).expand(m, 1)
+    sb = torch.as_tensor(b_scale, dtype=torch.float32,
+                         device=dev).reshape(1, -1).expand(1, n)
+    y0 = acc * sa
+    if bias is None:
+        pre = y0 * sb
+    else:
+        pre = fma_f32(y0, sb, torch.as_tensor(
+            bias, dtype=torch.float32, device=dev).reshape(1, -1))
+    d = dout.to(torch.float32)
+    dpre = d
+    if act_spec is not None:
+        t = _table_args(act_spec, dev)
+        if act_gated:
+            z = apply_table(pre, **t)
+            dpre = fma_f32(d, z, apply_table_bwd(pre, d * pre, **t))
+        else:
+            dpre = apply_table_bwd(pre, d, **t)
+    dsa = ((dpre * sb) * acc).sum(dim=1)
+    dsb = (dpre * y0).sum(dim=0)
+    dbias = None if bias is None else dpre.sum(dim=0)
+    return dsa, dsb, dbias
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -84,8 +84,12 @@ of the core of ``repro.launch.serve``).
 The Engine serves the ``lm``, ``ssm`` and ``hybrid`` families; the
 ``encdec`` and ``vlm`` families serve through the step builders of
 ``repro_torch.train.step``, as the reference Engine never passes their
-encoder frames or image (:func:`_cross_input_refusal`).  The ``fake``
-quantization mode is not ported.
+encoder frames or image (:func:`_cross_input_refusal`).  ``--quant
+fake`` serves the float weights fake-quantized to ``FixedPointType(qbits,
+max(qbits // 2, 2))`` at every call (the reference's QAT numerics, each
+product ``torch.matmul``); ``--reuse-factor`` rides in the QuantContext
+as in the reference, where it is a compile knob (``scan_unroll``) with no
+numeric effect.
 
 Usage::
 
@@ -2068,7 +2072,8 @@ def build_ctx(args) -> QuantContext:
         policy = PrecisionPolicy.uniform(qt)
     return QuantContext(mode=args.quant, policy=policy, use_lut=args.lut,
                         compute_dtype=(torch.float32 if args.f32
-                                       else torch.bfloat16))
+                                       else torch.bfloat16),
+                        reuse_factor=args.reuse_factor)
 
 
 def _parse_class_quotas(specs) -> Optional[dict]:
@@ -2102,8 +2107,12 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=16)
-    ap.add_argument("--quant", default="none", choices=["none", "int8"])
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "fake", "int8"])
     ap.add_argument("--qbits", type=int, default=8)
+    ap.add_argument("--reuse-factor", type=int, default=1,
+                    help="the reference's compile knob (scan_unroll); no "
+                         "numeric effect")
     ap.add_argument("--lut", action="store_true",
                     help="the paper's constant-table activations and softmax")
     ap.add_argument("--f32", action="store_true")

@@ -23,14 +23,23 @@ Without a process group and with ``--model-parallel 1`` it is the
 single-device driver.  Refused by name: a ``--model-parallel`` that does
 not divide the world size; under more than one rank, the families and
 configs no test holds under a mesh yet (``encdec``, ``ssm``, ``hybrid``,
-``vlm``, MLA: ROADMAP.md item 18b); ``--quant int8`` and ``--lut``
-(their backward is item 16c).  ``--quant fake`` runs QAT: every
-weight fake-quantized to ``FixedPointType(qbits, max(qbits // 2, 2))``
-with the straight-through gradient.  The state is f32 with bf16 compute
-(``--f32``: f32 compute); checkpoints go to ``--ckpt-dir`` every
-``--ckpt-every`` steps on a thread, a run resumes from the newest one, and
-``--fail-at`` injects faults that the loop recovers from by restoring and
-replaying.
+``vlm``, MLA; ``--quant int8`` and ``--lut``: ROADMAP.md item 18b).
+``--quant fake`` runs QAT: every weight fake-quantized to
+``FixedPointType(qbits, max(qbits // 2, 2))`` with the straight-through
+gradient.  ``--quant int8`` trains through the int8 kernels (the
+weights quantized per column each call, the activations per row; input
+and weight get gradients only through their scales, as in the
+reference), ``--lut`` through the paper's tables (their slope), and the
+two combine::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
+        --smoke --steps 8 --batch 4 --seq 32 --quant int8 --lut \
+        --device cpu
+
+The state is f32 with bf16 compute (``--f32``: f32 compute); checkpoints
+go to ``--ckpt-dir`` every ``--ckpt-every`` steps on a thread, a run
+resumes from the newest one, and ``--fail-at`` injects faults that the
+loop recovers from by restoring and replaying.
 """
 
 from __future__ import annotations
@@ -98,11 +107,6 @@ def main(argv=None):
                     help="cuda (default) or cpu (the plain kernel versions)")
     args = ap.parse_args(argv)
 
-    if args.quant == "int8" or args.lut:
-        raise NotImplementedError(
-            "training under --quant int8 or --lut is not ported: their "
-            "backward (the table kernels' slope, the int8 scales) is "
-            "ROADMAP.md item 16c; use --quant none or fake")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -121,6 +125,12 @@ def main(argv=None):
                 f"{', MLA' if cfg.attn_kind == 'mla' else ''}) under a mesh "
                 f"of {world} ranks: only the lm family's GQA configs are "
                 f"held under a mesh; the rest is ROADMAP.md item 18b")
+        if world > 1 and (args.quant == "int8" or args.lut):
+            raise NotImplementedError(
+                f"--quant {args.quant}{' --lut' if args.lut else ''} under a "
+                f"mesh of {world} ranks: int8 and table training are held "
+                f"on one device only; under a mesh they are ROADMAP.md "
+                f"item 18b")
         mesh = make_local_mesh(args.model_parallel, device=device)
     rank0 = mesh is None or not any(mesh.get_coordinate())
     logging.basicConfig(level=logging.INFO if rank0 else logging.WARNING,

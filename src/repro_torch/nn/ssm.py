@@ -31,6 +31,7 @@ captured with.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -165,12 +166,19 @@ def ssd_scan(p, xbc_raw: torch.Tensor, dt_raw: torch.Tensor, d: SSMDims,
     xh_c, b_c, c_c, dt_c, da_c = map(ch, (xh, b_, c_, dt, da))
     ca = torch.cumsum(da_c, dim=2)                  # (B,nc,Q,P)
 
-    # intra-chunk: att[i, j] = (C_i . B_j) exp(ca_i - ca_j) dt_j, i >= j
+    # intra-chunk: att[i, j] = (C_i . B_j) exp(ca_i - ca_j) dt_j, i >= j.
+    # The exponent is masked before the exp, not after: for i < j it is
+    # a sum of up to Q positive dt |A| terms, past f32's exp range in a
+    # long chunk (mamba2's dt ~0.69 at Q 256 sums to ~177), and
+    # where(mask, scores * inf, 0) is 0 forward but 0 * inf = NaN in
+    # its backward.  The reference exps first (src/repro/nn/ssm.py:154)
+    # and its gradients are NaN there; the values here are the same.
     scores = torch.einsum("bcipn,bcjpn->bcijp", c_c, b_c)
-    decay = torch.exp(ca[:, :, :, None, :] - ca[:, :, None, :, :])
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                 device=xbc.device))
-    att = torch.where(mask[None, None, :, :, None], scores * decay, 0.0)
+                                 device=xbc.device))[None, None, :, :, None]
+    decay = torch.exp(torch.where(
+        mask, ca[:, :, :, None, :] - ca[:, :, None, :, :], -math.inf))
+    att = torch.where(mask, scores * decay, 0.0)
     y_intra = torch.einsum("bcijp,bcjph->bciph", att * dt_c[:, :, None],
                            xh_c)
 

@@ -16,7 +16,12 @@ places the state with ``param_specs`` (FSDP x TP DTensors) and the step
 takes the global batch on every rank, placing each microbatch's rows
 over the data axes; ``grad_specs`` pins the gradients and the f32
 accumulator to the parameters' placements under ``flags().grad_specs``.
-Training under ``int8`` or ``use_lut`` waits for ROADMAP.md item 16c.
+Under ``int8`` and ``use_lut`` the table passes, the activations' row
+quantizer and the int8 products are autograd functions whose backward
+runs the backward kernels on the card (:mod:`repro_torch.kernels.ops`):
+as in the reference, an int8 projection's input and weight get
+gradients only through their scales (no straight-through estimator),
+and the cache-free attention keeps the exact softmax.
 
 The reference runs ``steps`` decode steps inside one ``lax.scan`` under
 one ``jax.jit`` call; here the block is a Python loop of ``steps`` model
@@ -130,13 +135,6 @@ def build_train_step(cfg, ctx, *, lr_fn: Callable,
     placements DTensor gives them.  The metrics come back as plain
     tensors, the same on every rank.
     """
-    if ctx.mode == "int8" or ctx.use_lut:
-        raise NotImplementedError(
-            f"training under {'--quant int8' if ctx.mode == 'int8' else ''}"
-            f"{' and ' if ctx.mode == 'int8' and ctx.use_lut else ''}"
-            f"{'--lut' if ctx.use_lut else ''} is not ported: the table "
-            f"kernels' and the int8 path's backward are ROADMAP.md item 16c "
-            f"(train with mode 'none' or 'fake')")
     if microbatches < 1:
         raise ValueError("microbatches >= 1")
 

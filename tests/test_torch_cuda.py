@@ -2403,3 +2403,111 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# -- the backward kernels (training under --lut and --quant int8) -----------
+@pytest.mark.parametrize("indexing", ["interp", "nearest", "trunc"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 37), (64, 2048)])
+def test_lut_backward_kernels_match_plain(card, shape, dtype, indexing):
+    """lut_activation_bwd and lut_gated_mul_bwd bitwise their plain
+    versions, the table's ends and the outside planted; one counted launch
+    each; through the autograd functions on CUDA tensors too."""
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.lut_activation import (lut_activation_bwd,
+                                                    lut_gated_mul_bwd)
+    dt = getattr(torch, dtype)
+    spec = TableSpec("gelu_gate", 1024, -8.0, 8.0, None, indexing)
+    x = (torch.randn(shape, generator=card, device="cuda") * 4).to(dt)
+    x.view(-1)[:5] = torch.tensor([-8.0, 8.0 - 1 / 64, 8.0, -9.0, 9.0],
+                                  device="cuda")
+    up = torch.randn(shape, generator=card, device="cuda").to(dt)
+    dy = torch.randn(shape, generator=card, device="cuda").to(dt)
+    before = dict(_cuda.LAUNCHES)
+    dx = lut_activation_bwd(x, dy, spec)
+    dg, du = lut_gated_mul_bwd(x, up, dy, spec)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["lut_activation_bwd"] == \
+        before["lut_activation_bwd"] + 1
+    assert _cuda.LAUNCHES["lut_gated_mul_bwd"] == \
+        before["lut_gated_mul_bwd"] + 1
+    assert torch.equal(dx, ref.lut_activation_bwd_plain(x, dy, spec))
+    pg, pu = ref.lut_gated_mul_bwd_plain(x, up, dy, spec)
+    assert torch.equal(dg, pg) and torch.equal(du, pu)
+    xg = x.clone().requires_grad_(True)
+    ug = up.clone().requires_grad_(True)
+    ops.lut_gated_mul(xg, ug, spec).backward(dy)
+    assert torch.equal(xg.grad, dg) and torch.equal(ug.grad, du)
+
+
+@pytest.mark.parametrize("k", [40, 2048, 16384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_backward_kernel_matches_plain(card, k, dtype):
+    """Bitwise: ties split evenly, the 1e-12 floor halved, an all-zero row
+    0; through the autograd function on CUDA tensors too."""
+    from repro_torch.core.qtypes import FixedPointType
+    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.quantize_rows import quantize_rows_bwd
+    qt = FixedPointType(8, 4)
+    x = torch.randn((37, k), generator=card, device="cuda") * 3
+    x[0] = 0.0
+    x[1] = 0.0
+    x[1, 3] = 1e-12
+    x[2, [4, 9]] = -(x[2].abs().max() + 1)
+    x[2, 11] = -x[2, 4]
+    x = x.to(getattr(torch, dtype))
+    ds = torch.randn((37, 1), generator=card, device="cuda")
+    before = _cuda.LAUNCHES["quantize_rows_bwd"]
+    dx = quantize_rows_bwd(x, ds, qt)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["quantize_rows_bwd"] == before + 1
+    assert torch.equal(dx, ref.quantize_rows_bwd_plain(x, ds, qt))
+    assert not dx[0].any() and dx[2, 4] == dx[2, 9] == -dx[2, 11] != 0
+    xg = x.clone().requires_grad_(True)
+    _, s = ops.quantize_rows(xg, qt)
+    s.backward(ds)
+    assert torch.equal(xg.grad, dx)
+
+
+@pytest.mark.parametrize("mkn", [(2048, 2048, 256), (130, 300, 70),
+                                 (7, 13, 5)])
+@pytest.mark.parametrize("epilogue", ["plain", "bias", "gated"])
+def test_qmatmul_backward_kernel_matches_plain(card, mkn, epilogue):
+    """dsa, dsb, dbias within 1e-5 of the plain version's largest
+    magnitude (f32 sums in another order), bitwise across launches (no
+    atomics), ragged tiles; through the autograd function too."""
+    from repro_torch.core.tables import TableSpec
+    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.qmatmul import qmatmul_bwd
+    m, k, n = mkn
+    a = torch.randint(-127, 128, (m, k), generator=card, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=card, device="cuda",
+                      dtype=torch.int8)
+    sa = torch.rand((m, 1), generator=card, device="cuda") * 0.02 / k ** 0.5
+    sb = torch.rand((1, n), generator=card, device="cuda") * 0.02
+    bias = (torch.randn(n, generator=card, device="cuda")
+            if epilogue != "plain" else None)
+    kw = {}
+    if epilogue == "gated":
+        kw = dict(act_spec=TableSpec("gelu_gate", 1024, -8.0, 8.0, None,
+                                     "interp"), act_gated=True)
+    dout = torch.randn((m, n), generator=card, device="cuda")
+    before = _cuda.LAUNCHES["qmatmul_bwd"]
+    got = qmatmul_bwd(a, b, sa, sb, bias, dout, **kw)
+    again = qmatmul_bwd(a, b, sa, sb, bias, dout, **kw)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["qmatmul_bwd"] == before + 2
+    want = ref.qmatmul_bwd_plain(a, b, sa, sb, bias, dout, **kw)
+    for u, v, w in zip(got, again, want):
+        if w is None:
+            assert u is None
+            continue
+        assert torch.equal(u, v)
+        assert (u - w).abs().max() <= 1e-5 * w.abs().max()
+    sag, sbg = sa.clone().requires_grad_(True), sb.clone().requires_grad_(True)
+    out = ops.qmatmul(a, b, sag, sbg, bias=bias, **kw)
+    out.backward(dout)
+    assert torch.equal(sag.grad.reshape(-1), got[0])
+    assert torch.equal(sbg.grad.reshape(-1), got[1])

@@ -268,8 +268,10 @@ def test_cli_under_four_ranks(runs):
         assert "18b" in refused[arch], arch
     assert "does not divide the world size 4" in \
         refused["gemma-2b--model-parallel3"]
-    assert "16c" in refused["gemma-2b--quantint8"]
-    assert "16c" in refused["gemma-2b--lut"]
+    # int8 and table training run on one device since item 16c; under a
+    # mesh they are item 18b
+    assert "18b" in refused["gemma-2b--quantint8"]
+    assert "18b" in refused["gemma-2b--lut"]
     assert int(got["restores"]) == 1 and int(got["step"]) == 2
     assert np.isfinite(float(got["loss"]))
 

@@ -14,6 +14,12 @@ equal the JAX Engine's from the same seed, or first part where the
 perturbed logits' top-2 margin is below MARGIN_BOUND: the Gumbel noise
 of the two CPU ``log``s differs by about an ulp
 (``tests/test_torch_sampling.py``).
+
+``fake`` weights (the serve CLI's ``--quant fake``: every weight
+fake-quantized to ``FixedPointType(8, 4)`` at each call) stream the JAX
+Engine's greedy tokens byte for byte, and ``reuse_factor`` 2 (the
+reference's compile knob, ``--reuse-factor``) changes no token: both
+port runs are held against one reference run.
 """
 
 import numpy as np
@@ -24,6 +30,9 @@ torch = pytest.importorskip("torch")
 from torch_parity import (ENGINE_GEN, ENGINE_KW, auto_mesh,  # noqa: E402
                           contexts, engine_prompts, serve_jax, serve_torch,
                           smoke_params)
+# every reference Engine of the module reuses the XLA executables of
+# the ones before it (torch_parity.reuse_xla_executables)
+from torch_parity import reuse_executables  # noqa: E402,F401
 
 GEN = ENGINE_GEN
 
@@ -70,6 +79,25 @@ def test_greedy_streams_identical_lut_paged(mode):
     st = teng.stats()
     assert st["paged"] and st["gen_tokens"] == 3 * GEN
     assert st["decode_steps"] > 0 and st["prefill_chunks"] > 0
+
+
+#: the reference Engine's fake-quantized streams, served once per process
+_FAKE = {}
+
+
+@pytest.mark.parametrize("reuse", [1, 2], ids=["reuse1", "reuse2"])
+def test_greedy_streams_identical_fake(reuse):
+    import dataclasses
+    cfg, jparams, tparams = smoke_params("fake")
+    jctx, tctx = contexts("fake")
+    prompts = engine_prompts(cfg.vocab)
+    if not _FAKE:
+        _FAKE["want"] = serve_jax(cfg, jctx, jparams, prompts, {})[0]
+    got, teng = serve_torch(cfg, dataclasses.replace(
+        tctx, reuse_factor=reuse), tparams, prompts, {})
+    assert got == _FAKE["want"]
+    assert all(len(t) == GEN for t in got)
+    assert teng.ctx.mode == "fake" and teng.ctx.reuse_factor == reuse
 
 
 def test_block_size_invariance_and_stop_rules():
@@ -160,7 +188,8 @@ def test_refusals(tmp_path):
     with pytest.raises(SystemExit):
         main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
               "--kv-bits", "4"])
-    for flags in (["--lut"], ["--kv-bits", "8"], []):
+    for flags in (["--lut"], ["--kv-bits", "8"], [],
+                  ["--quant", "fake", "--reuse-factor", "2"]):
         done = main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
                      "--requests", "2", "--batch", "2", "--prompt-len", "5",
                      "--gen-len", "3", *flags])

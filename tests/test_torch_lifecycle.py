@@ -22,6 +22,9 @@ torch = pytest.importorskip("torch")
 
 from torch_parity import (FakeClock, auto_mesh, drain,  # noqa: E402
                           lifecycle_makers, rand_prompts, serve_engine)
+# every reference Engine of the module reuses the XLA executables of
+# the ones before it (torch_parity.reuse_xla_executables)
+from torch_parity import reuse_executables  # noqa: E402,F401
 
 from repro.dist.constrain import use_mesh  # noqa: E402
 

@@ -21,6 +21,9 @@ from torch_parity import (auto_mesh, contexts, drain,  # noqa: E402
                           engine_prompts, lifecycle_makers, rand_prompts,
                           serve_engine, serve_jax, serve_torch,
                           shared_prompts, smoke_params)
+# every reference Engine of the module reuses the XLA executables of
+# the ones before it (torch_parity.reuse_xla_executables)
+from torch_parity import reuse_executables  # noqa: E402,F401
 
 from repro.dist.constrain import use_mesh  # noqa: E402
 

@@ -21,6 +21,9 @@ torch = pytest.importorskip("torch")
 
 from torch_parity import (auto_mesh, drain, lifecycle_makers,  # noqa: E402
                           rand_prompts, serve_engine, shared_prompts)
+# every reference Engine of the module reuses the XLA executables of
+# the ones before it (torch_parity.reuse_xla_executables)
+from torch_parity import reuse_executables  # noqa: E402,F401
 
 from repro.dist.constrain import use_mesh  # noqa: E402
 

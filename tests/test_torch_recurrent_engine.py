@@ -25,6 +25,9 @@ torch = pytest.importorskip("torch")
 from torch_parity import (ENGINE_GEN, ENGINE_KW, contexts,  # noqa: E402
                           drain, engine_prompts, rand_prompts, serve_jax,
                           serve_torch, smoke_params)
+# every reference Engine of the module reuses the XLA executables of
+# the ones before it (torch_parity.reuse_xla_executables)
+from torch_parity import reuse_executables  # noqa: E402,F401
 
 from repro_torch.launch.serve import Engine  # noqa: E402
 from repro_torch.models.api import (invalidate_fn,  # noqa: E402

@@ -33,6 +33,9 @@ from repro.kernels import speculative as jspec  # noqa: E402
 from repro_torch.kernels import ops, prng  # noqa: E402
 from repro_torch.kernels import speculative as tspec  # noqa: E402
 from torch_parity import auto_mesh, contexts, smoke_params  # noqa: E402
+# every reference Engine of the module reuses the XLA executables of
+# the ones before it (torch_parity.reuse_xla_executables)
+from torch_parity import reuse_executables  # noqa: E402,F401
 
 K, GEN, MAX_LEN = 3, 10, 32
 #: sampled streams may part only at an acceptance within this of a tie...

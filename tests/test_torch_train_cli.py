@@ -231,10 +231,11 @@ def test_train_cli_fake_quant_and_refusals(tmp_path):
     out = train_cli.main(TRAIN_CLI + ["--steps", "3", "--quant", "fake",
                                    "--ckpt-dir", str(tmp_path)])
     assert np.isfinite(float(out["metrics"]["loss"]))
-    for extra, item in ((["--quant", "int8"], "16c"), (["--lut"], "16c")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_cli.main(TRAIN_CLI + ["--steps", "1", "--ckpt-dir",
-                                     str(tmp_path / "r"), *extra])
+    # --quant int8 --lut, once refused, trains
+    out = train_cli.main(TRAIN_CLI + ["--steps", "2", "--quant", "int8",
+                                   "--lut", "--ckpt-dir",
+                                   str(tmp_path / "q")])
+    assert out["step"] == 2 and np.isfinite(float(out["metrics"]["loss"]))
     # one process (no process group) is a world of 1 rank
     with pytest.raises(ValueError, match="does not divide the world size 1"):
         train_cli.main(TRAIN_CLI + ["--steps", "1", "--ckpt-dir",

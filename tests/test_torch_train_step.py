@@ -14,8 +14,10 @@ constants in another order), loss, accuracy and grad_norm within rtol
 L2 1e-4 and the moments within 1e-3 -- AdamW's first steps move every
 element by about lr * sign(g), so an element whose gradient is near 0
 can move either way when the two gradients differ in their last bits.
-The step counter and AdamW's count are equal.  Refusals: ``int8`` and
-``use_lut`` (item 16c); ``grad_specs`` without a mesh changes nothing.
+The step counter and AdamW's count are equal.  ``grad_specs`` without a
+mesh changes nothing; ``int8`` and ``use_lut``, once refused, now build a
+step whose gradients are finite (``test_torch_train_quant.py`` holds
+them against the reference).
 """
 
 import numpy as np
@@ -124,9 +126,11 @@ def test_microbatched_gradients_average(setup):
 
 
 def test_refusals(setup):
-    """int8 and use_lut are refused (item 16c); ``grad_specs`` is not (it
-    pins gradients under a mesh only: without one, under the flag, the
-    gradients are bitwise the unpinned step's)."""
+    """Nothing here is refused any more: ``grad_specs`` pins gradients under
+    a mesh only (without one, under the flag, the gradients are bitwise
+    the unpinned step's), and int8 and use_lut (once refused) train: one
+    microbatched gradient each, finite, with the int8 weights' gradients
+    nonzero only where their columns' scales come from."""
     from repro_torch.dist import PerfFlags, flags, param_specs, set_flags
     cfg, state, batches = setup
     _, tctx = contexts("none")
@@ -144,10 +148,15 @@ def test_refusals(setup):
     g0, _ = plain.compute_grads(ts["params"], batches[0])
     for k, t in flat(gp).items():
         assert torch.equal(t, flat(g0)[k]), k
-    _, t8 = contexts("int8")
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        build_train_step(cfg, t8, lr_fn=_lr_t)
     import dataclasses
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        build_train_step(cfg, dataclasses.replace(tctx, use_lut=True),
-                         lr_fn=_lr_t)
+    _, t8 = contexts("int8")
+    for ctx in (t8, dataclasses.replace(tctx, use_lut=True)):
+        g, m = build_train_step(cfg, ctx, lr_fn=_lr_t, microbatches=2) \
+            .compute_grads(ts["params"], batches[0])
+        assert np.isfinite(float(m["loss"]))
+        for k, t in flat(g).items():
+            assert torch.isfinite(t).all(), k
+    w = flat(build_train_step(cfg, t8, lr_fn=_lr_t).compute_grads(
+        ts["params"], batches[0])[0])["/dense/mlp/up/w"]
+    # per (layer, column) the arg-max-abs element of the column
+    assert 0 < int((w != 0).sum()) <= w.shape[0] * w.shape[2] * 2

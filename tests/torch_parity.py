@@ -6,6 +6,8 @@ PyTorch port (``repro_torch``).  Only tests import both packages.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 
 
@@ -114,14 +116,16 @@ def _fresh(tree):
 
 
 def contexts(mode: str, **knobs):
-    """Matching f32 QuantContexts (JAX, port) for ``mode``."""
+    """Matching f32 QuantContexts (JAX, port) for ``mode``; ``int8`` and
+    ``fake`` under the serve CLI's ``FixedPointType(8, 4)`` policy (without
+    a weight type a ``fake`` layer runs as ``none``)."""
     import jax.numpy as jnp
     import torch
     from repro.core.precision import PrecisionPolicy as JPolicy
     from repro.nn.context import QuantContext as JCtx
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.nn.context import QuantContext
-    if mode == "int8":
+    if mode in ("int8", "fake"):
         jpol, pol, _ = int8_policies()
     else:
         jpol, pol = JPolicy(), PrecisionPolicy()
@@ -245,3 +249,67 @@ class FakeClock:
 
     def advance(self, dt):
         self.t += float(dt)
+
+
+#: hits and misses of :func:`reuse_xla_executables`' table (a process's)
+XLA_REUSE = {"hits": 0, "misses": 0}
+_EXECUTABLES = {}
+
+
+@contextlib.contextmanager
+def reuse_xla_executables():
+    """Within the block, an XLA compilation of a program that this process
+    compiled before -- the same MLIR text, compile options and devices --
+    returns the executable compiled then instead of compiling again.
+
+    The reference Engine jits its steps as closures of each instance, so
+    every Engine a suite builds traced, lowered and compiled the same
+    programs anew; the compile was most of a reference run's time.  The
+    hook wraps ``jax._src.compiler.backend_compile_and_load`` (nothing in
+    ``src/repro`` changes); programs with host callbacks always compile.
+    An executable is a pure function of its program, options and devices,
+    so the results are the ones a fresh compile gives.  The executables
+    are dropped when the block ends."""
+    import hashlib
+
+    from jax._src import compiler
+    real = compiler.backend_compile_and_load
+
+    def cached(backend, module, executable_devices, options, host_callbacks):
+        if host_callbacks:
+            return real(backend, module, executable_devices, options,
+                        host_callbacks)
+        key = (id(backend),
+               hashlib.sha256(str(module).encode()).hexdigest(),
+               options.SerializeAsString(),
+               tuple(d.id for d in executable_devices))
+        exe = _EXECUTABLES.get(key)
+        if exe is None:
+            XLA_REUSE["misses"] += 1
+            exe = _EXECUTABLES[key] = real(backend, module,
+                                           executable_devices, options,
+                                           host_callbacks)
+        else:
+            XLA_REUSE["hits"] += 1
+        return exe
+
+    compiler.backend_compile_and_load = cached
+    try:
+        yield
+    finally:
+        compiler.backend_compile_and_load = real
+        _EXECUTABLES.clear()
+
+
+try:
+    import pytest as _pytest
+except ImportError:                      # the helpers outside pytest
+    _pytest = None
+
+if _pytest is not None:
+    @_pytest.fixture(autouse=True, scope="module")
+    def reuse_executables():
+        """A suite that imports this fixture runs under
+        :func:`reuse_xla_executables`, module by module."""
+        with reuse_xla_executables():
+            yield
