@@ -14,7 +14,8 @@ builds its kernels, and measures, with random weights from a seed:
   cache; 4: bf16 weights, ``--lut --paged`` -- each with all 8 lanes
   live: one warm 8-step decode block on the host clock (wall per step),
   then one under ``torch.profiler`` (the second of two: device busy per
-  step, device kernels and copies per step);
+  step, device kernels and copies per step, and the device time and
+  launches of the paged-attention kernels, ``paged_*``, per step);
   ``--graphs`` runs each path's Engine with ``graphs=False``, ``True``
   or both in turn (off, on); without it the tree's default applies (a
   tree from before CUDA-graph dispatch takes no ``graphs`` argument);
@@ -56,10 +57,11 @@ def device_rows(prof):
     return rows
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, part=None):
     """(wall ms, device busy ms, device kernels and copies) of ``fn`` under
     torch.profiler, the second of two traced runs (the first starts the
-    tracer)."""
+    tracer); with ``part`` (a substring of kernel names) also the device
+    ms and launches of the kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         torch.cuda.synchronize()
@@ -70,7 +72,11 @@ def profiled(torch, fn):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
-    return wall * 1e3, sum(r[1] for r in rows), sum(r[2] for r in rows)
+    out = (wall * 1e3, sum(r[1] for r in rows), sum(r[2] for r in rows))
+    if part is None:
+        return out
+    mine = [r for r in rows if part in r[0]]
+    return out + (sum(r[1] for r in mine), sum(r[2] for r in mine))
 
 
 def gemma_paths(torch, out, graphs=None):
@@ -125,16 +131,21 @@ def gemma_paths(torch, out, graphs=None):
             eng.step_many(block)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            _, busy, launches = profiled(torch, lambda: eng.step_many(block))
+            _, busy, launches, paged, paged_n = profiled(
+                torch, lambda: eng.step_many(block), part="paged_")
             if not eng.live.all():
                 raise AssertionError(f"{name}: a lane finished inside the "
                                      f"measured blocks")
             out[name] = dict(wall_ms_per_step=wall / block,
                              device_busy_ms_per_step=busy / block,
-                             device_launches_per_step=launches / block)
+                             device_launches_per_step=launches / block,
+                             paged_ms_per_step=paged / block,
+                             paged_launches_per_step=paged_n / block)
             log(f"[ab] {name}: wall {wall / block:.3f} ms/step, device "
                 f"busy {busy / block:.3f} ms/step, {launches / block:.1f} "
-                f"device kernels and copies per step")
+                f"device kernels and copies per step; paged attention "
+                f"{paged / block:.3f} ms/step in {paged_n / block:.1f} "
+                f"launches")
             del eng
     torch.cuda.empty_cache()
 

@@ -30,7 +30,9 @@ Phases, one line each, any failure raises and the exit code is non-zero:
    paged attention at decode, verify (S = 5) and prefill, unsplit
    and split, plus a ~4096-token decode, and at D 128 with query groups
    of 8, 16 and 1 (path 10's heads), and zamba2's 32 heads at D 64
-   (group 1), decode and verify; lut_activation on olmoe's experts'
+   (group 1), decode and verify, each on the Hopper kernel (its plan
+   logged) and on the control (the first port's kernel) beside it, both
+   held to the gate and timed; lut_activation on olmoe's experts'
    gate activations (8 x 64 x cap x 1024), on path 11's f32 softplus
    and silu rows, and on one layer's
    gate activations at decode and prefill with every indexing and the
@@ -933,18 +935,10 @@ def _attention_case(torch, g, b, s, tokens, dead_lane, width_tokens,
     return q, pages_k, pages_v, bt, qpos
 
 
-def check_attention(torch, timer, rows):
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (_resolve_knobs,
-                                                     paged_attention_split,
-                                                     paged_attention_unsplit)
-    from repro_torch.kernels.ref import (paged_attention_ref,
-                                         paged_attention_split_ref)
-    from repro_torch.launch import autotune
-    # the knobs ``autotune="fitted"`` resolves (the port's H100 artifact,
-    # else the analytic weights) are held against the plain version too
-    fitted = autotune.load_estimator("fitted")
-    g = torch.Generator(device="cuda").manual_seed(2)
+def attention_cases():
+    """Phase 3's paged cases: (label, B, S, tokens, dead lane, table
+    tokens, (Hq, Hkv, D)), from the model constants alone (the plan's CPU
+    test reads them too)."""
     # engine geometry: max_len 161 (prompt 128 + gen 32 + 1), prefill
     # chunk 16 of margin -> a 12-page table; the long case ~4096 tokens
     cases = [("decode", 8, 1, 150, True, 177, GEMMA_HEADS),
@@ -961,6 +955,38 @@ def check_attention(torch, timer, rows):
     # a 7-page table
     cases += [("zamba2 decode", 8, 1, 90, True, 103, ZAMBA2_HEADS),
               ("zamba2 verify", 8, SPEC_K + 1, 90, True, 103, ZAMBA2_HEADS)]
+    return cases
+
+
+def paged_plan_name(plan) -> str:
+    """A paged launch's plan in a few words."""
+    if plan.instance == "control":
+        return (f"control ({plan.row_tiles} 8-row tiles x {plan.split} "
+                f"partitions, {plan.blocks} blocks)")
+    return (f"hopper ({plan.rows_per_block}-row blocks x "
+            f"{plan.row_tiles} row tiles; {plan.cpp} blocks of {plan.per} "
+            f"entries a partition x {plan.split}; {plan.groups} groups of "
+            f"{plan.rw} warps, {plan.stages} stages; {plan.blocks} blocks)")
+
+
+def check_attention(torch, timer, rows):
+    """Paged attention at every case: the Hopper kernel on its plan and
+    the control (the first port's kernel) on the same inputs, each held
+    to the gate against the plain version; bf16 rows also time both
+    kernels, the plain version, SDPA and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_resolve_knobs,
+                                                     paged_attention_split,
+                                                     paged_attention_unsplit,
+                                                     paged_call_plan)
+    from repro_torch.kernels.ref import (paged_attention_ref,
+                                         paged_attention_split_ref)
+    from repro_torch.launch import autotune
+    # the knobs ``autotune="fitted"`` resolves (the port's H100 artifact,
+    # else the analytic weights) are held against the plain version too
+    fitted = autotune.load_estimator("fitted")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases = attention_cases()
     for label, b, s, tokens, dead, width_tokens, heads in cases:
         hq, hkv, d = heads
         for q_dtype in (torch.bfloat16, torch.float32):
@@ -973,40 +999,51 @@ def check_attention(torch, timer, rows):
             fk = _resolve_knobs(np_, 16, hkv, b, fk.kv_split,
                                 fk.pages_per_step)
             for t, split in dict.fromkeys(((1, 1), auto, fk)):
+                plan = paged_call_plan(q, kp, vp, bt, kv_split=split,
+                                       pages_per_step=t)
+                ctl = paged_call_plan(q, kp, vp, bt, kv_split=split,
+                                      pages_per_step=t, instance="control")
                 if (t, split) == (1, 1):
                     name = "paged_attention_unsplit"
 
-                    def kern():
-                        return paged_attention_unsplit(q, kp, vp, bt, qpos)
+                    def launch(p):
+                        return paged_attention_unsplit(q, kp, vp, bt, qpos,
+                                                       plan=p)
 
                     def plain():
                         return paged_attention_ref(q, kp, vp, bt, qpos)
                 else:
                     name = "paged_attention_split"
 
-                    def kern():
+                    def launch(p):
                         return paged_attention_split(
                             q, kp, vp, bt, qpos, kv_split=split,
-                            pages_per_step=t)
+                            pages_per_step=t, plan=p)
 
                     def plain():
                         return paged_attention_split_ref(
                             q, kp, vp, bt, qpos, kv_split=split,
                             pages_per_step=t)
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                want = plain()
                 if q_dtype == torch.bfloat16:
                     # one bf16 ulp at |x| in [2, 4) + relative slack:
                     # both round the same f32 value, summed in another order
                     atol, rtol = 2.0 ** -6, 2.0 ** -8
                 else:
                     atol = rtol = 2e-5     # the reference kernel suite's
-                ok = torch.allclose(got.float(), want.float(), atol=atol,
-                                    rtol=rtol)
-                if not (ok and torch.isfinite(got).all().item()):
-                    raise AssertionError(f"{name} {label} {q_dtype}: "
-                                         f"max_abs_err {err}")
+                errs = {}
+                for p in (plan, ctl):
+                    got = launch(p)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    ok = torch.allclose(got.float(), want.float(), atol=atol,
+                                        rtol=rtol)
+                    if not (ok and torch.isfinite(got).all().item()):
+                        raise AssertionError(
+                            f"{name} ({p.instance}) {label} {q_dtype}: "
+                            f"max_abs_err {err}")
+                    errs[p.instance] = err
+                err = errs[plan.instance]
                 by = "+".join(k for k, v in (("auto", auto), ("fitted", fk))
                               if v == (t, split))
                 row = dict(kernel=name, case=f"{label} B={b} S={s} "
@@ -1014,9 +1051,13 @@ def check_attention(torch, timer, rows):
                            f"D={d} knobs=(t={t},"
                            f"split={split}{' ' + by if by else ''}) "
                            f"q={str(q_dtype)[6:]}",
-                           max_abs_err=err, tol=[atol, rtol])
+                           max_abs_err=err, tol=[atol, rtol],
+                           instance=plan.instance,
+                           plan=paged_plan_name(plan),
+                           control_max_abs_err=errs["control"])
                 if q_dtype == torch.bfloat16:
-                    row["ms"] = timer(kern)
+                    row["ms"] = timer(lambda: launch(plan))
+                    row["control_ms"] = timer(lambda: launch(ctl))
                     row["plain_ms"] = timer(plain, reps=5)
                     row["library_ms"] = _sdpa_ms(torch, F, timer, q, kp, vp,
                                                  bt, qpos)
@@ -1029,11 +1070,14 @@ def check_attention(torch, timer, rows):
                         nbytes, ops, F32_FLOP_PER_S)
                 rows.append(row)
                 log(f"[check] {name} {row['case']}: max_abs_err={err:.3g} "
-                    f"(atol {atol:.3g}, rtol {rtol:.3g})"
+                    f"(control {errs['control']:.3g}; atol {atol:.3g}, rtol "
+                    f"{rtol:.3g}) {row['plan']}"
                     + (f" kernel={row['ms']:.4f}ms "
+                       f"control={row['control_ms']:.4f}ms "
                        f"plain={row['plain_ms']:.4f}ms "
                        f"library={fmt_ms(row['library_ms'])} "
                        f"kernel/library={over_library(row)} "
+                       f"kernel/control={row['ms'] / row['control_ms']:.2f}x "
                        f"bound={row['bound_ms']:.4f}ms ({row['bound_by']})"
                        if "ms" in row else ""))
 
@@ -1572,7 +1616,8 @@ def yardstick(timer, fn):
 
 
 def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
-             first=(), block=8, walls=None, busy=None, ids=None):
+             first=(), block=8, walls=None, busy=None, ids=None,
+             control=False):
     """Drive one path through the engine's entry points: the launch counts
     are set to 0 just before and read just after; every kernel named in
     ``expect`` must have launched, and a graphed engine must have run its
@@ -1584,8 +1629,10 @@ def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
     copies) per step (round) of the third block, traced by the profiler
     (which runs it twice: the third and fourth blocks).  ``ids``: the
     request ids of an engine that has admitted (or restored) ``prompts``
-    already; only its blocks are driven and counted.  Returns (run
-    summary, counts)."""
+    already; only its blocks are driven and counted.  Paged attention
+    runs the Hopper kernel: the control's launches must be 0 unless
+    ``control`` (a run whose prefill chunks ``paged_plan`` routes to
+    it).  Returns (run summary, counts)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.lifecycle import RequestStatus
     sampling = sampling or [(0.0, 0)] * len(prompts)
@@ -1631,6 +1678,8 @@ def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
                              f"{missing} ({counts})")
     if st["graphs"] and st["graph_captures"] == 0:
         raise AssertionError(f"{label}: no decode block ran as a CUDA graph")
+    if not control:
+        no_control(label, counts)
     run = dict(requests=len(ids), paged=eng.paged, kv_bits=eng.kv_bits,
                lut=eng.ctx.use_lut, quant=eng.ctx.mode,
                kv_split=eng.kv_split, pages_per_step=eng.pages_per_step,
@@ -1653,6 +1702,16 @@ def run_path(torch, label, eng, prompts, gen_len, expect, sampling=None,
         f"{st['graph_capture_s']:.2f}s); kernel launches "
         f"{json.dumps(counts)}")
     return run, counts
+
+
+def no_control(label, counts) -> None:
+    """Paged attention ran the Hopper kernel alone: ``paged_plan`` routes
+    to the control only path 1's unsplit prefill chunks."""
+    if counts.get("paged_attention_control", 0):
+        raise AssertionError(
+            f"{label}: the control paged kernel launched "
+            f"{counts['paged_attention_control']} times where the plan "
+            f"sends paged attention to the Hopper kernel")
 
 
 def one_quantizer_per_qmatmul(label, counts) -> None:
@@ -1709,8 +1768,11 @@ def serve_main_path(torch, rows_out, profile: bool):
              prompts[:batch], ("qmatmul", "paged_attention_unsplit"))):
         eng = Engine(cfg, int8, params, paged=True, **geometry, **knobs)
         engines[label] = eng
+        # unsplit, gemma-2b's prefill chunk is one wave of the control's
+        # blocks: paged_plan sends it there (its decode stays on Hopper)
         run, counts = run_path(torch, label, eng, reqs, gen_len,
-                               expect + ("quantize_rows",))
+                               expect + ("quantize_rows",),
+                               control="kv_split" in knobs)
         one_quantizer_per_qmatmul(label, counts)
         record(label, run, counts)
     first_diff = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -2427,6 +2489,7 @@ def serve_resilience(torch, cfg, ctx, params, geometry, prompts, *, record):
             raise AssertionError(f"path 9 {label}: kernels of the path "
                                  f"never launched: {missing} ({counts})")
         one_quantizer_per_qmatmul(f"path 9 {label}", counts)
+        no_control(f"path 9 {label}", counts)
         record(f"path 9 {label}", dict(launches=counts,
                                        wall_s=time.perf_counter() - t0),
                counts)
@@ -3000,6 +3063,8 @@ def _family_cfg(arch: str, depth: int):
 
 
 def _paged_launches(counts) -> int:
+    """The Hopper paged kernel's launches (``run_path`` has held the
+    control's to 0 on every run the plan does not route to it)."""
     return counts["paged_attention_split"] + counts["paged_attention_unsplit"]
 
 
@@ -5567,15 +5632,16 @@ def profile_block(torch, eng, prompts, gen_len):
 #: the redesigned kernels, by their names in ptxas's output (their shared
 #: memory is dynamic, sized at launch; ptxas reports the static part): the
 #: tensor-core flash kernels (TMA and wgmma <DP, consumer warpgroups>;
-#: mma.sync <DP>), the paged kernel (both routes, one instance
-#: per head-dim class), qmatmul (the TMA instances <kind, boxes, rows>:
+#: mma.sync <DP>), the Hopper paged kernel (<float4 columns a lane>) and
+#: the control paged kernel (both routes, one instance per head-dim
+#: class), qmatmul (the TMA instances <kind, boxes, rows>:
 #: kind 0 the weight stream, 1 wgmma; the parent kernel <16, MB> decode,
 #: <128, 1> otherwise), the table kernel (<dtype, gated>), the quantizer's
 #: register path (<dtype, threads a row>) and the flash backward's
 #: kernels (tensor cores: dq and dk/dv blocks in one grid <DP, DC>; CUDA
 #: cores: dk/dv and dq <DJ>)
 PTXAS_KERNELS = ("flash_fwd_wgmma_kernel", "flash_attention_bf16_kernel",
-                 "paged_attention_kernel",
+                 "paged_hopper_kernel", "paged_attention_kernel",
                  "qmatmul_kernel", "qmm_tma_kernel", "lut_kernel",
                  "quantize_rows_vec_kernel",
                  "flash_bwd_bf16_kernel", "flash_bwd_dkdv_kernel",
@@ -5739,6 +5805,16 @@ def kernels_line(rows, counts):
             out[-1]["library_note"] = ("torch._int_mm, then the three "
                                        "reductions in f32 (no epilogue "
                                        "derivative)")
+        if name.startswith("paged_attention"):
+            out[-1]["kernel"] = ("paged_hopper_kernel" if rep["instance"]
+                                 == "hopper" else "paged_attention_kernel")
+            out[-1]["entry"] = ("paged_attention_hopper_launch"
+                                if rep["instance"] == "hopper"
+                                else "paged_attention_launch")
+            out[-1]["plan"] = rep["plan"]
+            out[-1]["control_kernel_ms"] = rep["control_ms"]
+            out[-1]["control_launches"] = counts.get(
+                "paged_attention_control", 0)
         if name == "qmatmul":
             out[-1]["library_note"] = ("none at M 8 (torch._int_mm needs M "
                                        "> 16); context: _int_mm on A padded "
@@ -5847,11 +5923,24 @@ def main(argv=None) -> int:
                 ("14 (dist)",
                  lambda: dist_train_path(torch, report, args.profile))):
             t0 = time.perf_counter()
-            for k, v in run().items():
+            mine = run()
+            if not name.startswith("1-4"):
+                no_control(f"path {name}", mine)
+            for k, v in mine.items():
                 counts[k] = counts.get(k, 0) + v
             torch.cuda.synchronize()
             seconds[name] = time.perf_counter() - t0
-            log(f"[paths] path {name}: {seconds[name]:.1f}s")
+            log(f"[paths] path {name}: {seconds[name]:.1f}s; paged attention "
+                f"hopper {mine.get('paged_attention_split', 0)} split + "
+                f"{mine.get('paged_attention_unsplit', 0)} unsplit, control "
+                f"{mine.get('paged_attention_control', 0)}")
+        # paged attention on the paths: the Hopper kernel, and the control
+        # where paged_plan routes a prefill chunk to it (path 1's
+        # kv_split=1 Engine: gemma-2b's unsplit prefill)
+        log(f"[paths] paged attention launches: hopper "
+            f"{counts.get('paged_attention_split', 0)} split + "
+            f"{counts.get('paged_attention_unsplit', 0)} unsplit, control "
+            f"{counts.get('paged_attention_control', 0)}")
         # every path's bf16 forward runs the TMA kernel (the mma.sync
         # kernel is for head dims and alignments that no path has)
         report["flash_fwd_routes"] = dict(FLASH_FWD_ROUTES)

@@ -64,7 +64,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel wrapper name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "paged_attention_unsplit": 0,
-                            "paged_attention_split": 0, "lut_activation": 0,
+                            "paged_attention_split": 0,
+                            "paged_attention_control": 0, "lut_activation": 0,
                             "flash_attention": 0, "flash_attention_bwd": 0,
                             "lut_gated_mul": 0, "quantize_rows": 0,
                             "lut_activation_bwd": 0, "lut_gated_mul_bwd": 0,
@@ -90,6 +91,10 @@ SIGNATURES = {
         "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _F, _I, _P],
+        "paged_attention_hopper_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                          _P],
     },
     "lut_activation": {
         "lut_activation_launch": [_P, _P, _P, _L, _I, _F, _F, _I, _I, _I,

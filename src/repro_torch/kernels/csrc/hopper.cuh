@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // TMA tile loads through a tensor map (and, on the host, the map's
-// encoder), mbarriers, wgmma (descriptors, fence / commit / wait, the
-// m64n64k16 bf16 products, the m64nNk32 int8 products with A from
-// registers), register reallocation between warpgroups (setmaxnreg) and
-// named barriers.
+// encoder), 1-D bulk copies of contiguous bytes, mbarriers, wgmma
+// (descriptors, fence / commit / wait, the m64n64k16 bf16 products, the
+// m64nNk32 int8 products with A from registers), register reallocation
+// between warpgroups (setmaxnreg) and named barriers.
 //
 // Layout convention: every shared-memory tile that TMA fills and wgmma
 // reads is 64 rows of 128 bytes (64 bf16), written by TMA with the
@@ -70,6 +70,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // -- TMA ---------------------------------------------------------------------
+// `bytes` contiguous bytes (a multiple of 16; source and destination
+// 16-byte aligned) from global memory into shared memory at dst, without a
+// tensor map; completion counts bytes on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // box at (c0, c1, c2) (innermost first) of a 3-D tensor map into shared
 // memory at dst; completion counts bytes on bar.  Elements outside the
 // tensor are filled with zero and never read.

@@ -53,7 +53,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
            "FlashFwdPlan", "flash_fwd_plan", "flash_fwd_route",
            "FLASH_FWD_ROUTES", "FlashBwdPlan", "flash_bwd_plan",
            "paged_attention", "paged_attention_unsplit",
-           "paged_attention_split", "combine_splits", "choose_kv_split",
+           "paged_attention_split", "PagedPlan", "paged_plan",
+           "paged_stages", "paged_call_plan",
+           "combine_splits", "choose_kv_split",
            "auto_pages_per_step", "get_cost_constants", "set_cost_constants",
            "_resolve_knobs"]
 
@@ -626,67 +628,324 @@ def _scale(softmax_scale, d) -> float:
             else float(1.0 / np.sqrt(d)))
 
 
-#: query rows a block of the paged kernel takes (one ticket per tile)
+#: query rows a block of the control paged kernel takes (one ticket per
+#: tile)
 _ROW_TILE = 8
+#: the Hopper paged kernel's limits: page rows (one key a lane of a half
+#: warp), warps a group (two rows a warp), warps a block (the producer and
+#: the groups), ring stages, dynamic shared memory a block (the H100's 227
+#: KB) and the bytes before q's (barriers, slot ids, a flag)
+PAGED_KEYS = 16
+PAGED_ROW_WARPS = 8
+PAGED_MAX_WARPS = 17
+PAGED_MAX_STAGES = 8
+PAGED_SMEM = 232448
+PAGED_HEADER = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """How one paged-attention launch cuts its work
+    (``csrc/paged_attention.cu``).  Both instances walk the reference's
+    ``split`` partitions of ``span`` table entries (``_resolve_knobs``'
+    ``kv_split`` and ``nt * pages_per_step``).
+
+    * ``"hopper"``: a block owns ``rows_per_block = 2 * rw`` query rows of
+      one (batch, KV head) (``row_tiles`` of them cover the group's rows)
+      and ``per`` consecutive entries of one partition (``cpp`` blocks a
+      partition, ``chunks`` in all), which ``groups`` groups of ``rw``
+      warps walk round-robin from a ring of ``stages`` pages that a
+      producer warp fills; with more than one chunk the blocks' partials
+      merge in chunk order (:meth:`entries` gives a chunk's entries);
+    * ``"control"``: the first port's kernel: 8 rows a block, one block a
+      partition, 8 warps taking its pages in turn."""
+    instance: str
+    b: int
+    hkv: int
+    rows: int
+    d: int
+    ps: int
+    np_: int
+    span: int
+    split: int
+    groups: int = 1
+    rw: int = PAGED_ROW_WARPS
+    per: int = 1
+    stages: int = 1
+
+    @property
+    def rows_per_block(self) -> int:
+        if self.instance == "control":
+            return _ROW_TILE
+        return 2 * self.rw
+
+    @property
+    def warps(self) -> int:
+        """Warps a block: the producer and the groups'."""
+        return 8 if self.instance == "control" else 1 + self.groups * self.rw
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.rows // self.rows_per_block)
+
+    @property
+    def cpp(self) -> int:
+        """Blocks of pages a partition."""
+        return 1 if self.instance == "control" else -(-self.span // self.per)
+
+    @property
+    def chunks(self) -> int:
+        """Blocks of pages a (batch, KV head, row tile): partials merged."""
+        return self.split * self.cpp
+
+    @property
+    def blocks(self) -> int:
+        return self.chunks * self.row_tiles * self.b * self.hkv
+
+    @property
+    def smem_bytes(self) -> int:
+        """The Hopper kernel's dynamic shared memory: header, q, ring."""
+        return (PAGED_HEADER + self.rows_per_block * self.d * 4
+                + self.stages * 2 * self.ps * self.d * 4)
+
+    @property
+    def ring(self) -> int:
+        """The most stages (up to ``PAGED_MAX_STAGES``) that fit a block's
+        shared memory beside its q."""
+        page = 2 * self.ps * self.d * 4
+        return max(1, min(PAGED_MAX_STAGES, (PAGED_SMEM - PAGED_HEADER
+                                             - self.rows_per_block * self.d
+                                             * 4) // page))
+
+    def fits(self) -> bool:
+        """What the kernel's launcher checks: shared memory, stages a
+        multiple of the groups (a slot read by one group only), the
+        groups' states in the ring, the merge's weights behind the
+        header."""
+        rtb = self.rows_per_block
+        return (self.smem_bytes <= PAGED_SMEM
+                and self.stages % self.groups == 0
+                and (self.groups - 1) * rtb * (self.d + 2)
+                <= self.stages * 2 * self.ps * self.d
+                and (self.chunks == 1 or (self.chunks + 1) * rtb * 4
+                     <= self.smem_bytes - PAGED_HEADER))
+
+    def entries(self, chunk: int) -> range:
+        """Table entries of block ``chunk`` of a row tile (before the
+        kernel clamps them to the last visible position)."""
+        if self.instance == "control":
+            lo, hi = chunk * self.span, (chunk + 1) * self.span
+        else:
+            sp, sub = divmod(chunk, self.cpp)
+            lo = sp * self.span + sub * self.per
+            hi = min(lo + self.per, (sp + 1) * self.span)
+        return range(min(lo, self.np_), min(hi, self.np_))
+
+
+def _hopper_fits(ps: int, d: int) -> bool:
+    """What the Hopper kernel takes: pages of at most 16 rows, head dims
+    that are multiples of 4 up to 256."""
+    return 1 <= ps <= PAGED_KEYS and d % 4 == 0 and 4 <= d <= MAX_HEAD_DIM
+
+
+#: query positions a lane up to which a call cuts its pages as a decode
+#: step does (verify passes: spec_k + 1), the groups such a block runs,
+#: and the fewest table entries it walks (a block of one entry pays its
+#: q load, partial and merge share for one page: PERF.md section 6)
+PAGED_DECODE_S = 8
+PAGED_DECODE_GROUPS = 4
+PAGED_DECODE_MIN_PER = 2
+
+
+@functools.lru_cache(maxsize=1024)
+def paged_plan(b: int, hkv: int, rows: int, d: int, ps: int, np_: int,
+               span: int, split: int, *, sms: int, s: int = 1,
+               instance: Optional[str] = None) -> PagedPlan:
+    """The launch for one call on a card of ``sms`` SMs: plain Python of
+    the shape (``s`` query positions a lane, ``rows`` = group x ``s``),
+    the reference's partitions (``split`` of ``span`` table entries) and
+    the SM count, as the CPU tests hold it.  ``instance`` forces one (the
+    card's checks time the control beside the plan).
+
+    * ``"control"``, the first port's kernel: for pages of more than 16
+      rows, which the Hopper kernel does not take (the wrapper also routes
+      there pages that are not 16-byte aligned, which the bulk copies
+      cannot address); and for a chunked prefill (``s`` > 8) whose grid of
+      8-row tiles, one block a partition, is at most one wave: there its
+      8 warps a block walk the pages side by side with no merge across
+      blocks, faster than the Hopper kernel (gemma-2b's unsplit prefill,
+      PERF.md section 6);
+    * ``"hopper"`` otherwise.  Rows: blocks of up to 16 (a warp two rows).
+      Pages: each partition cut into the most blocks (``cpp``) that keep
+      one wave of blocks, one an SM, no block walking fewer than one
+      entry, while the merge's weights stay within a block's shared
+      memory; groups of warps walk a block's entries round-robin, so that
+      several pages are in the products at once.  A call of up to 8
+      positions (decode, a verify pass) cuts its pages and picks its
+      groups (up to 4) from the batch, the KV heads and the table alone,
+      no block walking fewer than ``PAGED_DECODE_MIN_PER`` entries,
+      and fits its rows to them: a verify row then takes the same pages,
+      groups and merges as the decode row at its position, bit for bit.
+      A prefill chunk counts its row tiles in the cut and runs as many
+      groups as 16 consumer warps allow.  Ring (:func:`paged_stages`):
+      two pages a group where shared memory holds them and the block
+      walks them, else one."""
+    if instance is None:
+        control = (b * hkv * -(-rows // _ROW_TILE) * split <= sms
+                   and s > PAGED_DECODE_S)
+        instance = ("hopper" if _hopper_fits(ps, d) and not control
+                    else "control")
+    if instance == "control":
+        return PagedPlan("control", b, hkv, rows, d, ps, np_, span, split)
+    if instance != "hopper":
+        raise ValueError(f"paged_plan: no instance {instance!r}")
+    if not _hopper_fits(ps, d):
+        raise ValueError(f"paged_plan: the Hopper kernel takes pages of at "
+                         f"most {PAGED_KEYS} rows and head dims that are "
+                         f"multiples of 4 up to {MAX_HEAD_DIM}, not ps {ps} "
+                         f"D {d}")
+    decode = s <= PAGED_DECODE_S
+    rw = min(PAGED_ROW_WARPS, -(-rows // 2))
+    # a decode-like call cuts its pages as if its rows were one full tile
+    cut = PagedPlan("hopper", b, hkv, 2 * PAGED_ROW_WARPS if decode else rows,
+                    d, ps, np_, span, split, 1, PAGED_ROW_WARPS if decode
+                    else rw)
+    base = b * hkv * cut.row_tiles * split
+    cpp = max(1, min(span, sms // base))
+    while cpp > 1 and not dataclasses.replace(
+            cut, per=-(-span // cpp)).fits():
+        cpp -= 1
+    per = -(-span // cpp)
+    if decode:
+        per = max(per, min(span, PAGED_DECODE_MIN_PER))
+    plan = PagedPlan("hopper", b, hkv, rows, d, ps, np_, span, split, 1, rw,
+                     per)
+    if decode:
+        groups = min(per, PAGED_DECODE_GROUPS)
+        while True:
+            rw = min(rw, (PAGED_MAX_WARPS - 1) // groups)
+            p = dataclasses.replace(plan, groups=groups, rw=rw)
+            p = dataclasses.replace(p, stages=paged_stages(p.ring, per,
+                                                           groups))
+            if rw == 1 or p.fits():
+                return p
+            rw -= 1
+    groups = max(1, min((PAGED_MAX_WARPS - 1) // rw, per, plan.ring))
+    while True:
+        p = dataclasses.replace(plan, groups=groups,
+                                stages=paged_stages(plan.ring, per, groups))
+        if groups == 1 or p.fits():
+            return p
+        groups -= 1
+
+
+def paged_stages(ring: int, per: int, groups: int) -> int:
+    """Two pages a group in flight where the ring holds them and the block
+    walks them, else one: a multiple of the groups."""
+    return groups * (2 if min(ring, per) >= 2 * groups else 1)
+
+
+def paged_call_plan(q, k_pages, v_pages, block_tables, *, kv_split: int = 1,
+                    pages_per_step: int = 1,
+                    instance: Optional[str] = None) -> PagedPlan:
+    """:func:`paged_plan` for one call of :func:`paged_attention_split`
+    (:func:`paged_attention_unsplit`: knobs ``(1, 1)``) on CUDA tensors:
+    the reference's partitions (``kv_split`` of ``nt`` tiles of
+    ``pages_per_step`` entries, clamped to the table), and the control
+    where the pages are not 16-byte aligned (what the bulk copies cannot
+    address) unless ``instance`` forces one."""
+    b, hq, s = q.shape[:3]
+    _, hkv, ps, d = k_pages.shape
+    np_ = block_tables.shape[1]
+    t = max(1, min(int(pages_per_step), np_))
+    tiles = -(-np_ // t)
+    split = max(1, min(int(kv_split), tiles))
+    span = max(1, -(-tiles // split) * t)       # table entries a partition
+    if instance is None and (k_pages.data_ptr() % 16
+                             or v_pages.data_ptr() % 16):
+        instance = "control"
+    return paged_plan(b, hkv, hq // hkv * s, d, ps, np_, span, split,
+                      sms=_cuda.sm_count(q.device), s=s, instance=instance)
 
 
 def _launch_paged(q, k_pages, v_pages, block_tables, qpos, softmax_scale,
-                  what: str, kv_split: int, pages_per_step: int):
-    """One launch of the paged kernel over the reference's partitions:
-    ``kv_split`` of ``nt`` tiles of ``pages_per_step`` entries, clamped
-    to the table (one partition: normalised in place, no scratch)."""
+                  what: str, kv_split: int, pages_per_step: int,
+                  plan: Optional[PagedPlan] = None, lib=None):
+    """One launch of a paged kernel on :func:`paged_call_plan`'s plan (or
+    ``plan``), from ``lib`` (default: the ``paged_attention`` library; a
+    copy built from the same source is timed by ``chip_paged_variants.py``).
+    A launch of the Hopper kernel counts under ``what``, one of the control
+    under ``"paged_attention_control"``."""
     q = q.contiguous()
     b, hq, s, d, p_, hkv, ps, np_ = _check(q, k_pages, v_pages,
                                            block_tables, qpos)
     if d % 4 or d > MAX_HEAD_DIM:
         raise ValueError(f"{what}: head dim {d} is not a multiple of 4 up "
                          f"to {MAX_HEAD_DIM}")
-    t = max(1, min(int(pages_per_step), np_))
-    tiles = -(-np_ // t)
-    split = max(1, min(int(kv_split), tiles))
-    span = max(1, -(-tiles // split) * t)       # table entries a partition
-    rows = hq // hkv * s
+    mine = paged_call_plan(q, k_pages, v_pages, block_tables,
+                           kv_split=kv_split, pages_per_step=pages_per_step,
+                           instance=None if plan is None else plan.instance)
+    if plan is None:
+        plan = mine
+    elif (plan.b, plan.hkv, plan.rows, plan.d, plan.ps, plan.np_, plan.span,
+          plan.split) != (mine.b, mine.hkv, mine.rows, mine.d, mine.ps,
+                          mine.np_, mine.span, mine.split):
+        raise ValueError(f"{what}: the plan is for another call ({plan})")
     out = torch.empty_like(q)
     scratch = [None] * 4
-    if split > 1:
+    if plan.chunks > 1:
         f32 = dict(dtype=torch.float32, device=q.device)
-        acc = torch.empty((split, b, hkv, rows, d), **f32)
-        m = torch.empty((split, b, hkv, rows), **f32)
-        l = torch.empty((split, b, hkv, rows), **f32)
+        rows = plan.rows
+        acc = torch.empty((plan.chunks, b, hkv, rows, d), **f32)
+        m = torch.empty((plan.chunks, b, hkv, rows), **f32)
+        l = torch.empty((plan.chunks, b, hkv, rows), **f32)
         # one per (batch, KV head, row tile), left zeroed by the kernel
         tickets = _cuda.zeroed_scratch("paged_attention_tickets", q.device,
-                                       b * hkv * -(-rows // _ROW_TILE))
+                                       b * hkv * plan.row_tiles)
         scratch = [x.data_ptr() for x in (acc, m, l, tickets)]
-    lib = _cuda.library("paged_attention")
-    err = lib.paged_attention_launch(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(), *scratch,
-        b, hkv, rows, d, s, ps, p_, np_, span, split,
-        _scale(softmax_scale, d), int(q.dtype == torch.bfloat16),
-        _cuda.stream_of(q))
-    _cuda.check(lib, err, what)
-    _cuda.LAUNCHES[what] += 1
+    if lib is None:
+        lib = _cuda.library("paged_attention")
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), qpos.data_ptr(), out.data_ptr(),
+            *scratch, b, hkv, plan.rows, d, s, ps, p_, np_, plan.span,
+            plan.split)
+    if plan.instance == "control":
+        err = lib.paged_attention_launch(
+            *args, _scale(softmax_scale, d), int(q.dtype == torch.bfloat16),
+            _cuda.stream_of(q))
+    else:
+        err = lib.paged_attention_hopper_launch(
+            *args, plan.per, plan.cpp, plan.groups, plan.rw, plan.stages,
+            _scale(softmax_scale, d), int(q.dtype == torch.bfloat16),
+            _cuda.stream_of(q))
+    _cuda.check(lib, err, f"{what} ({plan.instance})")
+    _cuda.LAUNCHES["paged_attention_control" if plan.instance == "control"
+                   else what] += 1
     return out
 
 
 def paged_attention_unsplit(q, k_pages, v_pages, block_tables, qpos, *,
-                            softmax_scale: Optional[float] = None):
-    """The whole table in one partition (knobs ``(1, 1)``): each block's
-    warps take its pages in turn, merge and normalise.  The kernel takes
-    head dims that are multiples of 4 up to 256."""
+                            softmax_scale: Optional[float] = None,
+                            plan: Optional[PagedPlan] = None):
+    """The whole table in one partition (knobs ``(1, 1)``), on
+    :func:`paged_plan`'s kernel and grid (or ``plan``'s).  The kernels
+    take head dims that are multiples of 4 up to 256."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, qpos,
                                    softmax_scale=softmax_scale)
     return _launch_paged(q, k_pages, v_pages, block_tables, qpos,
-                         softmax_scale, "paged_attention_unsplit", 1, 1)
+                         softmax_scale, "paged_attention_unsplit", 1, 1,
+                         plan)
 
 
 def paged_attention_split(q, k_pages, v_pages, block_tables, qpos, *,
                           softmax_scale: Optional[float] = None,
-                          kv_split: int = 1, pages_per_step: int = 1):
+                          kv_split: int = 1, pages_per_step: int = 1,
+                          plan: Optional[PagedPlan] = None):
     """Split-KV flash decoding in one launch: the reference's ``kv_split``
     partitions of ``nt`` tiles of ``pages_per_step`` entries, each walked
-    by its own block; the last block of each row tile combines them.
+    by :func:`paged_plan`'s blocks (or ``plan``'s); the last block of each
+    row tile combines them.
 
     ``kv_split``/``pages_per_step`` are used as given (clamped to the
     table); :func:`paged_attention` resolves auto values first.  Head
@@ -699,7 +958,7 @@ def paged_attention_split(q, k_pages, v_pages, block_tables, qpos, *,
             pages_per_step=pages_per_step)
     return _launch_paged(q, k_pages, v_pages, block_tables, qpos,
                          softmax_scale, "paged_attention_split", kv_split,
-                         pages_per_step)
+                         pages_per_step, plan)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, qpos, *,

@@ -79,17 +79,41 @@ def _fused_epilogue_case(card, indexing, gated, domain):
     assert torch.equal(got, want)
 
 
+#: (S, query group, D, table entries): S 1, 5 and 16 at groups 1, 8 and
+#: 16, each at D 64, 128 and 256 (the widest rows: 16 x 16 = 256 rows of
+#: 256), S 3 at group 2 (6 rows), then a long table (70 entries of 16
+#: rows)
+PAGED_GEOMS = ([(s, group, d, 7) for d in (64, 128, 256) for s in (1, 5, 16)
+                for group in (1, 8, 16)] + [(3, 2, 64, 7)]
+               + [(s, group, d, 70) for d in (64, 128, 256)
+                  for s, group in ((1, 8), (16, 8))])
+
+
+@pytest.mark.parametrize("instance", ["hopper", "control"])
 @pytest.mark.parametrize("knobs", [(1, 1), (2, 1), (3, 2), (2, 8), (4, 1),
                                    (16, 1), (32, 1)])
-@pytest.mark.parametrize("s,group", [(1, 8), (16, 8), (3, 2), (1, 1)])
-def test_paged_attention_kernels_match_plain(card, knobs, s, group):
+@pytest.mark.parametrize("geom", PAGED_GEOMS,
+                         ids=lambda g: "s{}g{}d{}w{}".format(*g))
+def test_paged_attention_kernels_match_plain(card, geom, knobs, instance):
     """(split, tile) pairs: the reference's points, and the one-page tiles
     with 4 to 32 partitions that the fitted autotuner picks; a table wider
-    than the split, so that no split is clamped away."""
-    from repro_torch.kernels import ops
+    than the split, so that no split is clamped away; both kernels (the
+    Hopper kernel on its plan's grid, the control), each counted by its
+    launch count; a dead lane on the trash page, and garbage past each
+    live lane's visible prefix that must never leak; and the op layer
+    (its knob resolution and the plan's own routing) against its
+    ``backend="ref"``."""
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.kernels.flash_attention import (_resolve_knobs,
+                                                     paged_attention_split,
+                                                     paged_attention_unsplit,
+                                                     paged_call_plan)
+    from repro_torch.kernels.ref import (paged_attention_ref,
+                                         paged_attention_split_ref)
+    s, group, d, width0 = geom
     split, tile = knobs
-    b, hkv, d, ps = 3, 2, 64, 16
-    width = max(7, split + 3)
+    b, hkv, ps = 3, 2, 16
+    width = max(width0, split + 3)
     npg = max(30, b * width + 1)
     q = torch.randn((b, hkv * group, s, d), generator=card, device="cuda")
     kp = torch.randn((npg, hkv, ps, d), generator=card, device="cuda")
@@ -99,20 +123,49 @@ def test_paged_attention_kernels_match_plain(card, knobs, s, group):
     bt[2] = npg - 1                         # a dead lane on the trash page
     qpos = torch.tensor([5, width * ps - s, 0], dtype=torch.int32,
                         device="cuda")
-    got = ops.paged_attention(q, kp, vp, bt, qpos, kv_split=split,
-                              pages_per_step=tile)
-    want = ops.paged_attention(q, kp, vp, bt, qpos, kv_split=split,
-                               pages_per_step=tile, backend="ref")
+    t, split = _resolve_knobs(width, ps, hkv, b, split, tile)
+    plan = paged_call_plan(q, kp, vp, bt, kv_split=split, pages_per_step=t,
+                           instance=instance)
+    unsplit = (t, split) == (1, 1)
+    name = ("paged_attention_control" if instance == "control" else
+            "paged_attention_unsplit" if unsplit else
+            "paged_attention_split")
+
+    def run(kp, vp):
+        if unsplit:
+            return paged_attention_unsplit(q, kp, vp, bt, qpos, plan=plan)
+        return paged_attention_split(q, kp, vp, bt, qpos, kv_split=split,
+                                     pages_per_step=t, plan=plan)
+    before = _cuda.LAUNCHES[name]
+    got = run(kp, vp)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 1
+    want = (paged_attention_ref(q, kp, vp, bt, qpos) if unsplit else
+            paged_attention_split_ref(q, kp, vp, bt, qpos, kv_split=split,
+                                      pages_per_step=t))
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    if instance == "hopper":
+        torch.testing.assert_close(
+            ops.paged_attention(q, kp, vp, bt, qpos, kv_split=knobs[0],
+                                pages_per_step=tile),
+            ops.paged_attention(q, kp, vp, bt, qpos, kv_split=knobs[0],
+                                pages_per_step=tile, backend="ref"),
+            rtol=2e-5, atol=2e-5)
+        if knobs == (1, 1):         # once a geometry: the auto knobs
+            torch.testing.assert_close(
+                ops.paged_attention(q, kp, vp, bt, qpos),
+                ops.paged_attention(q, kp, vp, bt, qpos, backend="ref"),
+                rtol=2e-5, atol=2e-5)
     # garbage past each lane's visible prefix never leaks
     kp2, vp2 = kp.clone(), vp.clone()
     for lane in range(2):
-        for t in range(int(qpos[lane]) + s, width * ps):
-            pg = int(bt[lane, t // ps])
-            kp2[pg, :, t % ps] = 1e4
-            vp2[pg, :, t % ps] = float("nan")
-    again = ops.paged_attention(q, kp2, vp2, bt, qpos, kv_split=split,
-                                pages_per_step=tile)
+        lo = int(qpos[lane]) + s
+        for e in range(lo // ps, width):
+            rows = slice(lo - e * ps if e == lo // ps else 0, ps)
+            pg = int(bt[lane, e])
+            kp2[pg, :, rows] = 1e4
+            vp2[pg, :, rows] = float("nan")
+    again = run(kp2, vp2)
     assert torch.equal(again[:2], got[:2])
 
 

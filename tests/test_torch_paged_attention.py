@@ -249,17 +249,22 @@ def test_cost_constants_round_trip():
 
 # -- the CUDA kernel's schedule, modelled in torch --------------------------
 def _warp_schedule(q, kp, vp, bt, qpos, *, warps=8, rows_per_block=8,
-                   kv_split=1, pages_per_step=1):
-    """The paged kernel's schedule (csrc/paged_attention.cu) in f32: per
-    (batch, KV head, 8-row tile) and partition -- the reference's entries
-    ``[sp * nt * t, (sp + 1) * nt * t)`` -- the partition's entries up to
-    the last visible position dealt round-robin to ``warps`` warps; each
-    warp runs its own online softmax page by page (rows past the last
-    visible position of any row of the block never read, out-of-range
-    page ids skipped, a p of 0 multiplies nothing); the warps merge with
-    ``combine_splits`` into the partition's (acc, m, l), and the
-    partitions merge with ``combine_splits`` again.  One partition
-    (``kv_split=1``) is the unsplit route."""
+                   kv_split=1, pages_per_step=1, pages_per_block=None):
+    """The paged kernels' schedules (csrc/paged_attention.cu) in f32: per
+    (batch, KV head, ``rows_per_block``-row tile) and partition -- the
+    reference's entries ``[sp * nt * t, (sp + 1) * nt * t)`` -- the
+    partition's entries up to the last visible position dealt round-robin
+    to ``warps`` warps; each warp runs its own online softmax page by page
+    (rows past the last visible position of any row of the block never
+    read, out-of-range page ids skipped, a p of 0 multiplies nothing); the
+    warps merge with ``combine_splits`` into the partition's (acc, m, l),
+    and the partitions merge with ``combine_splits`` again.  One partition
+    (``kv_split=1``) is the unsplit route.  That is the control kernel;
+    the Hopper kernel is ``pages_per_block`` with ``warps`` its groups of
+    warps: each partition cut into blocks of that many entries, each
+    block's entries dealt round-robin to the groups and their states
+    merged by the first ``combine_splits``, and every block of a row tile
+    merged by the second, in block order."""
     b, hq, s, d = q.shape
     n_pages, hkv, ps, _ = kp.shape
     np_ = bt.shape[1]
@@ -267,6 +272,7 @@ def _warp_schedule(q, kp, vp, bt, qpos, *, warps=8, rows_per_block=8,
     tiles = -(-np_ // t)
     split = max(1, min(kv_split, tiles))
     span = -(-tiles // split) * t
+    per = span if pages_per_block is None else pages_per_block
     qf = tref._fold(q, hkv).to(torch.float32) * float(1.0 / np.sqrt(d))
     rows = qf.shape[2]
     out = torch.zeros_like(qf)
@@ -279,14 +285,15 @@ def _warp_schedule(q, kp, vp, bt, qpos, *, warps=8, rows_per_block=8,
                 qt, qpt = qf[bi, h, r0:r0 + rows_per_block], \
                     qp[r0:r0 + rows_per_block, None]
                 parts = []
-                for sp in range(split):
-                    e1 = min(npages, (sp + 1) * span)
+                for e0 in (e for sp in range(split)
+                           for e in range(sp * span, (sp + 1) * span, per)):
+                    e1 = min(npages, e0 + per, (e0 // span + 1) * span)
                     states = []
                     for w in range(warps):
                         m = torch.full((qt.shape[0], 1), -1e30)
                         l = torch.zeros_like(m)
                         acc = torch.zeros_like(qt)
-                        for e in range(sp * span + w, e1, warps):
+                        for e in range(e0 + w, e1, warps):
                             pg = int(bt[bi, e])
                             if not 0 <= pg < n_pages:
                                 continue
